@@ -1,0 +1,88 @@
+"""Plan encoder: cached compact layouts plus the signature they came from.
+
+Port of ``repro.core.encoder`` (encode and signature; the refresh
+policies ``maybe_refresh``/``refresh_if_stale`` belong to the training
+slice). ``sig`` is the same uint32 hash as the JAX package's, bit for
+bit, held in an int64 tensor: every multiply and add is masked to 32 bits.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.core import grouped
+
+_MIX = 2654435761        # Knuth's multiplicative-hash constant (odd)
+_FOLD = 1000003          # layer-fold multiplier (odd)
+_U32 = 0xFFFFFFFF
+
+
+class PlanState(NamedTuple):
+    """Cached sparse metadata of a param tree + the hash it was built from.
+
+    ``plans`` mirrors the params nesting with a GroupPlan at every FLGW
+    projection (``{}`` when the grouped path is off). ``sig`` is the
+    layout signature (:func:`plan_signature`), a 0-d int64 tensor in
+    ``[0, 2**32)``.
+    """
+    plans: Any
+    sig: torch.Tensor
+
+    def __bool__(self) -> bool:           # truthiness == "has any plans"
+        return bool(self.plans)
+
+
+def empty_state(device=None) -> PlanState:
+    return PlanState({}, torch.zeros((), dtype=torch.int64, device=device))
+
+
+def _layout_ranks(scores: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pref, rank) of one grouping side; ``scores``: (..., M, G).
+
+    ``pref`` is each item's argmax group; ``rank`` its position within
+    that group under (strength desc, index asc) -- together they fix the
+    balanced deal's placement bitwise.
+    """
+    g = scores.shape[-1]
+    pref = scores.argmax(-1)
+    strength = scores.amax(-1)
+    order = torch.argsort(-strength, dim=-1, stable=True)   # ties: index asc
+    pref_sorted = pref.gather(-1, order)
+    groups = torch.arange(g, device=scores.device)
+    cnt = (pref_sorted[..., None] == groups).long().cumsum(-2)
+    rank_sorted = cnt.gather(-1, pref_sorted[..., None])[..., 0] - 1
+    rank = torch.zeros_like(rank_sorted).scatter_(-1, order, rank_sorted)
+    return pref, rank
+
+
+def plan_signature(params: dict) -> torch.Tensor:
+    """uint32 hash (in an int64 tensor) of every FLGW layer's layout.
+
+    Per layer and grouping side it hashes the argmax vector and the
+    placement-rank vector with odd per-position weights, folding layers
+    with an odd multiplier -- ``repro.core.encoder.plan_signature``'s
+    arithmetic modulo 2**32. No product overflows int64: the values are
+    below 2**31 and the weights below 2**32.
+    """
+    h = 0
+    salt = 1
+    for _, p in grouped.iter_flgw_layers(params):
+        for scores in (p["ig"], p["og"].transpose(-1, -2)):
+            for idx in _layout_ranks(scores.detach()):
+                v = idx.reshape(-1).to(torch.int64)
+                pos = torch.arange(v.shape[0], dtype=torch.int64,
+                                   device=v.device)
+                w = ((((pos * _MIX) & _U32) + salt) & _U32) | 1
+                term = ((((v + 1) & _U32) * w) & _U32).sum() & _U32
+                h = (((h * _FOLD) & _U32) + term) & _U32
+                salt += 2
+    return torch.as_tensor(h, dtype=torch.int64)
+
+
+def encode_plans(params: dict, cfg) -> PlanState:
+    """One encoding pass over a param tree: plans + their signature.
+    ``cfg`` is the layer's FLGWConfig (anything with ``capacity_slack``)."""
+    return PlanState(grouped.encode_plans(params, cfg),
+                     plan_signature(params))
+
