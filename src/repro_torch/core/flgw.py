@@ -15,7 +15,6 @@ ported yet, so both FLGW paths refuse to build a graph.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import torch
 
@@ -26,9 +25,7 @@ class FLGWConfig:
 
     groups: int = 1                 # G; G == 1 => dense (no pruning)
     path: str = "masked"            # "dense" | "masked" | "grouped"
-    ste_temperature: float = 1.0    # softmax temperature of the STE surrogate
     capacity_slack: float = 1.25    # grouped path: per-group capacity slack
-    dtype: Any = torch.float32
 
     @property
     def enabled(self) -> bool:

@@ -18,7 +18,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+CHECKOUT = CSRC.parents[2]
+BUILD_DIR = CHECKOUT / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 SOURCES = ("plan_encode", "flgw_matmul")
@@ -37,8 +38,19 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _check_checkout() -> None:
+    """The kernels build only from a checkout's ``src/repro_torch``, so the
+    cache stays inside that checkout and is never shared with another."""
+    if CSRC.parents[1].name != "src":
+        raise RuntimeError(
+            f"repro_torch is imported from {CSRC.parents[1]}, not from a "
+            "checkout's src/ directory: put <checkout>/src on the path so "
+            "the kernels build into <checkout>/build/repro_torch")
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
+    _check_checkout()
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
@@ -49,6 +61,7 @@ def build(names=SOURCES) -> dict[str, str]:
     ``nvcc`` processes at once. Returns ``{name: compiler output}`` for
     the libraries built by this call (ptxas register and shared-memory
     report included); raises with the compiler's output on a failure."""
+    _check_checkout()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:

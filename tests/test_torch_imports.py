@@ -71,3 +71,16 @@ def test_kernel_wrappers_refuse_other_devices_and_mixes():
         on_cpu(meta)
     with pytest.raises(ValueError, match="all lie on the CPU"):
         fm_ops.grouped_bmm(meta, torch.empty((2, 4, 5)))
+
+
+def test_kernel_cache_stays_inside_the_checkout(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+    assert _build.BUILD_DIR == _build.CHECKOUT / "build" / "repro_torch"
+    assert _build.CSRC.parents[1] == _build.CHECKOUT / "src"
+    installed = tmp_path / "site-packages" / "repro_torch" / "csrc"
+    monkeypatch.setattr(_build, "CSRC", installed)
+    with pytest.raises(RuntimeError, match="not from a checkout's src/"):
+        _build.library_path("flgw_matmul")
+    with pytest.raises(RuntimeError, match="not from a checkout's src/"):
+        _build.build()
+    assert not (tmp_path / "build").exists()
