@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
-The path is IC3Net's actor half at full width: the registered ``ic3net``
-config (hidden 128, 8 agents) with FLGW G=4 on the grouped path,
-predator-prey 10x10 with 30 steps, B=16 environments, random weights from
-a seed. The script
+Two paths, each at full width with random weights from a seed:
+
+* IC3Net's actor half: the registered ``ic3net`` config (hidden 128,
+  8 agents) with FLGW G=4 on the grouped path, predator-prey 10x10 with
+  30 steps, B=16 environments;
+* serving gemma2-2b: the registered ``gemma2_2b`` config (26 layers,
+  d 2304, vocab 256,000, bf16) with FLGW G=4 on the grouped path for the
+  MLP and attention projections and the flash-attention prefill.
+
+The script
 
   1. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
      per source, in parallel);
@@ -21,7 +27,17 @@ a seed. The script
      (rewards, observations and success exact; logp, value, entropy and
      gate_logp within 1e-4); times rollouts (env-steps/s); and profiles
      one encode + rollout (device busy share, kernel device times);
-  4. prints one ``{"kernels": [...]}`` line, the card's name and power
+  4. holds ``fused_bmm`` against its plain version at each FLGW projection
+     shape of gemma2-2b for 4 and 4096 rows (bf16; one f32 case) and
+     ``flash_fwd`` at the prefill's shapes, timing each against its plain
+     version and a PyTorch call; then, with every launch count at 0,
+     builds a ``certify`` ServeSession, runs a B=4 x S=1024 prefill, one
+     lockstep Engine run (4 requests, prompt 64, gen 32) and one
+     continuous run (16 synthetic requests), and checks which kernels the
+     path launched; replays a 4-layer cut of the same weights on the CPU
+     (prefill B=1 x S=256 and 8 greedy decode steps from the card's KV
+     cache); and profiles one prefill plus 8 decode steps;
+  5. prints one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -37,6 +53,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -52,9 +69,17 @@ from repro_torch.kernels.plan_encode import ops as pe_ops  # noqa: E402
 from repro_torch.kernels.plan_encode import ref as pe_ref  # noqa: E402
 from repro_torch.kernels.tiling import compute_cap  # noqa: E402
 from repro_torch.marl import envs, ic3net, train  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.core import encoder as planenc  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.serving import (Engine, Request, ServeSession,  # noqa: E402
+                                 max_seq_for, plan_cache, synthetic_requests)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 BATCH = 16
 SEED = 0
 ENV = dict(n_agents=8, size=10, vision=1, max_steps=30)
@@ -84,9 +109,10 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             peak: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -176,10 +202,10 @@ def check_bmm_kernel(model, plans, rows_b: int) -> list[dict]:
 
 
 def same_plans(a, b) -> bool:
-    if a.keys() != b.keys():
-        return False
-    return all(torch.equal(x.cpu(), y.cpu())
-               for k in a for x, y in zip(a[k][:6], b[k][:6]))
+    """Two nested plan trees hold bitwise the same layouts (``wc`` aside)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_plans(a[k], b[k]) for k in a)
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a[:6], b[:6]))
 
 
 def run_slice(model, cpu_model, env, ecfg, kernels) -> dict:
@@ -202,8 +228,8 @@ def run_slice(model, cpu_model, env, ecfg, kernels) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {k.symbol: k.launches for k in kernels}
-    for k in kernels:
-        check(launches[k.symbol] > 0, f"{k.symbol} launched on the path")
+    for name in ("plan_rank", "plan_place", "grouped_bmm_f32"):
+        check(launches[name] > 0, f"{name} launched on the IC3Net path")
 
     # Replay the card's episodes on the CPU through the plain path.
     start = env.reset(train.make_generator(SEED, model.device), ecfg, BATCH)
@@ -246,20 +272,18 @@ def run_slice(model, cpu_model, env, ecfg, kernels) -> dict:
         success_rate=float(r.success.float().mean()))
 
 
-def profile_path(model, env, ecfg, names) -> dict:
-    """torch.profiler over one encode + one B=16 rollout: how many kernels
-    the device ran, how much of the wall time it was busy, and each port
-    kernel's device time. The profiler's own cost inflates the wall."""
+def profile(fn, names) -> dict:
+    """torch.profiler over one call of ``fn``: how many kernels the device
+    ran, how much of the wall time it was busy, and each port kernel's
+    device time (``names``: launch-count symbol -> a substring of its
+    CUDA kernel's name). The profiler's own cost inflates the wall."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    gen = train.make_generator(SEED + 99, model.device)
+    from torch.profiler import ProfilerActivity, profile as torch_profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            plans = model.encode_plans()
-        train.rollout(model, env, ecfg, gen, BATCH, plans)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -280,6 +304,325 @@ def profile_path(model, env, ecfg, names) -> dict:
              for n, v in top])
 
 
+def profile_path(model, env, ecfg, names) -> dict:
+    """The profiler over one encode + one B=16 rollout."""
+    gen = train.make_generator(SEED + 99, model.device)
+
+    def run():
+        with torch.inference_mode():
+            plans = model.encode_plans()
+        train.rollout(model, env, ecfg, gen, BATCH, plans)
+    return profile(run, names)
+
+
+def print_profile(what: str, prof: dict) -> None:
+    share = prof["device_busy_share"]
+    print(f"profile ({what}): {prof['device_events']} device events, busy "
+          f"{prof['device_busy_us']:.0f} of {prof['wall_us']:.0f} us (share "
+          f"{'not measured' if share is None else f'{share:.4f}'}); "
+          + ", ".join(f"{k} {v['launches']}x {v['device_us_mean']} us"
+                      for k, v in prof["kernels"].items()), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Serving gemma2-2b
+# ---------------------------------------------------------------------------
+
+SERVE_FLGW = dict(flgw_groups=4, flgw_path="grouped",
+                  flgw_targets=("mlp", "attn"), use_flash=True)
+SERVE_BATCH = 4               # engine capacity (examples/serve.py default)
+PROMPT, GEN = 64, 32          # examples/serve.py defaults
+PREFILL_SEQ = 1024
+FUSED_BF16_TOL = dict(rtol=1e-2, atol=1e-3)   # f32 sums, one bf16 rounding
+FUSED_F32_TOL = dict(rtol=1e-5, atol=1e-5)
+FLASH_BF16_TOL = dict(rtol=1e-2, atol=1e-2)   # |out| < 4, one bf16 rounding
+LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+# card vs CPU, both bf16 with f32 sums: 4 layers of activations rounded to
+# bf16 at the same places but from sums taken in other orders
+REPLAY_BF16_TOL = dict(rtol=5e-2, atol=5e-2)
+SERVE_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
+                 "grouped_bmm_f32": "grouped_bmm_kernel",
+                 "fused_bmm": "fused_bmm_bf16_kernel",
+                 "fused_bmm split-K sum": "reduce_splits_kernel",
+                 "flash_fwd": "flash_fwd_kernel"}
+
+
+def serve_params(cfg, device) -> dict:
+    return transformer.lm_init(
+        torch.Generator(device=device).manual_seed(SEED), cfg)
+
+
+def check_fused_kernel(params, cfg) -> list[dict]:
+    """fused_bmm against its plain version at each FLGW projection of
+    block 0's local slot (the shapes every layer repeats), for a decode
+    step's 4 rows and a prefill's 4096, in bf16; one f32 case."""
+    with torch.inference_mode():
+        state = planenc.attach_compact(transformer.encode_plans(params, cfg),
+                                       params)
+    blk = transformer._index(state.plans["blocks"], 0)["slot0"]
+    blkp = transformer._index(params["blocks"], 0)["slot0"]
+    projs = [("mixer", n) for n in "qkvo"] + [("ffn", n)
+                                              for n in ("up", "gate", "down")]
+    gen = torch.Generator(device=params["embed"]["embedding"].device)
+    gen.manual_seed(SEED + 2)
+    rows = []
+    cases = [(r, torch.bfloat16) for r in (4, 4096)] + [(64, torch.float32)]
+    for n_rows, dtype in cases:
+        for part, name in projs:
+            if dtype == torch.float32 and name != "q":
+                continue
+            plan = blk[part][name]
+            m, n = blkp[part][name]["w"].shape
+            dev = plan.wc.device
+            x = torch.randn((n_rows, m), generator=gen, device=dev).to(dtype)
+            ids = torch.where(plan.row_valid, plan.row_ids, m).to(torch.int32)
+            xp = fm_ops.sink_transposed(x)
+            wc = plan.wc.to(dtype).contiguous()
+            y = fm_ops.fused_bmm(xp, wc, ids)
+            y_ref = fm_ref.ref_fused_bmm(xp, wc, ids)
+            err = float((y.float() - y_ref.float()).abs().max())
+            tol = FUSED_F32_TOL if dtype == torch.float32 else FUSED_BF16_TOL
+            check(torch.allclose(y.float(), y_ref.float(), **tol),
+                  f"fused_bmm == plain at {name}, {n_rows} rows, {dtype} "
+                  f"(max abs err {err})")
+            g, k, nc = wc.shape
+            xg = xp[ids.long()].transpose(1, 2).contiguous()
+            es = x.element_size()
+            nbytes = es * (n_rows * (m + 1) + g * k * nc + g * n_rows * nc) \
+                + 4 * g * k
+            ops = 2 * g * n_rows * k * nc
+            peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+            bnd, by = bound_ms(nbytes, ops, peak)
+            big = n_rows * k * nc > 1e8
+            it, wu = (20, 3) if big else (100, 10)
+            rows.append(dict(
+                proj=name, rows=n_rows, dtype=str(dtype), m=m, n=n, g=g,
+                cap_m=k, cap_n=nc, max_abs_err=err,
+                ms=time_ms(lambda: fm_ops.fused_bmm(xp, wc, ids), it, wu),
+                plain_ms=time_ms(lambda: fm_ref.ref_fused_bmm(xp, wc, ids),
+                                 it, wu),
+                library_ms=time_ms(lambda: torch.bmm(xg, wc), it, wu),
+                library="torch.bmm on pre-gathered operands (gather not "
+                        "counted)",
+                bound_ms=bnd, bound_by=by, peak_ops_per_s=peak))
+            rows[-1]["tflops"] = ops / rows[-1]["ms"] / 1e9
+    return rows
+
+
+def _attn_pairs(s: int, window: int) -> int:
+    """Allowed (query, key) pairs of a causal mask with an optional
+    window: the work this run's masks need."""
+    return sum(min(q + 1, window) if window > 0 else q + 1 for q in range(s))
+
+
+def check_flash_kernel(cfg, device) -> list[dict]:
+    """flash_fwd against its plain version (f32 math) at the prefill's
+    shapes, and timed against SDPA with softcap 0 (SDPA has none)."""
+    import torch.nn.functional as F
+    b, hq, hkv, d = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    rows = []
+    for s, window in ((PREFILL_SEQ, 4096), (PREFILL_SEQ, 0), (512, 128)):
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=device)
+                   .to(torch.bfloat16) for h in (hq, hkv, hkv))
+        kw = dict(causal=True, window=window, softcap=cfg.attn_softcap)
+        out, lse = fa_ops.flash_fwd(q, k, v, **kw)
+        o_ref, l_ref = fa_ref.ref_flash_fwd(q, k, v, **kw)
+        err = float((out.float() - o_ref.float()).abs().max())
+        lerr = float((lse - l_ref).abs().max())
+        check(torch.allclose(out.float(), o_ref.float(), **FLASH_BF16_TOL)
+              and torch.allclose(lse, l_ref, **LSE_TOL),
+              f"flash_fwd == plain at S={s} window={window} (max abs err "
+              f"{err}, lse {lerr})")
+        pairs = _attn_pairs(s, window)
+        nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 4 * b * hq * s
+        bnd, by = bound_ms(nbytes, 4 * d * pairs * b * hq, BF16_OPS_PER_S)
+        kw0 = dict(kw, softcap=0.0)
+        row = dict(
+            s=s, window=window, max_abs_err=err, lse_max_abs_err=lerr,
+            ms=time_ms(lambda: fa_ops.flash_fwd(q, k, v, **kw), 20, 3),
+            plain_ms=time_ms(lambda: fa_ref.ref_flash_fwd(q, k, v, **kw),
+                             10, 2),
+            ms_softcap0=time_ms(lambda: fa_ops.flash_fwd(q, k, v, **kw0),
+                                20, 3),
+            bound_ms=bnd, bound_by=by, peak_ops_per_s=BF16_OPS_PER_S,
+            library_ms=None)
+        if window == 0 or window >= s:      # SDPA's causal mask is the same
+            row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 20, 3)
+            row["library"] = ("F.scaled_dot_product_attention(is_causal, "
+                              "enable_gqa), against ms_softcap0")
+        rows.append(row)
+    return rows
+
+
+def run_serve(cfg, params, kernels) -> dict:
+    """The serving path with every launch count at 0 first: a certify
+    session, a B=4 x S=1024 prefill, one lockstep and one continuous
+    Engine run."""
+    plan_cache.clear()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session = ServeSession(cfg, params, plan_policy="certify")
+    torch.cuda.synchronize()
+    session_s = time.perf_counter() - t0
+    dev = session.device
+    rng = torch.Generator(device=dev).manual_seed(SEED + 4)
+    tok = torch.randint(0, cfg.vocab, (SERVE_BATCH, PREFILL_SEQ),
+                        generator=rng, device=dev)
+    batch = {"tokens": tok, "positions": torch.arange(
+        PREFILL_SEQ, device=dev).expand(SERVE_BATCH, PREFILL_SEQ)}
+    prefill_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = session.prefill(batch)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    check(logits.shape == (SERVE_BATCH, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          "prefill logits finite, (B, 1, vocab)")
+
+    prompts = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab, (SERVE_BATCH, PROMPT)).astype(np.int32)
+    lock_reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=GEN)
+                 for i in range(SERVE_BATCH)]
+    lock = Engine(session, SERVE_BATCH, max_seq_for(lock_reqs),
+                  admission="lockstep").run(lock_reqs)
+    cont_reqs = synthetic_requests(1, 16, vocab=cfg.vocab, p_arrive=0.5,
+                                   prompt_len=(PROMPT // 2, PROMPT),
+                                   gen_len=(GEN // 2, GEN))
+    cont = Engine(session, SERVE_BATCH, max_seq_for(cont_reqs),
+                  admission="continuous").run(cont_reqs)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in kernels}
+    for name in ("plan_rank", "plan_place", "fused_bmm", "flash_fwd"):
+        check(launches[name] > 0, f"{name} launched on the serving path")
+    check(launches["grouped_bmm_f32"] == 0,
+          "grouped_bmm_f32 not launched on the serving path")
+    for rep, reqs in ((lock, lock_reqs), (cont, cont_reqs)):
+        check(rep.generated_tokens == sum(r.max_new_tokens for r in reqs)
+              and all(0 <= t < cfg.vocab for r in rep.records
+                      for t in r.tokens),
+              f"{rep.admission}: every request completed with valid ids")
+    return dict(
+        launches=launches, session_s=session_s, prefill_s=prefill_s,
+        prefill_ms=statistics.median(prefill_s) * 1e3,
+        prefill_tokens_per_s=SERVE_BATCH * PREFILL_SEQ
+        / statistics.median(prefill_s),
+        lockstep=lock.summary(), continuous=cont.summary(),
+        plan_cache=plan_cache.stats(), session=session)
+
+
+def _blocks_slice(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _blocks_slice(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _to(tree, device, copy: bool = False):
+    if isinstance(tree, dict):
+        return {k: _to(v, device, copy) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, copy=copy)
+    return tree
+
+
+def _decode_steps(session, cfg, prompt, steps, cache=None, feed=None):
+    """Replay ``prompt`` through the decode path (hidden states only) and
+    take ``steps`` greedy steps, or the tokens ``feed`` gives. Returns
+    (per-step logits, tokens fed, the cache just before the steps)."""
+    params = session.params
+    dev = session.device
+    run = transformer.lm_apply
+    with torch.inference_mode():
+        if cache is None:
+            cache = session.new_cache(1, len(prompt) + steps)
+            for t in range(len(prompt) - 1):
+                _, _, cache = run(params, cfg, torch.tensor(
+                    [[int(prompt[t])]], device=dev), torch.tensor(
+                    [[t]], device=dev), cache=cache, return_hidden=True)
+        # a copy: the steps below write the ring buffers in place
+        snap = _to(dict(cache, plans=()), "cpu", copy=True)
+        logits, fed = [], [int(prompt[-1])]
+        pos = len(prompt) - 1
+        for j in range(steps):
+            lg, _, cache = run(params, cfg, torch.tensor([[fed[-1]]], device=dev),
+                               torch.tensor([[pos + j]], device=dev),
+                               cache=cache)
+            logits.append(lg[0, -1].float().cpu())
+            if j + 1 < steps:
+                fed.append(int(lg[0, -1].argmax()) if feed is None
+                           else feed[j + 1])
+    return torch.stack(logits), fed, snap
+
+
+def cpu_replay(cfg, params) -> dict:
+    """The first 2 blocks (4 layers) of the served weights, full width
+    and vocab, on the card and on the CPU: the same B=1 x S=256 prefill
+    and 8 greedy decode steps (the CPU's from the card's KV cache, fed
+    the card's tokens); logits within REPLAY_BF16_TOL, greedy tokens
+    equal wherever the CPU's top-2 margin exceeds that tolerance."""
+    cfg4 = cfg.with_updates(n_layers=4)
+    card_p = dict(params, blocks=_blocks_slice(params["blocks"], 2))
+    cpu_p = _to(card_p, "cpu")
+    card = ServeSession(cfg4, card_p)
+    cpu = ServeSession(cfg4, cpu_p)
+    check(same_plans(card.plans.plans, cpu.plans.plans)
+          and int(card.plans.sig) == int(cpu.plans.sig),
+          "plans encoded on the card == plans encoded on the CPU (4 layers)")
+    prompt = np.random.default_rng(SEED + 5).integers(0, cfg.vocab, 256)
+    batch = {"tokens": torch.as_tensor(prompt[None]),
+             "positions": torch.arange(256)[None]}
+    t0 = time.perf_counter()
+    want = cpu.prefill(batch)[0, 0]
+    cpu_prefill_s = time.perf_counter() - t0
+    got = card.prefill(_to(batch, card.device))[0, 0].float().cpu()
+    errs = {"prefill": float((got - want).abs().max())}
+    check(torch.allclose(got, want, **REPLAY_BF16_TOL),
+          f"replay prefill logits within {REPLAY_BF16_TOL} (max abs err "
+          f"{errs['prefill']})")
+    card_lg, fed, snap = _decode_steps(card, cfg4, prompt, 8)
+    cache = dict(snap, plans=cpu.new_cache(1, 1)["plans"])
+    t0 = time.perf_counter()
+    cpu_lg, _, _ = _decode_steps(cpu, cfg4, prompt, 8, cache=cache, feed=fed)
+    cpu_decode_s = time.perf_counter() - t0
+    errs["decode"] = float((card_lg - cpu_lg).abs().max())
+    check(torch.allclose(card_lg, cpu_lg, **REPLAY_BF16_TOL),
+          f"replay decode logits within {REPLAY_BF16_TOL} (max abs err "
+          f"{errs['decode']})")
+    top2 = cpu_lg.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    clear = margin > (REPLAY_BF16_TOL["atol"]
+                      + REPLAY_BF16_TOL["rtol"] * top2[:, 0].abs())
+    same = card_lg.argmax(-1) == cpu_lg.argmax(-1)
+    check(bool(same[clear].all()),
+          "greedy tokens equal where the top-2 margin exceeds the tolerance")
+    return dict(max_abs_err=errs, greedy_tokens=fed, clear_steps=int(clear.sum()),
+                equal_tokens=int(same.sum()), cpu_prefill_s=cpu_prefill_s,
+                cpu_decode_s=cpu_decode_s, tol=REPLAY_BF16_TOL)
+
+
+def profile_serve(session, cfg) -> dict:
+    """The profiler over one B=4 x S=1024 prefill and 8 decode steps."""
+    dev = session.device
+    tok = torch.randint(0, cfg.vocab, (SERVE_BATCH, PREFILL_SEQ), device=dev)
+    batch = {"tokens": tok, "positions": torch.arange(
+        PREFILL_SEQ, device=dev).expand(SERVE_BATCH, PREFILL_SEQ)}
+    cache = session.new_cache(SERVE_BATCH, 16)
+
+    def run():
+        nonlocal cache
+        session.prefill(batch)
+        nxt = tok[:, :1]
+        for t in range(8):
+            nxt, cache = session.decode(cache, nxt, session.greedy_positions(
+                SERVE_BATCH, t))
+    return profile(run, SERVE_KERNELS)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -297,7 +640,10 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    all_kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM, fm_ops.FUSED,
+                   fa_ops.FWD)
 
+    # -- path 1: the IC3Net actor -------------------------------------------
     env, ecfg = envs.make("predator_prey", **ENV)
     cfg = dataclasses.replace(configs.config(), flgw_groups=4,
                               flgw_path="grouped", obs_dim=env.obs_dim(ecfg))
@@ -308,32 +654,66 @@ def main() -> int:
                   cpu_model.state_dict().values())),
           "the seed gives the same weights on the card and the CPU")
     slack = cfg.flgw.capacity_slack
-    kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM)
 
     enc_rows = check_encode_kernels(model, slack)
     with torch.inference_mode():
         plans = model.encode_plans()
     bmm_rows = check_bmm_kernel(model, plans, BATCH * cfg.n_agents)
-    print("kernels match their plain versions on the card; plan_rank and "
-          "plan_place have no single PyTorch call to time as a library "
+    print("IC3Net kernels match their plain versions on the card; plan_rank "
+          "and plan_place have no single PyTorch call to time as a library "
           "yardstick (library_ms null), grouped_bmm_f32 has torch.bmm",
           flush=True)
 
-    sl = run_slice(model, cpu_model, env, ecfg, kernels)
-    print(f"slice: launches {sl['launches']}, encode {sl['encode_ms']:.3f} "
+    sl = run_slice(model, cpu_model, env, ecfg, all_kernels)
+    print(f"slice 1: launches {sl['launches']}, encode {sl['encode_ms']:.3f} "
           f"ms, rollout {sl['rollout_s'] * 1e3:.2f} ms, "
           f"{sl['env_steps_per_s']:.1f} env-steps/s, replay max abs err "
           f"{sl['replay_max_abs_err']}", flush=True)
     prof = profile_path(model, env, ecfg, {
         "plan_rank": "rank_kernel", "plan_place": "place_kernel",
         "grouped_bmm_f32": "grouped_bmm_kernel"})
-    share = prof["device_busy_share"]
-    print(f"profile (encode + rollout): {prof['device_events']} device "
-          f"events, busy {prof['device_busy_us']:.0f} of "
-          f"{prof['wall_us']:.0f} us (share "
-          f"{'not measured' if share is None else f'{share:.4f}'}); "
-          + ", ".join(f"{k} {v['launches']}x {v['device_us_mean']} us"
-                      for k, v in prof["kernels"].items()), flush=True)
+    print_profile("encode + rollout", prof)
+    del model, cpu_model, plans
+
+    # -- path 2: serving gemma2-2b -------------------------------------------
+    dev = resolve_device()
+    scfg = registry.get_config("gemma2_2b", **SERVE_FLGW)
+    params = serve_params(scfg, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    fused_rows = check_fused_kernel(params, scfg)
+    flash_rows = check_flash_kernel(scfg, dev)
+    for r in fused_rows:
+        print(f"  fused_bmm {r['proj']:>4} {r['rows']:>4} rows {r['dtype']}: "
+              f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), plain "
+              f"{r['plain_ms']:.4f}, bmm {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    for r in flash_rows:
+        print(f"  flash_fwd S={r['s']} window={r['window']}: {r['ms']:.4f} "
+              f"ms (softcap 0: {r['ms_softcap0']:.4f}), plain "
+              f"{r['plain_ms']:.4f}, sdpa {r['library_ms']}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    print(f"gemma2-2b: {n_params:,} parameters; fused_bmm matches its plain "
+          f"version at {len(fused_rows)} shapes (max abs err "
+          f"{max(r['max_abs_err'] for r in fused_rows):.3g}), flash_fwd at "
+          f"{len(flash_rows)} (max abs err "
+          f"{max(r['max_abs_err'] for r in flash_rows):.3g})", flush=True)
+    sv = run_serve(scfg, params, all_kernels)
+    session = sv.pop("session")
+    lk, ct = sv["lockstep"], sv["continuous"]
+    print(f"slice 2: launches {sv['launches']}; prefill B={SERVE_BATCH} x "
+          f"S={PREFILL_SEQ} {sv['prefill_ms']:.1f} ms "
+          f"({sv['prefill_tokens_per_s']:.0f} tokens/s); lockstep "
+          f"{lk['tokens_per_s']:.1f} tokens/s, p50 {lk['p50_s']:.3f} s, "
+          f"p99 {lk['p99_s']:.3f} s; continuous {ct['tokens_per_s']:.1f} "
+          f"tokens/s, p50 {ct['p50_s']:.3f} s, p99 {ct['p99_s']:.3f} s; plan "
+          f"cache {sv['plan_cache']['encodes']} encodes, "
+          f"{sv['plan_cache']['hits']} hits", flush=True)
+    rp = cpu_replay(scfg, params)
+    print(f"CPU replay (4 layers): max abs err {rp['max_abs_err']}, "
+          f"{rp['equal_tokens']}/8 greedy tokens equal "
+          f"({rp['clear_steps']} with a clear top-2 margin)", flush=True)
+    sprof = profile_serve(session, scfg)
+    print_profile("prefill + 8 decode steps", sprof)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -341,12 +721,21 @@ def main() -> int:
     def bound_by(rows, key):
         return max(rows, key=lambda r: r[f"{key}_bound_ms"])[f"{key}_bound_by"]
 
+    def path_launches(sym):
+        return {"ic3net_actor": sl["launches"][sym],
+                "gemma2_serve": sv["launches"][sym]}
+
+    def launches(sym):
+        return sum(path_launches(sym).values())
+
+    prefill_layer = [r for r in fused_rows if r["rows"] == 4096]
     per_encode = "one encode: its calls at the path's 10 FLGW layer sides"
     kernels_line = {"kernels": [
         dict(name="plan_rank", route="cuda",
              source="src/repro_torch/csrc/plan_encode.cu",
              replaces="src/repro/kernels/plan_encode/plan_encode.py:50",
-             launches=sl["launches"]["plan_rank"],
+             launches=launches("plan_rank"),
+             launches_by_path=path_launches("plan_rank"),
              max_abs_err=max(r["rank_max_abs_err"] for r in enc_rows),
              ms=total(enc_rows, "rank_ms"),
              plain_ms=total(enc_rows, "rank_plain_ms"),
@@ -356,7 +745,8 @@ def main() -> int:
         dict(name="plan_place", route="cuda",
              source="src/repro_torch/csrc/plan_encode.cu",
              replaces="src/repro/kernels/plan_encode/plan_encode.py:81",
-             launches=sl["launches"]["plan_place"],
+             launches=launches("plan_place"),
+             launches_by_path=path_launches("plan_place"),
              max_abs_err=max(r["place_max_abs_err"] for r in enc_rows),
              ms=total(enc_rows, "place_ms"),
              plain_ms=total(enc_rows, "place_plain_ms"),
@@ -366,7 +756,8 @@ def main() -> int:
         dict(name="grouped_bmm_f32", route="cuda",
              source="src/repro_torch/csrc/flgw_matmul.cu",
              replaces="src/repro/kernels/flgw_matmul/flgw_matmul.py:38",
-             launches=sl["launches"]["grouped_bmm_f32"],
+             launches=launches("grouped_bmm_f32"),
+             launches_by_path=path_launches("grouped_bmm_f32"),
              max_abs_err=max(r["max_abs_err"] for r in bmm_rows),
              ms=total(bmm_rows, "ms"), plain_ms=total(bmm_rows, "plain_ms"),
              bound_ms=total(bmm_rows, "bound_ms"),
@@ -374,20 +765,61 @@ def main() -> int:
              library_ms=total(bmm_rows, "library_ms"),
              timed_over="one policy step: its calls at the path's 5 FLGW "
                         "layers"),
+        dict(name="fused_bmm", route="cuda",
+             source="src/repro_torch/csrc/flgw_matmul.cu",
+             replaces="src/repro/kernels/flgw_matmul/flgw_matmul.py:93",
+             launches=launches("fused_bmm"),
+             launches_by_path=path_launches("fused_bmm"),
+             max_abs_err=max(r["max_abs_err"] for r in fused_rows),
+             ms=total(prefill_layer, "ms"),
+             plain_ms=total(prefill_layer, "plain_ms"),
+             bound_ms=total(prefill_layer, "bound_ms"),
+             bound_by=max(prefill_layer,
+                          key=lambda r: r["bound_ms"])["bound_by"],
+             library_ms=total(prefill_layer, "library_ms"),
+             timed_over="one prefill layer: its 7 projections at 4096 rows, "
+                        "bf16; bound at 989 TFLOP/s (bf16 tensor cores); "
+                        "library = torch.bmm on pre-gathered operands, "
+                        "gather not counted"),
+        dict(name="flash_fwd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/"
+                      "flash_attention.py:67",
+             launches=launches("flash_fwd"),
+             launches_by_path=path_launches("flash_fwd"),
+             max_abs_err=max(r["max_abs_err"] for r in flash_rows),
+             ms=flash_rows[1]["ms"], plain_ms=flash_rows[1]["plain_ms"],
+             bound_ms=flash_rows[1]["bound_ms"],
+             bound_by=flash_rows[1]["bound_by"],
+             library_ms=flash_rows[1]["library_ms"],
+             ms_softcap0=flash_rows[1]["ms_softcap0"],
+             timed_over=f"one call at B={SERVE_BATCH}, Hq=8, Hkv=4, "
+                        f"S={PREFILL_SEQ}, D=256, causal, softcap 50; bound "
+                        "at 989 TFLOP/s (bf16 tensor cores); library = SDPA "
+                        "(no softcap), compare with ms_softcap0"),
     ]}
 
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build_s, build_logs=logs, encode_rows=enc_rows,
-        bmm_rows=bmm_rows, slice=sl, profile=prof, **kernels_line),
-        indent=1))
+        bmm_rows=bmm_rows, slice=sl, profile=prof, serve_params=n_params,
+        fused_rows=fused_rows, flash_rows=flash_rows, serve=sv, replay=rp,
+        serve_profile=sprof, **kernels_line), indent=1, default=str))
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 if __name__ == "__main__":

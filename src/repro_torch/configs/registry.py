@@ -1,0 +1,52 @@
+"""Architecture registry of the LM stack: ``get_config(name)`` lookup.
+
+Port of ``repro.configs.registry``'s lookup half. Each architecture
+registers its published config and a reduced smoke config (same family,
+tiny dims). Only ``gemma2_2b`` is registered in the port so far; the
+other architectures wait for their families (ROADMAP, Queue 1).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Callable, Dict
+
+from repro_torch.models.config import ModelConfig
+
+_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+_SMOKE: Dict[str, Callable[[], ModelConfig]] = {}
+
+ARCH_IDS = ("gemma2_2b",)
+
+
+def register(name: str):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def register_smoke(name: str):
+    def deco(fn):
+        _SMOKE[name] = fn
+        return fn
+    return deco
+
+
+def _load(name: str) -> None:
+    if name not in ARCH_IDS:
+        raise KeyError(f"architecture {name!r} is not ported yet (ported: "
+                       f"{ARCH_IDS}; the others are on ROADMAP's Queue 1)")
+    if name not in _REGISTRY:
+        importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str, **overrides) -> ModelConfig:
+    _load(name)
+    cfg = _REGISTRY[name]()
+    return cfg.with_updates(**overrides) if overrides else cfg
+
+
+def get_smoke_config(name: str, **overrides) -> ModelConfig:
+    _load(name)
+    cfg = _SMOKE[name]()
+    return cfg.with_updates(**overrides) if overrides else cfg

@@ -1,9 +1,10 @@
 """Plan encoder: cached compact layouts plus the signature they came from.
 
-Port of ``repro.core.encoder`` (encode and signature; the refresh
-policies ``maybe_refresh``/``refresh_if_stale`` belong to the training
-slice). ``sig`` is the same uint32 hash as the JAX package's, bit for
-bit, held in an int64 tensor: every multiply and add is masked to 32 bits.
+Port of ``repro.core.encoder``: encode, signature, the serving half of
+the refresh policies (``refresh_if_stale``) and the compact-weight
+attach. ``maybe_refresh`` belongs to the training slice. ``sig`` is the
+same uint32 hash as the JAX package's, bit for bit, held in an int64
+tensor: every multiply and add is masked to 32 bits.
 """
 from __future__ import annotations
 
@@ -86,3 +87,48 @@ def encode_plans(params: dict, cfg) -> PlanState:
     return PlanState(grouped.encode_plans(params, cfg),
                      plan_signature(params))
 
+
+
+def attach_compact(state: PlanState, params: dict) -> PlanState:
+    """Attach compact weights (``GroupPlan.wc``) to every plan in a state:
+    gather once per params version, consume through the fused kernel
+    until the params move. The signature is layout-only and does not
+    certify ``wc``."""
+    if not isinstance(state, PlanState) or not state.plans:
+        return state
+    return state._replace(plans=grouped.attach_compact(state.plans, params))
+
+
+def _certify(state: PlanState, params: dict) -> PlanState:
+    """The pass-through branch of a refresh: the layout is certified by
+    ``sig``, but attached ``wc`` snapshot weight values the signature
+    ignores, so they are re-gathered from the params certified against."""
+    if grouped.has_compact(state.plans):
+        return attach_compact(state, params)
+    return state
+
+
+def refresh_if_stale(params: dict, state: PlanState, encode) -> PlanState:
+    """Signature-gated re-encode with no step counter: the serving hook.
+
+    One :func:`plan_signature` pass certifies the cached plans against
+    the current params; a different layout triggers exactly one
+    re-encode (``encode()``, the stack's own encode entry point), an
+    unchanged one passes the state through (re-attaching ``wc`` when the
+    state carries it). Where JAX branches on the device with
+    ``lax.cond``, this compares on the host: one device sync per
+    certification, to read the signature.
+    """
+    if not isinstance(state, PlanState):
+        raise TypeError(
+            f"refresh_if_stale needs a PlanState, got {type(state).__name__};"
+            " build one with encoder.encode_plans")
+    if not state.plans:
+        return state
+    sig = plan_signature(params)
+    if int(sig) == int(state.sig):
+        return _certify(state, params)
+    fresh = encode()._replace(sig=sig)
+    if grouped.has_compact(state.plans):
+        fresh = attach_compact(fresh, params)
+    return fresh

@@ -7,9 +7,11 @@ the same rule; the masked product then runs as G dense
 assignment runs on the plan-encode kernels
 (``repro_torch.kernels.plan_encode``).
 
-Only the gather path is ported: training plans carry no compact weights
-(``GroupPlan.wc``), and the backward of the compact product waits for
-the training slice.
+Two consume paths, forward only (the backward of the compact product
+waits for the training slice): a bare plan takes the gather path
+(``grouped_matmul`` on ``grouped_bmm``); a plan carrying compact weights
+(``GroupPlan.wc``, attached once per params version by serving) takes
+the fused path (``grouped_matmul_fused`` on ``fused_bmm``).
 """
 from __future__ import annotations
 
@@ -25,8 +27,12 @@ from repro_torch.kernels.plan_encode import ops as pe_ops
 class GroupPlan(NamedTuple):
     """Static-shape compact layout of one FLGW layer's mask.
 
-    ``wc`` (compact weights) belongs to the serving path, which is not
-    ported; plans built here leave it ``None``.
+    ``wc`` is the optional weight half of the encode output: the dense W
+    compacted to ``(G, capM, capN)`` (:func:`attach_compact`). Serving
+    attaches it once per params version; plans from :func:`make_plan`
+    leave it ``None``. It snapshots weight values, which no plan
+    signature covers, so it is always re-derived from the params being
+    served and never rides the process-wide plan cache.
     """
     row_ids: torch.Tensor    # (G, capM) int64 -- rows assigned to each group
     col_ids: torch.Tensor    # (G, capN) int64
@@ -34,7 +40,7 @@ class GroupPlan(NamedTuple):
     col_valid: torch.Tensor  # (G, capN) bool
     row_group: torch.Tensor  # (M,) int64 -- balanced group of each row
     col_group: torch.Tensor  # (N,) int64
-    wc: Optional[torch.Tensor] = None
+    wc: Optional[torch.Tensor] = None  # (G, capM, capN) compact weights
 
 
 def balanced_assign(scores: torch.Tensor, axis: int,
@@ -113,12 +119,54 @@ def encode_plans(params: dict, cfg) -> RawPlans:
     return plans
 
 
+def _map_plans(plans: RawPlans, params: dict, fn) -> RawPlans:
+    """Rebuild ``plans`` with ``fn(plan, layer_params)`` at every FLGW
+    projection, walking params and plans in lockstep."""
+    out: RawPlans = {}
+    for path, p in iter_flgw_layers(params):
+        node_in, node_out = plans, out
+        for name in path[:-1]:
+            node_in = node_in[name]
+            node_out = node_out.setdefault(name, {})
+        node_out[path[-1]] = fn(node_in[path[-1]], p)
+    return out
+
+
+def attach_compact(plans: RawPlans, params: dict) -> RawPlans:
+    """Attach the compact weights ``W_c`` to every plan: one batched
+    gather per projection (stacked layers included), after which
+    :func:`grouped_apply` takes the fused kernel path. Re-attach whenever
+    the params change."""
+    def one(plan: GroupPlan, p: dict) -> GroupPlan:
+        return plan._replace(wc=kops.compact_weights(
+            p["w"], plan.row_ids, plan.col_ids, plan.row_valid,
+            plan.col_valid))
+    return _map_plans(plans, params, one)
+
+
+def strip_compact(plans: RawPlans) -> RawPlans:
+    """Drop every plan's ``wc``: back to the pure layout."""
+    if isinstance(plans, GroupPlan):
+        return plans._replace(wc=None)
+    return {k: strip_compact(v) for k, v in plans.items()}
+
+
+def has_compact(plans) -> bool:
+    """Whether any plan in the tree carries attached compact weights."""
+    if isinstance(plans, GroupPlan):
+        return plans.wc is not None
+    return isinstance(plans, dict) and any(has_compact(v)
+                                           for v in plans.values())
+
+
 def _core_matmul(x: torch.Tensor, w: torch.Tensor,
                  plan: GroupPlan) -> torch.Tensor:
+    """One compact product: the fused path on attached compact weights,
+    else the gather path."""
     if plan.wc is not None:
-        raise NotImplementedError(
-            "plans with compact weights (the fused serving path) are not "
-            "ported yet")
+        return kops.grouped_matmul_fused(x, plan.wc, plan.row_ids,
+                                         plan.row_valid, plan.col_ids,
+                                         plan.col_valid, n=w.shape[1])
     return kops.grouped_matmul(x, w, plan.row_ids, plan.col_ids,
                                plan.row_valid, plan.col_valid)
 

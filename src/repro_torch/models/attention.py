@@ -1,0 +1,167 @@
+"""GQA self-attention: RoPE, sliding window, logit softcap, KV-cache decode.
+
+Port of ``repro.models.attention`` for decoder self-attention. Three
+regimes, as in the JAX package:
+
+* prefill with ``flash=True``: the flash-attention kernel
+  (``repro_torch.kernels.flash_attention``), which never stores the
+  (S, T) logits;
+* prefill without it: the plain core, query-chunked so the logit tile is
+  (B, Hkv, q_per_kv, Cq, T) (a Python loop where JAX scans);
+* decode: one token per step written into a ring buffer of length
+  ``min(max_seq, window)`` and attended with the plain core (plain
+  ``einsum`` in JAX too). The KV buffers are updated in place: the
+  returned cache shares them with the one passed in.
+
+Cross-attention, prefix-LM masking and the banded prefill are not ported
+(ROADMAP, Queue 1) and raise.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.flgw import FLGWConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.layers import dense_init, plan_of, proj, rope, softcap
+
+NEG_INF = -2.3819763e38
+
+
+def attn_init(generator: torch.Generator, cfg, *,
+              flgw: Optional[FLGWConfig] = None, lead: tuple = ()) -> dict:
+    d, h = cfg.d_model, cfg.head_dim
+    kw = dict(flgw=flgw, dtype=cfg.dtype, lead=lead)
+    return {"q": dense_init(generator, d, cfg.n_heads * h, **kw),
+            "k": dense_init(generator, d, cfg.n_kv_heads * h, **kw),
+            "v": dense_init(generator, d, cfg.n_kv_heads * h, **kw),
+            "o": dense_init(generator, cfg.n_heads * h, d, **kw)}
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+          window: int, k_valid: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
+    """(..., Sq, Sk) bool allowed-attention mask from position vectors."""
+    q = q_pos[..., :, None]
+    k = k_pos[..., None, :]
+    if causal:
+        allowed = k <= q
+    else:
+        allowed = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                             dtype=torch.bool, device=q.device)
+    if window > 0:
+        allowed = allowed & (k > q - window)
+    if k_valid is not None:
+        allowed = allowed & k_valid[..., None, :]
+    return allowed
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: torch.Tensor, cfg) -> torch.Tensor:
+    """q: (B, Sq, G, Q, D); k/v: (B, Sk, G, D); mask (B, Sq, Sk) or
+    (Sq, Sk). JAX's dtype sequence: f32 logits, softcap, NEG_INF mask,
+    f32 softmax, probabilities cast to q's dtype for the PV product."""
+    scale = cfg.head_dim ** -0.5
+    logits = torch.einsum("bsgqd,btgd->bgqst", q.float(), k.float()) * scale
+    if cfg.attn_softcap > 0:
+        logits = softcap(logits, cfg.attn_softcap)
+    if mask.dim() == 2:
+        mask = mask[None]
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bgqst,btgd->bsgqd", probs, v)
+
+
+def _decode(k, v, cache, positions, b, s, window, causal):
+    """Write this step's k/v into the ring buffers (in place) and return
+    (k buffer, v buffer, mask, new pos)."""
+    pos = cache["pos"]
+    ck, cv = cache["k"], cache["v"]
+    t = ck.shape[1]
+    idx = torch.arange(t, device=ck.device)
+    if pos.dim() == 0:
+        # lockstep cache: every batch row shares one stream offset; the
+        # write start clamps so the s tokens fit, as dynamic_update_slice
+        start = torch.clamp(pos % t, max=t - s)
+        at = start + torch.arange(s, device=ck.device)
+        ck.index_copy_(1, at, k.to(ck.dtype))
+        cv.index_copy_(1, at, v.to(cv.dtype))
+        # absolute position held by each ring slot after the write: the
+        # largest p <= pos with p == idx (mod t); negative: never written
+        k_pos = (pos - torch.remainder(pos - idx, t))[None]
+    else:
+        # per-slot cache: pos is (B,), each row its own request stream
+        if s != 1:
+            raise ValueError(
+                "per-slot decode caches take single-token steps "
+                f"(got {s} tokens); multi-token prefill goes through the "
+                "cache-free path one token at a time")
+        rows = torch.arange(b, device=ck.device)
+        write = pos % t
+        ck[rows, write] = k[:, 0].to(ck.dtype)
+        cv[rows, write] = v[:, 0].to(cv.dtype)
+        k_pos = pos[:, None] - torch.remainder(pos[:, None] - idx[None], t)
+    mask = _mask(positions, k_pos, causal=causal, window=window,
+                 k_valid=k_pos >= 0)
+    return ck, cv, mask, pos + s
+
+
+def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
+              window: int = 0, causal: bool = True, prefix_len: int = 0,
+              cache: Optional[dict] = None, q_chunk: int = 512,
+              banded: bool = False, flash: bool = False,
+              flgw: Optional[FLGWConfig] = None, plans=None):
+    """Returns (out, new_cache).
+
+    * prefill: ``cache is None``, full sequence;
+    * decode: ``cache = {"k", "v", "pos"}``, insert the step's token at
+      ``pos`` and attend over the cache.
+
+    ``plans``: this layer's entry of a cached PlanState, one GroupPlan per
+    q/k/v/o projection on the FLGW grouped path (None re-encodes per
+    call inside ``proj``).
+    """
+    if prefix_len or banded:
+        raise NotImplementedError(
+            "prefix-LM masking and the banded prefill are not ported yet "
+            "(ROADMAP, Queue 1)")
+    b, s, _ = x.shape
+    hd, n_kv, qpk = cfg.head_dim, cfg.n_kv_heads, cfg.q_per_kv
+    q = proj(p["q"], x, flgw, plan=plan_of(plans, "q"))
+    k = proj(p["k"], x, flgw, plan=plan_of(plans, "k")).reshape(b, s, n_kv, hd)
+    v = proj(p["v"], x, flgw, plan=plan_of(plans, "v")).reshape(b, s, n_kv, hd)
+    q = rope(q.reshape(b, s, n_kv * qpk, hd), positions,
+             cfg.rope_theta).reshape(b, s, n_kv, qpk, hd)
+    k = rope(k, positions, cfg.rope_theta)
+
+    def out_proj(o):
+        return proj(p["o"], o.reshape(b, s, -1), flgw, plan=plan_of(plans, "o"))
+
+    if cache is not None:
+        ck, cv, mask, new_pos = _decode(k, v, cache, positions, b, s, window,
+                                        causal)
+        out = _attend(q, ck, cv, mask, cfg)
+        return out_proj(out), {"k": ck, "v": cv, "pos": new_pos}
+
+    if flash and causal:
+        # the kernel masks by absolute position 0..S-1, so positions must
+        # be that plain ramp, as in the JAX package's flash branch
+        qf = q.reshape(b, s, n_kv * qpk, hd).transpose(1, 2)
+        of = flash_attention(qf, k.transpose(1, 2), v.transpose(1, 2),
+                             causal=True, window=window,
+                             softcap=float(cfg.attn_softcap))
+        return out_proj(of.transpose(1, 2)), None
+
+    if s <= q_chunk:
+        mask = _mask(positions, positions, causal=causal, window=window)
+        return out_proj(_attend(q, k, v, mask, cfg)), None
+
+    if s % q_chunk:
+        q_chunk = next(c for c in range(q_chunk, 0, -1) if s % c == 0)
+    outs = []
+    for c0 in range(0, s, q_chunk):
+        m = _mask(positions[:, c0:c0 + q_chunk], positions, causal=causal,
+                  window=window)
+        outs.append(_attend(q[:, c0:c0 + q_chunk], k, v, m, cfg))
+    return out_proj(torch.cat(outs, dim=1)), None

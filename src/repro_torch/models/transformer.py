@@ -1,0 +1,253 @@
+"""Pattern-stacked transformer assembly, dense family.
+
+Port of ``repro.models.transformer``. The stack is ``n_blocks`` blocks of
+the ``period`` slots of ``cfg.pattern``; per-slot parameters, plans and
+KV caches are stacked on axis 0 as in the JAX package (so a param tree
+converts one to one), and a Python loop over the blocks takes the place
+of ``lax.scan``, slicing every stacked leaf.
+
+Ported: the dense family (attention mixers, MLP FFNs). SSM mixers, MoE
+FFNs, cross-attention, encoder stacks, ``remat``, ``banded``,
+``unroll_blocks`` and ``attn_identity`` raise ``NotImplementedError``
+(ROADMAP, Queue 1).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import encoder as planenc
+from repro_torch.core.flgw import FLGWConfig
+from repro_torch.core.grouped import GroupPlan
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.config import ModelConfig, SlotSpec
+from repro_torch.models.layers import (embed, embed_init, mlp, mlp_init,
+                                       plan_of, rmsnorm, rmsnorm_init,
+                                       softcap, unembed)
+
+_UNPORTED = "is not ported to repro_torch yet (ROADMAP, Queue 1)"
+
+
+def _unported(what: str):
+    return NotImplementedError(f"{what} {_UNPORTED}")
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.encoder_layers:
+        raise _unported("an encoder stack (encoder_layers)")
+    for slot in cfg.pattern:
+        if slot.mixer != "attn":
+            raise _unported(f"the {slot.mixer!r} mixer")
+        if slot.ffn != "mlp":
+            raise _unported(f"the {slot.ffn!r} FFN")
+        if slot.cross:
+            raise _unported("cross-attention")
+
+
+def _flgw_cfg(cfg: ModelConfig, target: str) -> Optional[FLGWConfig]:
+    if not cfg.flgw_on(target):
+        return None
+    return FLGWConfig(groups=cfg.flgw_groups, path=cfg.flgw_path)
+
+
+def encode_plans(params: dict, cfg: ModelConfig) -> planenc.PlanState:
+    """One encode pass over the stack's FLGW projections; plans of the
+    stacked blocks come back stacked on the same leading axis. The empty
+    state unless the compact ``grouped`` path is on."""
+    if cfg.flgw_groups <= 1 or cfg.flgw_path != "grouped":
+        return planenc.empty_state(params["embed"]["embedding"].device)
+    return planenc.encode_plans(
+        params, FLGWConfig(groups=cfg.flgw_groups, path=cfg.flgw_path))
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _slot_init(generator, cfg: ModelConfig, n: int) -> dict:
+    lead = (n,)
+    dev = generator.device
+    return {
+        "norm1": rmsnorm_init(cfg.d_model, device=dev, lead=lead),
+        "mixer": attn_mod.attn_init(generator, cfg,
+                                    flgw=_flgw_cfg(cfg, "attn"), lead=lead),
+        "norm2": rmsnorm_init(cfg.d_model, device=dev, lead=lead),
+        "ffn": mlp_init(generator, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
+                        flgw=_flgw_cfg(cfg, "mlp"), dtype=cfg.dtype,
+                        lead=lead),
+    }
+
+
+def lm_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random params on ``generator``'s device, laid out as the JAX
+    package's ``lm_init`` tree (without its sharding specs). Weights are
+    N(0, 1/fan_in) in ``cfg.dtype``; grouping matrices and norms f32."""
+    _check_supported(cfg)
+    return {
+        "embed": embed_init(generator, cfg.vocab, cfg.d_model, cfg.dtype),
+        "blocks": {f"slot{i}": _slot_init(generator, cfg, cfg.n_blocks)
+                   for i in range(cfg.period)},
+        "final_norm": rmsnorm_init(cfg.d_model, device=generator.device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Apply
+# ---------------------------------------------------------------------------
+
+def _index(tree, i: int):
+    """Block ``i`` of a tree of stacked leaves (tensors or GroupPlans)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if isinstance(tree, GroupPlan):
+        return GroupPlan(*(None if t is None else t[i] for t in tree))
+    return {k: _index(v, i) for k, v in tree.items()}
+
+
+def _slot_apply(p, x, positions, cfg: ModelConfig, slot: SlotSpec, *,
+                cache=None, pos=None, q_chunk=512, plans=None):
+    """One layer; a decode step writes ``cache``'s KV buffers in place."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    c = None if cache is None else {"k": cache["k"], "v": cache["v"],
+                                    "pos": pos}
+    h, _ = attn_mod.attention(
+        p["mixer"], h, positions, cfg, window=slot.window,
+        causal=slot.causal, cache=c, q_chunk=q_chunk, flash=cfg.use_flash,
+        flgw=_flgw_cfg(cfg, "attn"), plans=plan_of(plans, "mixer"))
+    x = x + h
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    h = mlp(p["ffn"], h, _flgw_cfg(cfg, "mlp"), plans=plan_of(plans, "ffn"))
+    return x + h
+
+
+def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
+             q_chunk: int = 512, banded: bool = False, remat=None,
+             return_hidden: bool = False, unroll_blocks: bool = False,
+             attn_identity: bool = False, plans=None,
+             patch_embeds=None, frames=None):
+    """Forward pass. Returns (logits, aux_loss, new_cache).
+
+    tokens, positions: (B, S) integer. ``cache``: decode caches from
+    :func:`init_cache`. ``plans``: cached FLGW metadata (PlanState or its
+    raw dict); when None, a ``plans`` entry riding the decode cache is
+    consumed, and with neither the grouped path re-encodes per
+    projection. ``return_hidden`` skips the unembedding. ``aux_loss`` is
+    0 (no MoE in the dense family).
+    """
+    _check_supported(cfg)
+    if banded or unroll_blocks or attn_identity or remat:
+        raise _unported("banded, unroll_blocks, attn_identity and remat "
+                        "(the forward-only port has nothing to "
+                        "rematerialise)")
+    if patch_embeds is not None or frames is not None:
+        raise _unported("the VLM prefix and the audio encoder")
+    if plans is None and cache is not None:
+        plans = cache.get("plans")
+    if isinstance(plans, planenc.PlanState):
+        plans = plans.plans
+    plans = plans or {}
+    block_plans = plans.get("blocks")
+    x = embed(params["embed"], tokens, cfg.d_model).to(cfg.dtype)
+    pos = None if cache is None else cache["pos"]
+    for i in range(cfg.n_blocks):
+        block_p = _index(params["blocks"], i)
+        block_pl = _index(block_plans, i)
+        for j, slot in enumerate(cfg.pattern):
+            name = f"slot{j}"
+            c = None if cache is None else _index(cache["blocks"][name], i)
+            x = _slot_apply(block_p[name], x, positions, cfg, slot, cache=c,
+                            pos=pos, q_chunk=q_chunk,
+                            plans=plan_of(block_pl, name))
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if return_hidden:
+        out = x
+    else:
+        out = softcap(unembed(params["embed"], x).float(), cfg.logit_softcap)
+
+    new_cache = None
+    if cache is not None:
+        # the KV buffers were written in place (models.attention); plans
+        # ride the cache unchanged
+        new_cache = dict(cache, pos=pos + tokens.shape[1])
+    return out, torch.zeros((), device=x.device), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cache
+# ---------------------------------------------------------------------------
+
+def _cache_len(slot: SlotSpec, max_seq: int) -> int:
+    """Sliding-window slots keep a ring of ``window`` positions."""
+    if slot.window > 0:
+        return min(max_seq, slot.window)
+    return max_seq
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, params=None,
+               per_slot: bool = False, device=None) -> dict:
+    """Decode caches in ``cfg.dtype``, stacked (n_blocks, ...) per slot.
+
+    ``params``: encode a PlanState beside the KV buffers
+    (``cache["plans"]``) on the FLGW grouped path, with the compact
+    weights attached; without params (or off the grouped path)
+    ``cache["plans"]`` is ``()``. ``per_slot``:
+    ``cache["pos"]`` is a (batch,) vector, one stream offset per row (the
+    continuous-batching layout), else a scalar. ``device`` defaults to
+    the params' device, else the card.
+    """
+    _check_supported(cfg)
+    if device is None:
+        device = (params["embed"]["embedding"].device if params is not None
+                  else resolve_device())
+    dtype = cfg.dtype
+    nb = cfg.n_blocks
+    blocks = {}
+    for i, slot in enumerate(cfg.pattern):
+        kv = (nb, batch, _cache_len(slot, max_seq), cfg.n_kv_heads,
+              cfg.head_dim)
+        blocks[f"slot{i}"] = {"k": torch.zeros(kv, dtype=dtype, device=device),
+                              "v": torch.zeros(kv, dtype=dtype, device=device)}
+    pos_shape = (batch,) if per_slot else ()
+    cache = {"pos": torch.zeros(pos_shape, dtype=torch.int64, device=device),
+             "blocks": blocks}
+    plans = ()
+    if params is not None:
+        state = encode_plans(params, cfg)
+        if state.plans:
+            plans = planenc.attach_compact(state, params)
+    cache["plans"] = plans
+    return cache
+
+
+def refresh_cache_plans(params, cfg: ModelConfig, cache: dict) -> dict:
+    """Request-boundary staleness check of the cache's PlanState: one
+    signature pass, a re-encode only if the grouping layout moved (and
+    the compact weights re-gathered either way). Caches without a
+    PlanState pass through."""
+    plans = cache.get("plans")
+    if not isinstance(plans, planenc.PlanState) or not plans.plans:
+        return cache
+    fresh = planenc.refresh_if_stale(params, plans,
+                                     lambda: encode_plans(params, cfg))
+    return dict(cache, plans=fresh)
+
+
+def reset_slots(cache: dict, mask) -> dict:
+    """Recycle batch rows of a per-slot decode cache for fresh requests.
+
+    ``mask``: (batch,) bool; True rows return to stream offset 0, which
+    invalidates every ring index of theirs (each maps to a negative
+    absolute position until rewritten), so the KV buffers need no
+    clearing. False rows pass through untouched.
+    """
+    pos = cache["pos"]
+    if pos.dim() != 1:
+        raise ValueError(
+            "reset_slots needs a per-slot cache (init_cache(per_slot=True)); "
+            "this cache has a scalar shared position")
+    mask = torch.as_tensor(mask, dtype=torch.bool, device=pos.device)
+    return dict(cache, pos=torch.where(mask, 0, pos))

@@ -123,12 +123,22 @@ def test_flgw_paths_refuse_to_record_a_graph(path):
 
 
 def test_unported_paths_raise():
+    """The compact-weight path is ported now (tests/test_torch_fused_bmm.py);
+    what is still unported raises instead of running something else."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer
+    from repro_torch.models.config import SlotSpec
     p, x = _layer(8, 16, 16, 2)
-    plan = grouped.make_plan(torch.from_numpy(p["ig"]),
-                             torch.from_numpy(p["og"]), 1.25)
-    with pytest.raises(NotImplementedError, match="compact weights"):
-        grouped.grouped_apply(torch.from_numpy(x), *_t(p).values(), None,
-                              plan=plan._replace(wc=torch.zeros(1)))
+    cfg = registry.get_smoke_config("gemma2_2b", dtype=torch.float32)
+    params = transformer.lm_init(torch.Generator().manual_seed(0), cfg)
+    tok = torch.zeros((1, 2), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.lm_apply(params, cfg, tok, tok, remat=True)
+    for slot in (SlotSpec(mixer="ssm"), SlotSpec(ffn="moe"),
+                 SlotSpec(cross=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            transformer.lm_init(torch.Generator(),
+                                cfg.with_updates(pattern=(slot,), n_layers=2))
     with pytest.raises(ValueError, match="unknown FLGW path"):
         flgw.flgw_linear(torch.from_numpy(x), torch.from_numpy(p["w"]),
                          torch.from_numpy(p["ig"]), torch.from_numpy(p["og"]),

@@ -103,3 +103,84 @@ def test_rollout_on_the_card_replays_on_the_cpu(cuda):
     for name in ("logp", "value", "entropy", "gate_logp"):
         torch.testing.assert_close(getattr(r, name).cpu(), getattr(rep, name),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("b,m,g,k,n", [(4, 2304, 4, 720, 2880),
+                                       (130, 300, 4, 75, 70),
+                                       (1, 9, 3, 3, 5), (67, 64, 2, 40, 129),
+                                       (64, 500, 4, 130, 200),
+                                       (136, 300, 2, 70, 136),
+                                       (4, 9216, 4, 2880, 720)])
+def test_fused_bmm_matches_its_plain_version(cuda, dtype, tol, b, m, g, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(b + m + k)
+    x = torch.randn((m + 1, b), generator=gen, device=cuda).to(dtype)
+    x[m] = 0                                     # (M+1, B): the sink row
+    wc = torch.randn((g, k, n), generator=gen, device=cuda).to(dtype)
+    ids = torch.randint(0, m + 1, (g, k), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    before = fm_ops.FUSED.launches
+    y = fm_ops.fused_bmm(x, wc, ids)
+    torch.cuda.synchronize()
+    assert fm_ops.FUSED.launches == before + 1
+    assert y.dtype == dtype and y.shape == (g, b, n)
+    # bf16: f32 sums in another order (split over K for few rows), then
+    # one bf16 rounding (2**-8)
+    torch.testing.assert_close(y.float(), fm_ref.ref_fused_bmm(x, wc, ids)
+                               .float(), rtol=tol, atol=tol * k ** 0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,softcap,causal", [
+    (2, 8, 4, 200, 256, 0, 50.0, True), (1, 4, 4, 130, 64, 40, 0.0, True),
+    (1, 2, 1, 70, 16, 0, 0.0, False), (2, 4, 2, 96, 128, 7, 30.0, False)])
+def test_flash_fwd_matches_its_plain_version(cuda, dtype, b, hq, hkv, s, d,
+                                             window, softcap, causal):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q = torch.randn((b, s, hq, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=gen, device=cuda).to(dtype)
+    q = q.transpose(1, 2)                        # strided, as the model's
+    before = fa_ops.FWD.launches
+    out, lse = fa_ops.flash_fwd(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
+    torch.cuda.synchronize()
+    assert fa_ops.FWD.launches == before + 1
+    want_o, want_lse = fa_ref.ref_flash_fwd(q, k, v, causal=causal,
+                                            window=window, softcap=softcap)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), want_o.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+
+
+def test_serving_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer
+    from repro_torch.serving import Engine, ServeSession, synthetic_requests
+    cfg = registry.get_smoke_config(
+        "gemma2_2b", flgw_groups=4, flgw_path="grouped",
+        flgw_targets=("mlp", "attn"), use_flash=True)
+    params = transformer.lm_init(torch.Generator(device=cuda).manual_seed(0),
+                                 cfg)
+    def to_cpu(t):
+        return {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.cpu()
+    cpu_params = to_cpu(params)
+    tok = torch.randint(0, cfg.vocab, (2, 40), device=cuda)
+    batch = {"tokens": tok, "positions": torch.arange(40, device=cuda)
+             .expand(2, 40)}
+    card = ServeSession(cfg, params)
+    launches = (fm_ops.FUSED.launches, fm_ops.BMM.launches)
+    got = card.prefill(batch)
+    torch.cuda.synchronize()
+    assert fm_ops.FUSED.launches > launches[0]
+    assert fm_ops.BMM.launches == launches[1]
+    want = ServeSession(cfg, cpu_params).prefill(
+        {k: v.cpu() for k, v in batch.items()})
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-2, atol=2e-2)
+    reqs = synthetic_requests(0, 4, vocab=cfg.vocab)
+    rep = Engine(card, 2, 32).run(reqs)
+    assert rep.generated_tokens == sum(r.max_new_tokens for r in reqs)

@@ -10,10 +10,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import resolve_device  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import on_cpu  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flgw_matmul import ops as fm_ops  # noqa: E402
 from repro_torch.kernels.plan_encode import ops as pe_ops  # noqa: E402
 from repro_torch.marl import ic3net, train  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,7 +43,8 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
          os.path.join(ROOT, "chip_smoke.py")],
         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    # every module of the serving slice is among those imported
+    assert int(out.stdout.split()[-1]) >= 38
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -54,14 +58,23 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         train.make_generator(0)
     assert resolve_device("cpu") == torch.device("cpu")
     assert ic3net.IC3Net(cfg, device="cpu").device == torch.device("cpu")
+    lm = registry.get_smoke_config("gemma2_2b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_cache(lm, 1, 4)
+    cache = transformer.init_cache(lm, 1, 4, device="cpu")
+    assert cache["pos"].device == torch.device("cpu")
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
-    kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM)
+    kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM, fm_ops.FUSED, fa_ops.FWD)
     before = [k.launches for k in kernels]
     ig = torch.randn(40, 4)
     pe_ops.balanced_assign(ig, 1, 1.25)
     fm_ops.grouped_bmm(torch.randn(2, 3, 4), torch.randn(2, 4, 5))
+    fm_ops.fused_bmm(torch.randn(7, 3), torch.randn(2, 4, 5),
+                     torch.zeros((2, 4), dtype=torch.int32))
+    q = torch.randn(1, 2, 5, 8)
+    fa_ops.flash_fwd(q, q[:, :1], q[:, :1])
     assert [k.launches for k in kernels] == before
 
 
@@ -71,6 +84,11 @@ def test_kernel_wrappers_refuse_other_devices_and_mixes():
         on_cpu(meta)
     with pytest.raises(ValueError, match="all lie on the CPU"):
         fm_ops.grouped_bmm(meta, torch.empty((2, 4, 5)))
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        fm_ops.fused_bmm(meta[0], torch.empty((2, 4, 5)),
+                         torch.zeros((2, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        fa_ops.flash_fwd(meta[None], meta[None], meta[None])
 
 
 def test_kernel_cache_stays_inside_the_checkout(monkeypatch, tmp_path):
