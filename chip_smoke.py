@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Two paths, each at full width with random weights from a seed:
+Three paths, each at full width with random weights from a seed:
 
 * IC3Net's actor half: the registered ``ic3net`` config (hidden 128,
   8 agents) with FLGW G=4 on the grouped path, predator-prey 10x10 with
   30 steps, B=16 environments;
 * serving gemma2-2b: the registered ``gemma2_2b`` config (26 layers,
   d 2304, vocab 256,000, bf16) with FLGW G=4 on the grouped path for the
-  MLP and attention projections and the flash-attention prefill.
+  MLP and attention projections and the flash-attention prefill;
+* training gemma2-2b: the same config with FLGW G=4 on the grouped path
+  for the MLP (the launcher's targets), slack 1.25, AdamW, remat, B=4 x
+  S=1024 batches of ``SyntheticTokens(seed=0)``.
 
 The script
 
@@ -37,7 +40,17 @@ The script
      path launched; replays a 4-layer cut of the same weights on the CPU
      (prefill B=1 x S=256 and 8 greedy decode steps from the card's KV
      cache); and profiles one prefill plus 8 decode steps;
-  5. prints one ``{"kernels": [...]}`` line, the card's name and power
+  5. holds ``grouped_bmm_bf16`` against its plain version at the
+     training MLP's product shapes and ``flash_bwd_dq``/``flash_bwd_dkv``
+     at the attention's (bf16, S=1024 with windows 4096 and 0, S=512 with
+     window 128), timing each against its plain version and a PyTorch
+     call; then, with every launch count at 0 before each, trains 3 steps
+     through ``train_lm`` (the chunked attention core) and 3 through
+     ``make_train_step`` with ``use_flash`` from the same init and
+     batches, checks which kernels each phase launched and that the two
+     agree; replays one step of 2 layers of the trained weights on the CPU
+     (B=1 x S=128); and profiles one flash training step;
+  6. prints one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -76,6 +89,11 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serving import (Engine, Request, ServeSession,  # noqa: E402
                                  max_seq_for, plan_cache, synthetic_requests)
+from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
+from repro_torch.launch.train import train_lm  # noqa: E402
+from repro_torch.optim.optimizers import global_norm  # noqa: E402
+from repro_torch.train import state as state_lib  # noqa: E402
+from repro_torch.train import step as step_lib  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -623,6 +641,288 @@ def profile_serve(session, cfg) -> dict:
     return profile(run, SERVE_KERNELS)
 
 
+# ---------------------------------------------------------------------------
+# Training gemma2-2b
+# ---------------------------------------------------------------------------
+
+TRAIN_FLGW = dict(flgw_groups=4, flgw_path="grouped")   # launcher's targets
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
+BMM_BF16_TOL = dict(rtol=1e-2, atol=1e-2)     # f32 sums, one bf16 rounding
+FLASH_BWD_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+# phase (a), the chunked core, against phase (b), the flash core: bf16
+# activations rounded at other places, f32 softmax in both. The step-0
+# loss is forward-only; the grad norm and each attention projection's
+# grad (relative norm of the difference) see the backward kernels.
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_ATTN_GRAD_RTOL = 1e-3, 5e-3, 5e-2
+REPLAY_TRAIN_TOL = dict(rtol=5e-2, atol=5e-2)
+TRAIN_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
+                 "grouped_bmm_bf16": "grouped_bmm_bf16_kernel",
+                 "flash_fwd": "flash_fwd_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
+def check_bmm_bf16_kernel(cfg, device) -> list[dict]:
+    """grouped_bmm_bf16 against its plain version at the training MLP's
+    compact products (4096 rows; up and gate share a shape), and one
+    ragged case; timed against its plain version and ``torch.bmm``."""
+    g = cfg.flgw_groups
+    cap_d, cap_ff = compute_cap(cfg.d_model, g, 1.25), \
+        compute_cap(cfg.d_ff, g, 1.25)
+    rows_n = TRAIN_BATCH * TRAIN_SEQ
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    rows = []
+    for name, k, n in (("up", cap_d, cap_ff), ("gate", cap_d, cap_ff),
+                       ("down", cap_ff, cap_d), ("ragged", 37, 45)):
+        b = rows_n if name != "ragged" else 70
+        xg = torch.randn((g, b, k), generator=gen, device=device).bfloat16()
+        wc = torch.randn((g, k, n), generator=gen, device=device).bfloat16()
+        y = fm_ops.grouped_bmm(xg, wc)
+        y_ref = fm_ref.ref_grouped_bmm(xg, wc)
+        err = float((y.float() - y_ref.float()).abs().max())
+        check(torch.allclose(y.float(), y_ref.float(), **BMM_BF16_TOL),
+              f"grouped_bmm_bf16 == plain at {name} (max abs err {err})")
+        bnd, by = bound_ms(2 * (g * b * k + g * k * n + g * b * n),
+                           2 * g * b * k * n, BF16_OPS_PER_S)
+        rows.append(dict(
+            proj=name, g=g, b=b, k=k, n=n, max_abs_err=err,
+            ms=time_ms(lambda: fm_ops.grouped_bmm(xg, wc), 20, 3),
+            plain_ms=time_ms(lambda: fm_ref.ref_grouped_bmm(xg, wc), 20, 3),
+            library_ms=time_ms(lambda: torch.bmm(xg, wc), 20, 3),
+            bound_ms=bnd, bound_by=by))
+        rows[-1]["tflops"] = 2 * g * b * k * n / rows[-1]["ms"] / 1e9
+    return rows
+
+
+def check_flash_bwd_kernels(cfg, device) -> list[dict]:
+    """flash_bwd_dq and flash_bwd_dkv against the plain backward (f32
+    math) at the training attention's shapes, bf16, softcap 50; each
+    kernel timed alone, the plain backward and SDPA's backward (softcap
+    0, where its causal mask is the same) for all three gradients."""
+    import torch.nn.functional as F
+    b, hq, hkv, d = TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    rows = []
+    for s, window in ((TRAIN_SEQ, 4096), (TRAIN_SEQ, 0), (512, 128)):
+        q, do = (torch.randn((b, hq, s, d), generator=gen, device=device)
+                 .bfloat16() for _ in range(2))
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=device)
+                .bfloat16() for _ in range(2))
+        kw = dict(causal=True, window=window, softcap=cfg.attn_softcap)
+        out, lse = fa_ops.flash_fwd(q, k, v, **kw)
+        got = fa_ops.flash_bwd(q, k, v, out, lse, do, **kw)
+        want = fa_ref.ref_flash_bwd(q, k, v, out, lse, do, **kw)
+        errs = {}
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = float((a.float() - w.float()).abs().max())
+            check(torch.allclose(a.float(), w.float(), **FLASH_BWD_BF16_TOL),
+                  f"flash_bwd {name} == plain at S={s} window={window} "
+                  f"(max abs err {errs[name]})")
+        delta = fa_ref.delta_of(out, do)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        args = (b, hq, hkv, s, s, d, d ** -0.5, 1, window,
+                float(cfg.attn_softcap), 1)
+        ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
+        pairs = _attn_pairs(s, window) * b * hq
+        io = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 8 * b * hq * s
+        dq_io, dkv_io = io + 2 * b * hq * s * d, io + 4 * b * hkv * s * d
+        dq_b, dq_by = bound_ms(dq_io, 6 * d * pairs, BF16_OPS_PER_S)
+        dkv_b, dkv_by = bound_ms(dkv_io, 8 * d * pairs, BF16_OPS_PER_S)
+        row = dict(
+            s=s, window=window, max_abs_err=errs,
+            dq_ms=time_ms(lambda: fa_ops.DQ(device, *ptrs, dq.data_ptr(),
+                                            *args), 10, 2),
+            dkv_ms=time_ms(lambda: fa_ops.DKV(device, *ptrs, dk.data_ptr(),
+                                              dv.data_ptr(), *args), 10, 2),
+            bwd_ms=time_ms(lambda: fa_ops.flash_bwd(q, k, v, out, lse, do,
+                                                    **kw), 10, 2),
+            plain_ms=time_ms(lambda: fa_ref.ref_flash_bwd(q, k, v, out, lse,
+                                                          do, **kw), 5, 1),
+            dq_bound_ms=dq_b, dq_bound_by=dq_by, dkv_bound_ms=dkv_b,
+            dkv_bound_by=dkv_by,
+            # the ceiling of these kernels' own design, f32 FMA outside
+            # the tensor cores; not the card's bound for bf16 operands
+            dq_f32_cores_bound_ms=bound_ms(dq_io, 6 * d * pairs)[0],
+            dkv_f32_cores_bound_ms=bound_ms(dkv_io, 8 * d * pairs)[0],
+            library_ms=None)
+        if window == 0 or window >= s:
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                               enable_gqa=True)
+            row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                o, leaves, do, retain_graph=True), 10, 2)
+            row["library"] = ("backward of F.scaled_dot_product_attention("
+                              "is_causal, enable_gqa), softcap 0, all of "
+                              "dq, dk, dv")
+        rows.append(row)
+    return rows
+
+
+def _zero(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+
+
+def _check_train_launches(launches: dict, phase: str, flash: bool) -> None:
+    for name in ("plan_rank", "plan_place", "grouped_bmm_bf16"):
+        check(launches[name] > 0, f"{name} launched in training {phase}")
+    for name in ("fused_bmm", "grouped_bmm_f32"):
+        check(launches[name] == 0, f"{name} not launched in training {phase}")
+    layers = 26 * TRAIN_STEPS
+    if flash:
+        # each layer's forward runs once more under remat in the backward
+        check(launches["flash_bwd_dq"] == layers
+              and launches["flash_bwd_dkv"] == layers
+              and launches["flash_fwd"] == 2 * layers,
+              f"flash kernels launched once per layer and step in {phase} "
+              f"(flash_fwd twice, for the remat replay): {launches}")
+    else:
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            check(launches[name] == 0, f"{name} not launched in {phase}")
+
+
+def _attn_grads(params, batch, cfg) -> dict:
+    """Step-0 grads of every attention projection (q, k, v, o of each
+    layer slot, stacked over the blocks), as the train step computes
+    them."""
+    with torch.no_grad():
+        plans = transformer.encode_plans(params, cfg)
+    _, _, grads = step_lib.loss_and_grads(
+        params, batch, cfg, q_chunk=step_lib.pick_q_chunk(TRAIN_SEQ),
+        plans=plans)
+    out = {f"{slot}/{proj}": g["mixer"][proj]["w"].float()
+           for slot, g in grads["blocks"].items() if "mixer" in g
+           for proj in ("q", "k", "v", "o")}
+    del grads
+    return out
+
+
+def compare_core_grads(params, batch, cfg) -> dict:
+    """||g_chunked - g_flash|| / ||g_chunked|| for each attention
+    projection's step-0 grad, from one init and batch."""
+    ga = _attn_grads(params, batch, cfg.with_updates(use_flash=False))
+    gb = _attn_grads(params, batch, cfg)
+    rel = {k: float((ga[k] - gb[k]).norm() / ga[k].norm()) for k in ga}
+    for k, r in rel.items():
+        check(r <= TRAIN_ATTN_GRAD_RTOL,
+              f"step-0 grad of {k}, chunked vs flash core, within relative "
+              f"norm {TRAIN_ATTN_GRAD_RTOL} ({r})")
+    return rel
+
+
+def run_train(kernels) -> dict:
+    """Phase (a): ``train_lm`` (chunked core); phase (b):
+    ``make_train_step`` with ``use_flash`` from the same init and
+    batches. Launch counts at 0 before each."""
+    dev = resolve_device()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(kernels)
+    state, hist = train_lm("gemma2_2b", smoke=False, steps=TRAIN_STEPS,
+                           batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=1,
+                           seed=SEED, device=dev, **TRAIN_FLGW)
+    torch.cuda.synchronize()
+    la = {k.symbol: k.launches for k in kernels}
+    _check_train_launches(la, "phase (a)", flash=False)
+    a = dict(loss=[float(h["loss"]) for h in hist],
+             grad_norm=[float(h["grad_norm"]) for h in hist],
+             step_s=[h["step_s"] for h in hist], launches=la,
+             peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del state, hist
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    cfg = registry.get_config("gemma2_2b", **TRAIN_FLGW).with_updates(
+        use_flash=True)
+    state = state_lib.init_state(
+        torch.Generator(device=dev).manual_seed(SEED), cfg)
+    step = step_lib.make_train_step(cfg)
+    ds = SyntheticTokens(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    attn_rel = compare_core_grads(state.params, ds.tensors_at(0, dev), cfg)
+    print(f"  attention grads, chunked vs flash core (relative): {attn_rel}",
+          flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(kernels)
+    b = dict(loss=[], grad_norm=[], step_s=[])
+    for i in range(TRAIN_STEPS):
+        batch = ds.tensors_at(i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        b["step_s"].append(time.perf_counter() - t0)
+        b["loss"].append(float(m["loss"]))
+        b["grad_norm"].append(float(m["grad_norm"]))
+        print(f"  flash step {i + 1}: loss={b['loss'][-1]:.4f} grad_norm="
+              f"{b['grad_norm'][-1]:.4f} {b['step_s'][-1] * 1e3:.1f} ms",
+              flush=True)
+    lb = {k.symbol: k.launches for k in kernels}
+    _check_train_launches(lb, "phase (b)", flash=True)
+    b.update(launches=lb, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    for ph in (a, b):
+        check(all(np.isfinite(ph["loss"])) and all(np.isfinite(ph["grad_norm"])),
+              "every training loss and grad norm finite")
+    check(abs(a["loss"][0] - b["loss"][0]) <= TRAIN_LOSS_RTOL * abs(a["loss"][0]),
+          f"step-0 loss, chunked vs flash core, within rtol {TRAIN_LOSS_RTOL} "
+          f"({a['loss'][0]} vs {b['loss'][0]})")
+    check(abs(a["grad_norm"][0] - b["grad_norm"][0])
+          <= TRAIN_GNORM_RTOL * abs(a["grad_norm"][0]),
+          f"step-0 grad norm, chunked vs flash core, within rtol "
+          f"{TRAIN_GNORM_RTOL} ({a['grad_norm'][0]} vs {b['grad_norm'][0]})")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for ph in (a, b):
+        ph["step_ms"] = statistics.median(ph["step_s"][1:]) * 1e3
+        ph["tokens_per_s"] = tokens / (ph["step_ms"] / 1e3)
+    return dict(chunked=a, flash=b, attn_grad_rel=attn_rel, state=state,
+                step=step, cfg=cfg, ds=ds)
+
+
+def train_replay(cfg, params) -> dict:
+    """One training step's loss and grad norm on the first block (2
+    layers) of the trained weights, full width and vocab, B=1 x S=128, on
+    the card and on the CPU (each encoding its own plans, held bitwise
+    equal)."""
+    cfg2 = cfg.with_updates(n_layers=2)
+    card_p = dict(params, blocks=_blocks_slice(params["blocks"], 1))
+    cpu_p = _to(card_p, "cpu", copy=True)
+    batch = SyntheticTokens(cfg.vocab, 1, 128, seed=SEED + 8).tensors_at(0)
+    out = {}
+    plans = {}
+    for where, p in (("card", card_p), ("cpu", cpu_p)):
+        dev = p["embed"]["embedding"].device
+        with torch.no_grad():
+            plans[where] = transformer.encode_plans(p, cfg2)
+        t0 = time.perf_counter()
+        loss, _, grads = step_lib.loss_and_grads(
+            p, {k: v.to(dev) for k, v in batch.items()}, cfg2, q_chunk=128,
+            plans=plans[where])
+        out[where] = (float(loss), float(global_norm(grads)),
+                      time.perf_counter() - t0)
+        del grads
+    check(same_plans(plans["card"].plans, plans["cpu"].plans),
+          "training replay: plans encoded on the card == on the CPU")
+    errs = {}
+    for i, name in enumerate(("loss", "grad_norm")):
+        a, b = out["card"][i], out["cpu"][i]
+        errs[name] = abs(a - b)
+        check(errs[name] <= REPLAY_TRAIN_TOL["atol"]
+              + REPLAY_TRAIN_TOL["rtol"] * abs(b),
+              f"training replay {name} within {REPLAY_TRAIN_TOL} ({a} on the "
+              f"card, {b} on the CPU)")
+    return dict(card=out["card"][:2], cpu=out["cpu"][:2], abs_err=errs,
+                cpu_s=out["cpu"][2], tol=REPLAY_TRAIN_TOL)
+
+
+def profile_train(tr) -> dict:
+    """The profiler over one more flash training step."""
+    batch = tr["ds"].tensors_at(TRAIN_STEPS, resolve_device())
+
+    def run():
+        tr["state"], _ = tr["step"](tr["state"], batch)
+    return profile(run, TRAIN_KERNELS)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -640,8 +940,8 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    all_kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM, fm_ops.FUSED,
-                   fa_ops.FWD)
+    all_kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM, fm_ops.BMM16,
+                   fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ, fa_ops.DKV)
 
     # -- path 1: the IC3Net actor -------------------------------------------
     env, ecfg = envs.make("predator_prey", **ENV)
@@ -714,6 +1014,48 @@ def main() -> int:
           f"({rp['clear_steps']} with a clear top-2 margin)", flush=True)
     sprof = profile_serve(session, scfg)
     print_profile("prefill + 8 decode steps", sprof)
+    del session, params
+    plan_cache.clear()
+    torch.cuda.empty_cache()
+
+    # -- path 3: training gemma2-2b ------------------------------------------
+    tcfg = registry.get_config("gemma2_2b", **TRAIN_FLGW)
+    bmm16_rows = check_bmm_bf16_kernel(tcfg, dev)
+    bwd_rows = check_flash_bwd_kernels(tcfg, dev)
+    for r in bmm16_rows:
+        print(f"  grouped_bmm_bf16 {r['proj']:>6} {r['b']} rows: "
+              f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), plain "
+              f"{r['plain_ms']:.4f}, bmm {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    for r in bwd_rows:
+        print(f"  flash_bwd S={r['s']} window={r['window']}: dq "
+              f"{r['dq_ms']:.4f} ms (bound {r['dq_bound_ms']:.4f}), dkv "
+              f"{r['dkv_ms']:.4f} ms (bound {r['dkv_bound_ms']:.4f}), both "
+              f"{r['bwd_ms']:.4f}, plain {r['plain_ms']:.4f}, sdpa bwd "
+              f"{r['library_ms']}", flush=True)
+    print(f"training kernels match their plain versions: grouped_bmm_bf16 "
+          f"max abs err {max(r['max_abs_err'] for r in bmm16_rows):.3g}, "
+          f"flash_bwd {max(max(r['max_abs_err'].values()) for r in bwd_rows):.3g}",
+          flush=True)
+    tr = run_train(all_kernels)
+    ca, fl = tr["chunked"], tr["flash"]
+    print(f"slice 3: chunked core {ca['step_ms']:.1f} ms/step "
+          f"({ca['tokens_per_s']:.0f} tokens/s), losses {ca['loss']}, grad "
+          f"norms {ca['grad_norm']}, peak {ca['peak_gb']:.1f} GB; flash core "
+          f"{fl['step_ms']:.1f} ms/step ({fl['tokens_per_s']:.0f} tokens/s), "
+          f"losses {fl['loss']}, grad norms {fl['grad_norm']}, peak "
+          f"{fl['peak_gb']:.1f} GB; launches (a) {ca['launches']}, (b) "
+          f"{fl['launches']}", flush=True)
+    tp = train_replay(tr["cfg"], tr["state"].params)
+    print(f"CPU replay of a training step (2 layers): card {tp['card']}, "
+          f"CPU {tp['cpu']} (loss, grad norm)", flush=True)
+    tprof = profile_train(tr)
+    print_profile("one flash training step", tprof)
+    train_out = dict(chunked=ca, flash=fl, attn_grad_rel=tr["attn_grad_rel"],
+                     tol=dict(loss_rtol=TRAIN_LOSS_RTOL,
+                              gnorm_rtol=TRAIN_GNORM_RTOL,
+                              attn_grad_rtol=TRAIN_ATTN_GRAD_RTOL))
+    del tr
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -723,12 +1065,22 @@ def main() -> int:
 
     def path_launches(sym):
         return {"ic3net_actor": sl["launches"][sym],
-                "gemma2_serve": sv["launches"][sym]}
+                "gemma2_serve": sv["launches"][sym],
+                "gemma2_train_chunked": ca["launches"][sym],
+                "gemma2_train_flash": fl["launches"][sym]}
 
     def launches(sym):
         return sum(path_launches(sym).values())
 
     prefill_layer = [r for r in fused_rows if r["rows"] == 4096]
+    train_layer = [r for r in bmm16_rows if r["proj"] != "ragged"]
+    bwd_timed = (f"one call at B={TRAIN_BATCH}, Hq=8, Hkv=4, S={TRAIN_SEQ}, "
+                 "D=256, causal, window 0, softcap 50, bf16; bound: dq "
+                 "6 D, dkv 8 D flops per allowed (query, key) pair at 989 "
+                 "TFLOP/s (bf16 tensor cores); f32_cores_bound_ms: the same "
+                 "flops at 67 TFLOP/s (f32 outside the tensor cores, where "
+                 "these kernels compute); plain ms and library ms (SDPA's "
+                 "backward, softcap 0) compute dq, dk and dv together")
     per_encode = "one encode: its calls at the path's 10 FLGW layer sides"
     kernels_line = {"kernels": [
         dict(name="plan_rank", route="cuda",
@@ -765,6 +1117,22 @@ def main() -> int:
              library_ms=total(bmm_rows, "library_ms"),
              timed_over="one policy step: its calls at the path's 5 FLGW "
                         "layers"),
+        dict(name="grouped_bmm_bf16", route="cuda",
+             source="src/repro_torch/csrc/flgw_matmul.cu",
+             replaces="src/repro/kernels/flgw_matmul/flgw_matmul.py:38",
+             launches=launches("grouped_bmm_bf16"),
+             launches_by_path=path_launches("grouped_bmm_bf16"),
+             max_abs_err=max(r["max_abs_err"] for r in bmm16_rows),
+             ms=total(train_layer, "ms"),
+             plain_ms=total(train_layer, "plain_ms"),
+             bound_ms=total(train_layer, "bound_ms"),
+             bound_by=max(train_layer,
+                          key=lambda r: r["bound_ms"])["bound_by"],
+             library_ms=total(train_layer, "library_ms"),
+             timed_over="one training layer's forward: its 3 MLP products "
+                        "(up, gate, down) at 4096 rows, bf16; bound at 989 "
+                        "TFLOP/s (bf16 tensor cores); library = torch.bmm "
+                        "on the same compact operands"),
         dict(name="fused_bmm", route="cuda",
              source="src/repro_torch/csrc/flgw_matmul.cu",
              replaces="src/repro/kernels/flgw_matmul/flgw_matmul.py:93",
@@ -797,6 +1165,33 @@ def main() -> int:
                         f"S={PREFILL_SEQ}, D=256, causal, softcap 50; bound "
                         "at 989 TFLOP/s (bf16 tensor cores); library = SDPA "
                         "(no softcap), compare with ms_softcap0"),
+        dict(name="flash_bwd_dq", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/"
+                      "flash_attention.py:178",
+             launches=launches("flash_bwd_dq"),
+             launches_by_path=path_launches("flash_bwd_dq"),
+             max_abs_err=max(r["max_abs_err"]["dq"] for r in bwd_rows),
+             ms=bwd_rows[1]["dq_ms"], plain_ms=bwd_rows[1]["plain_ms"],
+             bound_ms=bwd_rows[1]["dq_bound_ms"],
+             bound_by=bwd_rows[1]["dq_bound_by"],
+             f32_cores_bound_ms=bwd_rows[1]["dq_f32_cores_bound_ms"],
+             library_ms=bwd_rows[1]["library_ms"],
+             timed_over=bwd_timed),
+        dict(name="flash_bwd_dkv", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/"
+                      "flash_attention.py:205",
+             launches=launches("flash_bwd_dkv"),
+             launches_by_path=path_launches("flash_bwd_dkv"),
+             max_abs_err=max(max(r["max_abs_err"]["dk"],
+                                 r["max_abs_err"]["dv"]) for r in bwd_rows),
+             ms=bwd_rows[1]["dkv_ms"], plain_ms=bwd_rows[1]["plain_ms"],
+             bound_ms=bwd_rows[1]["dkv_bound_ms"],
+             bound_by=bwd_rows[1]["dkv_bound_by"],
+             f32_cores_bound_ms=bwd_rows[1]["dkv_f32_cores_bound_ms"],
+             library_ms=bwd_rows[1]["library_ms"],
+             timed_over=bwd_timed),
     ]}
 
     OUT.mkdir(exist_ok=True)
@@ -805,7 +1200,9 @@ def main() -> int:
         build_s=build_s, build_logs=logs, encode_rows=enc_rows,
         bmm_rows=bmm_rows, slice=sl, profile=prof, serve_params=n_params,
         fused_rows=fused_rows, flash_rows=flash_rows, serve=sv, replay=rp,
-        serve_profile=sprof, **kernels_line), indent=1, default=str))
+        serve_profile=sprof, bmm16_rows=bmm16_rows, flash_bwd_rows=bwd_rows,
+        train=train_out, train_replay=tp, train_profile=tprof,
+        **kernels_line), indent=1, default=str))
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Plan encoder: cached compact layouts plus the signature they came from.
 
-Port of ``repro.core.encoder``: encode, signature, the serving half of
-the refresh policies (``refresh_if_stale``) and the compact-weight
-attach. ``maybe_refresh`` belongs to the training slice. ``sig`` is the
-same uint32 hash as the JAX package's, bit for bit, held in an int64
-tensor: every multiply and add is masked to 32 bits.
+Port of ``repro.core.encoder``: encode, signature, the refresh policies
+(``maybe_refresh`` for a training loop, ``refresh_if_stale`` for
+serving) and the compact-weight attach. ``sig`` is the same uint32 hash
+as the JAX package's, bit for bit, held in an int64 tensor: every
+multiply and add is masked to 32 bits. Where JAX branches on the device
+with ``lax.cond``, the refreshes branch on the host.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core import grouped
+from repro_torch.core.schedule import REFRESH_MODES
 
 _MIX = 2654435761        # Knuth's multiplicative-hash constant (odd)
 _FOLD = 1000003          # layer-fold multiplier (odd)
@@ -88,7 +90,6 @@ def encode_plans(params: dict, cfg) -> PlanState:
                      plan_signature(params))
 
 
-
 def attach_compact(state: PlanState, params: dict) -> PlanState:
     """Attach compact weights (``GroupPlan.wc``) to every plan in a state:
     gather once per params version, consume through the fused kernel
@@ -106,6 +107,49 @@ def _certify(state: PlanState, params: dict) -> PlanState:
     if grouped.has_compact(state.plans):
         return attach_compact(state, params)
     return state
+
+
+def maybe_refresh(params: dict, state: PlanState, it, cfg,
+                  schedule=None) -> PlanState:
+    """Re-encode ``state`` from the current grouping matrices when due.
+
+    ``schedule`` is a ``SparsitySchedule`` (None: refresh every step);
+    its ``refresh`` field picks the policy: ``"period"`` every
+    ``refresh_every`` steps (with ``refresh_every == 1`` always, without
+    reading ``it``), ``"on_change"`` when the layout signature moved,
+    ``"hybrid"`` on change or when the period is due. ``it`` is the step
+    (an int or a 0-d tensor, read on the host). The pass-through branch
+    certifies (re-attaching ``wc`` where the state carries it). Empty
+    states pass through untouched.
+    """
+    if not isinstance(state, PlanState):
+        raise TypeError(
+            f"maybe_refresh needs a PlanState, got {type(state).__name__}; "
+            "build one with encoder.encode_plans")
+    if not state.plans:
+        return state
+    mode = "period" if schedule is None else \
+        getattr(schedule, "refresh", "period")
+    if mode not in REFRESH_MODES:
+        raise ValueError(f"unknown refresh mode {mode!r}")
+    k = 1 if schedule is None else max(1, schedule.refresh_every)
+
+    def fresh() -> PlanState:
+        new = encode_plans(params, cfg)
+        if grouped.has_compact(state.plans):
+            new = attach_compact(new, params)
+        return new
+
+    with torch.no_grad():
+        if mode == "period" and k == 1:
+            return fresh()
+        due = int(it) % k == 0
+        if mode == "period":
+            pred = due
+        else:
+            changed = int(plan_signature(params)) != int(state.sig)
+            pred = changed if mode == "on_change" else changed or due
+        return fresh() if pred else _certify(state, params)
 
 
 def refresh_if_stale(params: dict, state: PlanState, encode) -> PlanState:

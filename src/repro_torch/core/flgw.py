@@ -1,4 +1,4 @@
-"""Fully Learnable Weight Grouping (FLGW), forward half.
+"""Fully Learnable Weight Grouping (FLGW).
 
 Port of ``repro.core.flgw``. A layer ``W (M, N)`` carries grouping
 matrices ``IG (M, G)`` and ``OG (G, N)``; ``Mask[i, j] == 1`` iff
@@ -7,16 +7,17 @@ vectors determine the mask.
 
 Execution paths: ``masked`` computes ``x @ (W * Mask)`` at full FLOPs and
 is the numerical oracle; ``grouped`` permutes rows and columns by group
-and runs G dense compact tiles (``repro_torch.core.grouped``).
-
-Forward only: the straight-through estimator that trains IG/OG is not
-ported yet, so both FLGW paths refuse to build a graph.
+and runs G dense compact tiles (``repro_torch.core.grouped``). Both train
+IG and OG through a straight-through estimator: the hard one-hot
+selection forward, its softmax surrogate backward (:func:`mask_ste` here,
+the sparse-restricted form in ``grouped``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +26,7 @@ class FLGWConfig:
 
     groups: int = 1                 # G; G == 1 => dense (no pruning)
     path: str = "masked"            # "dense" | "masked" | "grouped"
+    ste_temperature: float = 1.0    # softmax temperature of the STE surrogate
     capacity_slack: float = 1.25    # grouped path: per-group capacity slack
 
     @property
@@ -34,17 +36,6 @@ class FLGWConfig:
     @property
     def avg_sparsity(self) -> float:
         return 0.0 if self.groups <= 1 else 1.0 - 1.0 / self.groups
-
-
-def forward_only(*tensors: torch.Tensor) -> None:
-    """Raise if autograd would record a graph through an FLGW layer: its
-    backward (the compact VJP and the IG/OG straight-through estimator)
-    is not ported. Run under ``torch.inference_mode()`` or
-    ``torch.no_grad()``."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "FLGW layers are forward-only in repro_torch: their backward "
-            "is not ported yet; call under torch.inference_mode()")
 
 
 def grouping_indices(ig: torch.Tensor, og: torch.Tensor
@@ -60,10 +51,35 @@ def mask_from_indices(ig_idx: torch.Tensor, og_idx: torch.Tensor,
     return (ig_idx[:, None] == og_idx[None, :]).to(dtype)
 
 
+def selection_matrices(ig: torch.Tensor, og: torch.Tensor,
+                       temperature: float = 1.0
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Straight-through IS (M, G) and OS (G, N): the hard one-hot argmax
+    selection forward, the gradient of the temperature softmax backward
+    (``soft + (hard - soft).detach()``)."""
+    g = ig.shape[1]
+    is_soft = torch.softmax(ig / temperature, dim=1)
+    is_hard = F.one_hot(ig.argmax(1), g).to(ig.dtype)
+    is_mat = is_soft + (is_hard - is_soft).detach()
+    os_soft = torch.softmax(og / temperature, dim=0)
+    os_hard = F.one_hot(og.argmax(0), g).T.to(og.dtype)
+    os_mat = os_soft + (os_hard - os_soft).detach()
+    return is_mat, os_mat
+
+
+def mask_ste(ig: torch.Tensor, og: torch.Tensor,
+             temperature: float = 1.0) -> torch.Tensor:
+    """Differentiable mask: forward equals :func:`mask_from_indices`,
+    backward through the softmax surrogates."""
+    is_mat, os_mat = selection_matrices(ig, og, temperature)
+    return is_mat @ os_mat
+
+
 def flgw_linear(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,
                 og: torch.Tensor, cfg: FLGWConfig, *, transpose: bool = False,
                 plan=None) -> torch.Tensor:
-    """``y = x @ (W * Mask)`` (or ``x @ (W * Mask)^T`` when transposed).
+    """``y = x @ (W * Mask)`` (or ``x @ (W * Mask)^T`` when transposed),
+    differentiable in x, W, IG and OG.
 
     ``plan`` is the layer's cached ``GroupPlan`` for the grouped path;
     ``None`` re-derives it per call.
@@ -71,8 +87,7 @@ def flgw_linear(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,
     if not cfg.enabled:
         return x @ (w.T if transpose else w)
     if cfg.path == "masked":
-        forward_only(x, w, ig, og)
-        wm = w * mask_from_indices(*grouping_indices(ig, og), w.dtype)
+        wm = w * mask_ste(ig, og, cfg.ste_temperature).to(w.dtype)
         return x @ (wm.T if transpose else wm)
     if cfg.path == "grouped":
         from repro_torch.core.grouped import grouped_apply  # avoids a cycle

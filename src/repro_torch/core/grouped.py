@@ -1,4 +1,4 @@
-"""Balanced group assignment and compact FLGW execution, forward half.
+"""Balanced group assignment and compact FLGW execution.
 
 Port of ``repro.core.grouped``. A capacity-balanced assignment gives every
 group ``cap = ceil(M/G * slack)`` row slots and as many column slots by
@@ -7,19 +7,21 @@ the same rule; the masked product then runs as G dense
 assignment runs on the plan-encode kernels
 (``repro_torch.kernels.plan_encode``).
 
-Two consume paths, forward only (the backward of the compact product
-waits for the training slice): a bare plan takes the gather path
-(``grouped_matmul`` on ``grouped_bmm``); a plan carrying compact weights
-(``GroupPlan.wc``, attached once per params version by serving) takes
-the fused path (``grouped_matmul_fused`` on ``fused_bmm``).
+Two consume paths: a bare plan takes the gather path (``grouped_matmul``
+on ``grouped_bmm``); a plan carrying compact weights (``GroupPlan.wc``,
+attached once per params version by serving) takes the fused path
+(``grouped_matmul_fused`` on ``fused_bmm``). :class:`_GroupedCore` makes
+either differentiable: dx and dW exactly, through the transposed compact
+products, and dIG/dOG through the sparse-restricted straight-through
+estimator, with the plan an input that the backward reuses.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.flgw import forward_only
 from repro_torch.kernels.flgw_matmul import ops as kops
 from repro_torch.kernels.plan_encode import ops as pe_ops
 
@@ -171,18 +173,90 @@ def _core_matmul(x: torch.Tensor, w: torch.Tensor,
                                plan.row_valid, plan.col_valid)
 
 
+def _grouped_bwd(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,
+                 og: torch.Tensor, plan: GroupPlan, temperature: float,
+                 gy: torch.Tensor):
+    """(dx, dW, dIG, dOG) of one compact product, as the JAX package's
+    ``_grouped_bwd``. Its two products are XLA einsums there, outside any
+    Pallas kernel, so here they are ``torch.bmm`` in the operands' dtype
+    (f32 accumulation); the scatters send padding slots to a sink row or
+    column that is sliced off."""
+    b = x.shape[0]
+    m, g = ig.shape
+    n = og.shape[1]
+    cap_n = plan.col_ids.shape[1]
+    xg = kops.gather_x(x, plan.row_ids, plan.row_valid)
+    wc = plan.wc if plan.wc is not None else kops.gather_w(
+        w, plan.row_ids, plan.col_ids, plan.row_valid, plan.col_valid)
+    gc = gy[:, plan.col_ids.reshape(-1)].reshape(b, g, cap_n).permute(1, 0, 2)
+    gc = torch.where(plan.col_valid[:, None, :], gc, 0)
+
+    # dX: the transposed compact product (Mask^T has the same structure
+    # with IG/OG swapped, so the compact tiles are reused).
+    flat_rows = torch.where(plan.row_valid, plan.row_ids, m).reshape(-1)
+    flat_cols = torch.where(plan.col_valid, plan.col_ids, n).reshape(-1)
+    dxc = torch.bmm(gc, wc.transpose(1, 2))                  # (G, B, capM)
+    dx = x.new_zeros((b, m + 1))
+    dx[:, flat_rows] = dxc.permute(1, 0, 2).reshape(b, -1)
+
+    # dW: compact outer products scattered to the dense weight.
+    dwc = torch.bmm(xg.transpose(1, 2), gc)                  # (G, capM, capN)
+    dw = w.new_zeros((m + 1, n + 1))
+    dw[flat_rows.reshape(g, -1, 1), flat_cols.reshape(g, 1, -1)] = dwc
+
+    # dIG/dOG: the mask gradient on surviving entries is dW * W, reduced
+    # to per-row / per-column scalars and pushed through the softmax
+    # Jacobian at the assigned group.
+    dmask = dwc * wc
+    s_row = torch.zeros(m + 1, dtype=torch.float32, device=x.device)
+    s_row[flat_rows] = dmask.sum(2).float().reshape(-1)
+    s_col = torch.zeros(n + 1, dtype=torch.float32, device=x.device)
+    s_col[flat_cols] = dmask.sum(1).float().reshape(-1)
+    s_row, s_col = s_row[:m], s_col[:n]
+
+    tau = temperature
+    soft_ig = torch.softmax(ig / tau, dim=1)                 # (M, G)
+    pg_row = F.one_hot(plan.row_group, g).to(soft_ig.dtype)
+    sel_r = (soft_ig * pg_row).sum(1, keepdim=True)
+    dig = (s_row[:, None] / tau) * sel_r * (pg_row - soft_ig)
+    soft_og = torch.softmax(og / tau, dim=0)                 # (G, N)
+    pg_col = F.one_hot(plan.col_group, g).T.to(soft_og.dtype)
+    sel_c = (soft_og * pg_col).sum(0, keepdim=True)
+    dog = (s_col[None, :] / tau) * sel_c * (pg_col - soft_og)
+    return dx[:, :m], dw[:m, :n], dig.to(ig.dtype), dog.to(og.dtype)
+
+
+class _GroupedCore(torch.autograd.Function):
+    """The compact product against a precomputed plan. The plan is an
+    input, not rebuilt in the backward: one encode serves the forward,
+    any recomputation and the backward of a step. It and ``wc`` get no
+    gradient (the weight's flows through dW)."""
+
+    @staticmethod
+    def forward(ctx, x, w, ig, og, plan, temperature):
+        ctx.plan, ctx.temperature = plan, temperature
+        ctx.save_for_backward(x, w, ig, og)
+        return _core_matmul(x, w, plan)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, ig, og = ctx.saved_tensors
+        return (*_grouped_bwd(x, w, ig, og, ctx.plan, ctx.temperature, gy),
+                None, None)
+
+
 def grouped_apply(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,
                   og: torch.Tensor, cfg, *, transpose: bool = False,
                   plan: Optional[GroupPlan] = None) -> torch.Tensor:
-    """Compact FLGW linear, forward only. ``x``: (..., M) (or (..., N)
-    when transposed). ``plan`` is the cached metadata of the
-    untransposed layer; ``None`` encodes one here."""
-    forward_only(x, w, ig, og)
+    """Compact FLGW linear, differentiable in x, W, IG and OG. ``x``:
+    (..., M) (or (..., N) when transposed). ``plan`` is the cached
+    metadata of the untransposed layer; ``None`` encodes one here."""
     if transpose:
         w, ig, og = w.T, og.T, ig.T
         plan = transpose_plan(plan) if plan is not None else None
     if plan is None:
-        plan = make_plan(ig, og, cfg.capacity_slack)
+        plan = make_plan(ig.detach(), og.detach(), cfg.capacity_slack)
     lead = x.shape[:-1]
-    y = _core_matmul(x.reshape(-1, x.shape[-1]), w, plan)
+    y = _GroupedCore.apply(x.reshape(-1, x.shape[-1]), w, ig, og, plan,
+                           cfg.ste_temperature)
     return y.reshape(*lead, -1)

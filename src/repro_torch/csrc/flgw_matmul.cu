@@ -1,23 +1,38 @@
 // Compact FLGW matmuls for Hopper, sm_90a: the grouped (block-diagonal)
 // batched product and its fused-gather variant.
 //
-// grouped_bmm_f32 replaces the Pallas TPU kernel _bmm_kernel (grouped_bmm)
-// of src/repro/kernels/flgw_matmul/flgw_matmul.py:
-//   y[g] = x[g] @ w[g],  x (G, B, K), w (G, K, N) -> y (G, B, N), float32.
+// grouped_bmm_f32 and grouped_bmm_bf16 replace the Pallas TPU kernel
+// _bmm_kernel (grouped_bmm) of src/repro/kernels/flgw_matmul/flgw_matmul.py:
+//   y[g] = x[g] @ w[g],  x (G, B, K), w (G, K, N) -> y (G, B, N) in x's
+//   type, f32 accumulation.
 //
-// Plain FP32 FMA on the CUDA cores, accumulated in a float32 register per
-// output, never TF32: the MARL path runs this product in f32 and must
-// agree with the f32 reference to ~1e-6.
+// grouped_bmm_f32: plain FP32 FMA on the CUDA cores, accumulated in a
+// float32 register per output, never TF32: the MARL path runs this
+// product in f32 and must agree with the f32 reference to ~1e-6.
 //
-// What bounds it on this card: at the MARL path's shapes (B = 128 rows,
-// K <= 40, N <= 160, G = 4) one call moves at most ~0.5 MB and does at
-// most ~6.6 MFLOP, ~0.15 us of HBM time or ~0.1 us of f32 ALU time, so
-// the launch (microseconds) is the bound, not the arithmetic. The design
+// What bounds grouped_bmm_f32 on this card: at the MARL path's shapes
+// (B = 128 rows, K <= 40, N <= 160, G = 4) one call moves at most
+// ~0.5 MB and does at most ~6.6 MFLOP, ~0.15 us of HBM time or ~0.1 us
+// of f32 ALU time, so the launch (microseconds) is the bound, not the
+// arithmetic. The design
 // is a simple, correct tiling: one block per (g, 64-row tile, 64-column
 // tile), 256 threads each owning a 4x4 patch of outputs, x and w staged
 // through shared memory 16 deep along K. Ragged edges (B, K, N not
 // multiples of the tile) are masked here, so the caller pads nothing.
 // wgmma/TMA tiles are later work: they pay only at far larger shapes.
+//
+// grouped_bmm_bf16: the LM training path's product (bf16 models' plans
+// carry no compact weights, so every FLGW projection gathers its operands
+// and lands here). bf16 operands on the tensor cores through wmma
+// 16x16x16 with f32 accumulators, the output rounded once to bf16, as
+// the TPU kernel's bf16 x bf16 -> f32 dot. Tiles as fused_bmm's: 64 rows,
+// 128 columns wide when there are more than 64 rows (64 otherwise), 4
+// warps, 32 deep per shared-memory pass, 16-byte loads where the widths
+// are multiples of 8 and the base is 16-byte aligned. At gemma2-2b's
+// training shapes (B = 4096 rows, K x N = 720 x 2880 up/gate, 2880 x 720
+// down, G = 4) one call is ~68 GFLOP against ~134 MB, so the tensor cores'
+// operations bound it; this version neither pipelines its loads nor uses
+// wgmma/TMA. Ragged B, K and N are masked here.
 //
 // fused_bmm replaces the Pallas TPU kernel _fused_kernel (fused_bmm) of
 // the same file, the serving path's product on compact weights:
@@ -333,6 +348,122 @@ fused_bmm_bf16_kernel(const __nv_bfloat16* __restrict__ xt,
   }
 }
 
+// x (G, B, K) row-major, bf16 on the tensor cores; same tiling and
+// epilogue as fused_bmm_bf16_kernel, with the x tile stored row-major.
+template <int BN>
+__global__ void __launch_bounds__(kWThreads)
+grouped_bmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ w,
+                        __nv_bfloat16* __restrict__ y, int b, int k, int n) {
+  using namespace nvcuda;
+  constexpr int kFN = BN / 32;
+  constexpr int kXsLd = kWK + 8;
+  constexpr int kWsLd = BN + 8;
+  constexpr int kCsLd = BN + 4;
+  constexpr int kLoadBytes = (kWM * kXsLd + kWK * kWsLd) * 2;
+  constexpr int kStoreBytes = kWM * kCsLd * 4;
+  constexpr int kSmem = kLoadBytes > kStoreBytes ? kLoadBytes : kStoreBytes;
+  __shared__ __align__(128) unsigned char smem[kSmem];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ws = xs + kWM * kXsLd;
+  float* cs = reinterpret_cast<float*>(smem);
+
+  const int g = blockIdx.z;
+  const int row0 = blockIdx.y * kWM;
+  const int col0 = blockIdx.x * BN;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const __nv_bfloat16* xg = x + static_cast<size_t>(g) * b * k;
+  const __nv_bfloat16* wg = w + static_cast<size_t>(g) * k * n;
+  __nv_bfloat16* yg = y + static_cast<size_t>(g) * b * n;
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][kFN];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kFN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  const bool vec_x = k % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_w = n % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const uint4 zero8 = make_uint4(0, 0, 0, 0);
+
+  for (int k0 = 0; k0 < k; k0 += kWK) {
+    if (vec_x) {
+      for (int e = tid; e < kWM * (kWK / 8); e += kWThreads) {
+        const int r = e / (kWK / 8), c = e % (kWK / 8) * 8;
+        const int gr = row0 + r, gc = k0 + c;
+        *reinterpret_cast<uint4*>(xs + r * kXsLd + c) = (gr < b && gc < k)
+            ? *reinterpret_cast<const uint4*>(
+                  xg + static_cast<size_t>(gr) * k + gc)
+            : zero8;
+      }
+    } else {
+      for (int e = tid; e < kWM * kWK; e += kWThreads) {
+        const int r = e / kWK, c = e % kWK;
+        const int gr = row0 + r, gc = k0 + c;
+        xs[r * kXsLd + c] = (gr < b && gc < k)
+            ? xg[static_cast<size_t>(gr) * k + gc] : zero;
+      }
+    }
+    if (vec_w) {
+      for (int e = tid; e < kWK * (BN / 8); e += kWThreads) {
+        const int r = e / (BN / 8), c = e % (BN / 8) * 8;
+        const int gr = k0 + r, gc = col0 + c;
+        *reinterpret_cast<uint4*>(ws + r * kWsLd + c) = (gr < k && gc < n)
+            ? *reinterpret_cast<const uint4*>(
+                  wg + static_cast<size_t>(gr) * n + gc)
+            : zero8;
+      }
+    } else {
+      for (int e = tid; e < kWK * BN; e += kWThreads) {
+        const int r = e / BN, c = e % BN;
+        const int gr = k0 + r, gc = col0 + c;
+        ws[r * kWsLd + c] = (gr < k && gc < n)
+            ? wg[static_cast<size_t>(gr) * n + gc] : zero;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kWK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> fb[kFN];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], xs + (wm * 32 + i * 16) * kXsLd + kk,
+                               kXsLd);
+#pragma unroll
+      for (int j = 0; j < kFN; ++j)
+        wmma::load_matrix_sync(fb[j], ws + kk * kWsLd + wn * (BN / 2)
+                                          + j * 16, kWsLd);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < kFN; ++j)
+          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kFN; ++j)
+      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * kCsLd
+                                  + wn * (BN / 2) + j * 16,
+                              acc[i][j], kCsLd, wmma::mem_row_major);
+  __syncthreads();
+  for (int e = tid; e < kWM * BN; e += kWThreads) {
+    const int r = e / BN, c = e % BN;
+    const int gr = row0 + r, gc = col0 + c;
+    if (gr < b && gc < n)
+      yg[static_cast<size_t>(gr) * n + gc] = __float2bfloat16(cs[r * kCsLd + c]);
+  }
+}
+
 // y = the sum of the splits' f32 partials, in split order, as bf16.
 __global__ void reduce_splits_kernel(const float* __restrict__ part,
                                      __nv_bfloat16* __restrict__ y,
@@ -368,6 +499,25 @@ int grouped_bmm_f32(const void* x, const void* w, void* y, int g, int b,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<float*>(y), b, k, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (G, B, K), w: (G, K, N), y: (G, B, N); contiguous bf16.
+int grouped_bmm_bf16(const void* x, const void* w, void* y, int g, int b,
+                     int k, int n, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+  const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(w);
+  __nv_bfloat16* yp = static_cast<__nv_bfloat16*>(y);
+  if (b > kWM) {
+    const dim3 grid((n + 127) / 128, (b + kWM - 1) / kWM, g);
+    grouped_bmm_bf16_kernel<128><<<grid, kWThreads, 0, st>>>(xp, wp, yp, b,
+                                                            k, n);
+  } else {
+    const dim3 grid((n + 63) / 64, (b + kWM - 1) / kWM, g);
+    grouped_bmm_bf16_kernel<64><<<grid, kWThreads, 0, st>>>(xp, wp, yp, b, k,
+                                                           n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

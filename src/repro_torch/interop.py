@@ -1,16 +1,21 @@
-"""Conversion of the JAX package's trees into the port's types.
+"""Conversion between the JAX package's trees and the port's types.
 
 The trees arrive as numpy arrays (``np.asarray`` of each JAX leaf), so
 this module needs neither ``jax`` nor ``repro``. JAX's bfloat16 leaves
 arrive as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy``
 rejects; they go through float32, which holds every bf16 value exactly.
+:func:`tree_to_numpy` goes the other way (bf16 as float32), for
+comparisons.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.encoder import PlanState
 from repro_torch.core.grouped import GroupPlan
+from repro_torch.optim.optimizers import AdamWState
+from repro_torch.train.state import TrainState
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
@@ -63,3 +68,40 @@ def plans_from_numpy(plans, device=None):
     if isinstance(plans, dict):
         return {k: plans_from_numpy(v, device) for k, v in plans.items()}
     return plan_from_numpy(plans, device)
+
+
+def train_state_from_numpy(state, device=None) -> TrainState:
+    """A JAX ``TrainState`` with numpy leaves -> the port's: params,
+    the optimizer state (AdamW ``mu``/``nu``/``count``, or RMSprop's
+    tree), ``step`` and, on the grouped path, the PlanState (``sig`` as
+    the port's int64 scalar)."""
+    opt = state.opt
+    if hasattr(opt, "mu"):
+        opt = AdamWState(mu=lm_params_from_numpy(opt.mu, device),
+                         nu=lm_params_from_numpy(opt.nu, device),
+                         count=tensor_from_numpy(opt.count, device))
+    else:
+        opt = lm_params_from_numpy(opt, device)
+    plans = state.plans
+    if hasattr(plans, "sig"):
+        plans = PlanState(plans_from_numpy(plans.plans, device),
+                          torch.tensor(int(plans.sig), dtype=torch.int64,
+                                       device=device))
+    return TrainState(params=lm_params_from_numpy(state.params, device),
+                      opt=opt, step=tensor_from_numpy(state.step, device),
+                      plans=plans)
+
+
+def tree_to_numpy(tree):
+    """Tensors of nested dicts and NamedTuples -> numpy copies (bf16 as
+    float32) in the same structure; other leaves pass. Copies, because
+    the optimizers update their tensors in place."""
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        return np.array((t.float() if t.dtype == torch.bfloat16
+                         else t).numpy())
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_to_numpy(v) for v in tree))
+    return tree

@@ -24,27 +24,53 @@ from repro_torch.kernels.flgw_matmul import ref as _ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 BMM = KernelEntry("flgw_matmul", "grouped_bmm_f32", [_P, _P, _P, _I, _I, _I, _I])
+BMM16 = KernelEntry("flgw_matmul", "grouped_bmm_bf16",
+                    [_P, _P, _P, _I, _I, _I, _I])
 FUSED = KernelEntry("flgw_matmul", "fused_bmm",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I])
 _TILE, _DEPTH = 64, 32      # fused_bmm's bf16 row/column tile and k-step
 
 
 def grouped_bmm(xg: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
-    """(G, B, capM) @ (G, capM, capN) -> (G, B, capN), float32 only on
-    the card. See :func:`ref.ref_grouped_bmm`."""
+    """(G, B, capM) @ (G, capM, capN) -> (G, B, capN) in xg's dtype, f32
+    accumulation; bf16 (``grouped_bmm_bf16``) or float32
+    (``grouped_bmm_f32``) on the card. See :func:`ref.ref_grouped_bmm`."""
     if on_cpu(xg, wc):
         return _ref.ref_grouped_bmm(xg, wc)
-    check_operand(xg, "xg", torch.float32, 3)
-    check_operand(wc, "wc", torch.float32, 3)
+    if xg.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"xg: the kernel takes bf16 or float32, got "
+                         f"{xg.dtype}")
+    check_operand(xg, "xg", xg.dtype, 3)
+    check_operand(wc, "wc", xg.dtype, 3)
     g, b, k = xg.shape
     if wc.shape[:2] != (g, k):
         raise ValueError(f"xg {tuple(xg.shape)} and wc {tuple(wc.shape)} "
                          "do not chain")
     n = wc.shape[2]
-    y = torch.empty((g, b, n), dtype=torch.float32, device=xg.device)
+    y = torch.empty((g, b, n), dtype=xg.dtype, device=xg.device)
     if y.numel():
-        BMM(xg.device, xg.data_ptr(), wc.data_ptr(), y.data_ptr(), g, b, k, n)
+        entry = BMM16 if xg.dtype == torch.bfloat16 else BMM
+        entry(xg.device, xg.data_ptr(), wc.data_ptr(), y.data_ptr(), g, b, k,
+              n)
     return y
+
+
+def gather_x(x: torch.Tensor, row_ids: torch.Tensor,
+             row_valid: torch.Tensor) -> torch.Tensor:
+    """Step 1: x (B, M) -> x_c (G, B, capM), padding slots zeroed."""
+    b = x.shape[0]
+    g, cap_m = row_ids.shape
+    xg = x[:, row_ids.reshape(-1)].reshape(b, g, cap_m).permute(1, 0, 2)
+    return torch.where(row_valid[:, None, :], xg, 0).contiguous()
+
+
+def gather_w(w: torch.Tensor, row_ids: torch.Tensor, col_ids: torch.Tensor,
+             row_valid: torch.Tensor, col_valid: torch.Tensor
+             ) -> torch.Tensor:
+    """Step 2: W (M, N) -> W_c (G, capM, capN), padding slots zeroed."""
+    wc = w[row_ids[:, :, None], col_ids[:, None, :]]
+    wc = torch.where(row_valid[:, :, None] & col_valid[:, None, :], wc, 0)
+    return wc.contiguous()
 
 
 def gather_operands(x: torch.Tensor, w: torch.Tensor, row_ids: torch.Tensor,
@@ -53,13 +79,8 @@ def gather_operands(x: torch.Tensor, w: torch.Tensor, row_ids: torch.Tensor,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Steps 1-2: the compact operands ``(x_c, W_c)`` of one layer, with
     the padding slots zeroed."""
-    b = x.shape[0]
-    g, cap_m = row_ids.shape
-    xg = x[:, row_ids.reshape(-1)].reshape(b, g, cap_m).permute(1, 0, 2)
-    xg = torch.where(row_valid[:, None, :], xg, 0).contiguous()
-    wc = w[row_ids[:, :, None], col_ids[:, None, :]]
-    wc = torch.where(row_valid[:, :, None] & col_valid[:, None, :], wc, 0)
-    return xg, wc.contiguous()
+    return (gather_x(x, row_ids, row_valid),
+            gather_w(w, row_ids, col_ids, row_valid, col_valid))
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, row_ids: torch.Tensor,

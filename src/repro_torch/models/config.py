@@ -66,9 +66,9 @@ class ModelConfig:
     flgw_groups: int = 1
     flgw_path: str = "masked"    # dense | masked | grouped
     flgw_targets: Tuple[str, ...] = ("mlp",)   # mlp | attn | moe
-    # training (read by the training slice; the forward ignores it)
-    remat: bool = True
-    use_flash: bool = False      # fused flash-attention prefill core
+    # training
+    remat: bool = True           # checkpoint each layer slot under autograd
+    use_flash: bool = False      # fused flash-attention core (prefill, train)
 
     @property
     def period(self) -> int:

@@ -6,16 +6,19 @@ KV caches are stacked on axis 0 as in the JAX package (so a param tree
 converts one to one), and a Python loop over the blocks takes the place
 of ``lax.scan``, slicing every stacked leaf.
 
-Ported: the dense family (attention mixers, MLP FFNs). SSM mixers, MoE
-FFNs, cross-attention, encoder stacks, ``remat``, ``banded``,
-``unroll_blocks`` and ``attn_identity`` raise ``NotImplementedError``
-(ROADMAP, Queue 1).
+Ported: the dense family (attention mixers, MLP FFNs) and ``remat``
+(each layer slot under a non-reentrant ``torch.utils.checkpoint``, so
+the backward recomputes one layer at a time from its input, as
+``jax.checkpoint`` around the JAX package's block body). SSM mixers, MoE
+FFNs, cross-attention, encoder stacks, ``banded``, ``unroll_blocks`` and
+``attn_identity`` raise ``NotImplementedError`` (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import encoder as planenc
@@ -108,6 +111,17 @@ def _index(tree, i: int):
     return {k: _index(v, i) for k, v in tree.items()}
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` blocks of a tree of stacked tensors, as views from one
+    ``unbind`` per leaf: the backward stacks the blocks' gradients into
+    the stacked leaf's once, where ``n`` separate ``_index`` views would
+    each add a full-size zero-padded gradient."""
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    parts = {k: _unstack(v, n) for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 def _slot_apply(p, x, positions, cfg: ModelConfig, slot: SlotSpec, *,
                 cache=None, pos=None, q_chunk=512, plans=None):
     """One layer; a decode step writes ``cache``'s KV buffers in place."""
@@ -135,14 +149,14 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
     :func:`init_cache`. ``plans``: cached FLGW metadata (PlanState or its
     raw dict); when None, a ``plans`` entry riding the decode cache is
     consumed, and with neither the grouped path re-encodes per
-    projection. ``return_hidden`` skips the unembedding. ``aux_loss`` is
-    0 (no MoE in the dense family).
+    projection. ``return_hidden`` skips the unembedding. ``remat``
+    (default ``cfg.remat``) checkpoints every layer slot when autograd
+    records and there is no cache. ``aux_loss`` is 0 (no MoE in the dense
+    family).
     """
     _check_supported(cfg)
-    if banded or unroll_blocks or attn_identity or remat:
-        raise _unported("banded, unroll_blocks, attn_identity and remat "
-                        "(the forward-only port has nothing to "
-                        "rematerialise)")
+    if banded or unroll_blocks or attn_identity:
+        raise _unported("banded, unroll_blocks and attn_identity")
     if patch_embeds is not None or frames is not None:
         raise _unported("the VLM prefix and the audio encoder")
     if plans is None and cache is not None:
@@ -151,17 +165,28 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
         plans = plans.plans
     plans = plans or {}
     block_plans = plans.get("blocks")
+    # remat only without a cache (as the JAX package) and only where
+    # autograd records: serving runs under inference_mode
+    remat = (cfg.remat if remat is None else remat) and cache is None \
+        and torch.is_grad_enabled()
     x = embed(params["embed"], tokens, cfg.d_model).to(cfg.dtype)
     pos = None if cache is None else cache["pos"]
+    blocks = _unstack(params["blocks"], cfg.n_blocks)
     for i in range(cfg.n_blocks):
-        block_p = _index(params["blocks"], i)
         block_pl = _index(block_plans, i)
         for j, slot in enumerate(cfg.pattern):
             name = f"slot{j}"
             c = None if cache is None else _index(cache["blocks"][name], i)
-            x = _slot_apply(block_p[name], x, positions, cfg, slot, cache=c,
-                            pos=pos, q_chunk=q_chunk,
-                            plans=plan_of(block_pl, name))
+            kw = dict(cache=c, pos=pos, q_chunk=q_chunk,
+                      plans=plan_of(block_pl, name))
+            if remat:
+                # the plans are inputs: the recompute consumes them as the
+                # forward did, never re-encoding
+                x = checkpoint(_slot_apply, blocks[i][name], x, positions,
+                               cfg, slot, use_reentrant=False, **kw)
+            else:
+                x = _slot_apply(blocks[i][name], x, positions, cfg, slot,
+                                **kw)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
         out = x

@@ -1,15 +1,17 @@
-"""The port's plan encoder (plans and their uint32 signature) against the
-JAX package."""
+"""The port's plan encoder (plans, their uint32 signature and the
+training refresh policies) against the JAX package."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
 from repro.core import encoder as jencoder  # noqa: E402
+from repro.core import schedule as jschedule  # noqa: E402
 from repro.core.flgw import FLGWConfig as JFLGWConfig  # noqa: E402
-from repro_torch.core import encoder, grouped  # noqa: E402
+from repro_torch.core import encoder, grouped, schedule  # noqa: E402
 from repro_torch.core.flgw import FLGWConfig  # noqa: E402
 
 
@@ -76,3 +78,57 @@ def test_encode_plans_mirrors_the_tree_and_matches_reference():
                                           np.asarray(getattr(jp, f)))
     empty = encoder.empty_state()
     assert not empty and int(empty.sig) == 0
+
+
+@pytest.mark.parametrize("mode,every", [("period", 1), ("period", 3),
+                                        ("on_change", 1), ("hybrid", 2)])
+def test_maybe_refresh_matches_jax(mode, every):
+    rng = np.random.default_rng(every)
+    p = {"l": {"w": rng.standard_normal((24, 16)).astype(np.float32),
+               "ig": rng.standard_normal((24, 4)).astype(np.float32),
+               "og": rng.standard_normal((4, 16)).astype(np.float32)}}
+    moved = {"l": dict(p["l"], ig=p["l"]["ig"].copy())}
+    moved["l"]["ig"][3] = -moved["l"]["ig"][3]           # argmax flips
+    jsched = jschedule.SparsitySchedule(groups=4, refresh_every=every,
+                                        refresh=mode)
+    tsched = schedule.SparsitySchedule(groups=4, refresh_every=every,
+                                       refresh=mode)
+    jcfg = JFLGWConfig(groups=4, path="grouped")
+    tcfg = FLGWConfig(groups=4, path="grouped")
+
+    def jtree(t):
+        return jax.tree.map(jnp.asarray, t)
+
+    def ttree(t):
+        return jax.tree.map(torch.from_numpy, t)
+    jst = jencoder.encode_plans(jtree(p), jcfg)
+    tst = encoder.encode_plans(ttree(p), tcfg)
+    jrefresh = jax.jit(jencoder.maybe_refresh, static_argnums=(3, 4))
+    for it in range(4):
+        for params in (p, moved):
+            jnew = jrefresh(jtree(params), jst, it, jcfg, jsched)
+            tnew = encoder.maybe_refresh(ttree(params), tst, it, tcfg, tsched)
+            assert int(tnew.sig) == int(jnew.sig)
+            # bitwise but for the reference's group of the last item
+            # (ROADMAP Queue 3)
+            for a, b in zip(tnew.plans["l"][:6], jnew.plans["l"][:6]):
+                a = a.numpy()
+                b = np.asarray(b).astype(a.dtype)
+                if a.ndim == 1:
+                    a, b = a[:-1], b[:-1]
+                np.testing.assert_array_equal(a, b)
+    with pytest.raises(TypeError, match="PlanState"):
+        encoder.maybe_refresh(ttree(p), {}, 0, tcfg)
+
+
+def test_schedule_is_the_jax_schedule():
+    for kw in (dict(groups=4, refresh_every=3, warmup_steps=2),
+               dict(groups=2, refresh="on_change")):
+        j, t = jschedule.SparsitySchedule(**kw), schedule.SparsitySchedule(**kw)
+        assert [t.groups_at(s) for s in range(5)] == \
+            [j.groups_at(s) for s in range(5)]
+        assert [t.refresh_at(s) for s in range(5)] == \
+            [j.refresh_at(s) for s in range(5)]
+        assert t.avg_sparsity == j.avg_sparsity
+    with pytest.raises(ValueError, match="refresh must be one of"):
+        schedule.SparsitySchedule(refresh="sometimes")

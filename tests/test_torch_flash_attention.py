@@ -61,13 +61,3 @@ def test_rows_with_no_allowed_key_give_zero_and_neg_inf():
     assert torch.all(out[:, :, 4:] == 0)
     assert torch.all(lse[:, :, 4:] == ref.NEG_INF)
     assert torch.isfinite(lse[:, :, :3]).all()
-
-
-def test_flash_attention_is_forward_only():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 2, 1, 8, 4))
-    out = ops.flash_attention(q, k, v, window=3)
-    assert torch.equal(out, ops.flash_fwd(q, k, v, window=3)[0])
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.flash_attention(q.requires_grad_(), k, v)
-    with torch.inference_mode():
-        ops.flash_attention(q, k, v)

@@ -111,17 +111,6 @@ def test_grouping_indices_mask_and_sparsity_match_jax():
     assert not flgw.FLGWConfig(groups=4, path="dense").enabled
 
 
-@pytest.mark.parametrize("path", ["grouped", "masked"])
-def test_flgw_paths_refuse_to_record_a_graph(path):
-    p, x = _layer(7, 16, 16, 2)
-    params = {k: v.requires_grad_() for k, v in _t(p).items()}
-    cfg = flgw.FLGWConfig(groups=2, path=path)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        layers.proj(params, torch.from_numpy(x), cfg)
-    with torch.no_grad():
-        layers.proj(params, torch.from_numpy(x), cfg)
-
-
 def test_unported_paths_raise():
     """The compact-weight path is ported now (tests/test_torch_fused_bmm.py);
     what is still unported raises instead of running something else."""
@@ -130,10 +119,6 @@ def test_unported_paths_raise():
     from repro_torch.models.config import SlotSpec
     p, x = _layer(8, 16, 16, 2)
     cfg = registry.get_smoke_config("gemma2_2b", dtype=torch.float32)
-    params = transformer.lm_init(torch.Generator().manual_seed(0), cfg)
-    tok = torch.zeros((1, 2), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.lm_apply(params, cfg, tok, tok, remat=True)
     for slot in (SlotSpec(mixer="ssm"), SlotSpec(ffn="moe"),
                  SlotSpec(cross=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -5,6 +5,7 @@ Without one every test here skips (decided inside the fixture).
 """
 import dataclasses
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -67,6 +68,60 @@ def test_grouped_bmm_matches_its_plain_version(cuda, g, b, k, n):
     assert fm_ops.BMM.launches == before + 1
     torch.testing.assert_close(y, fm_ref.ref_grouped_bmm(xg, wc),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("g,b,k,n", [(4, 4096, 720, 2880),
+                                     (4, 4096, 2880, 720),
+                                     (4, 4, 720, 2880), (3, 70, 37, 45),
+                                     (2, 130, 48, 136), (1, 7, 17, 65)])
+def test_grouped_bmm_bf16_matches_its_plain_version(cuda, g, b, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(b + k + n)
+    xg = torch.randn((g, b, k), generator=gen, device=cuda).bfloat16()
+    wc = torch.randn((g, k, n), generator=gen, device=cuda).bfloat16()
+    before = (fm_ops.BMM16.launches, fm_ops.BMM.launches)
+    y = fm_ops.grouped_bmm(xg, wc)
+    torch.cuda.synchronize()
+    assert (fm_ops.BMM16.launches, fm_ops.BMM.launches) == (before[0] + 1,
+                                                           before[1])
+    assert y.dtype == torch.bfloat16 and y.shape == (g, b, n)
+    # f32 sums in another order, then one bf16 rounding each (2**-8)
+    torch.testing.assert_close(y.float(), fm_ref.ref_grouped_bmm(xg, wc)
+                               .float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,softcap,causal", [
+    (1, 8, 4, 1024, 256, 4096, 50.0, True),
+    (1, 8, 4, 1024, 256, 0, 0.0, True),
+    (2, 8, 4, 512, 256, 128, 50.0, True),
+    (2, 8, 4, 200, 256, 0, 50.0, True),      # ragged S
+    (1, 4, 4, 130, 64, 40, 0.0, True),
+    (2, 4, 2, 96, 128, 7, 30.0, False)])
+def test_flash_bwd_matches_its_plain_version(cuda, dtype, b, hq, hkv, s, d,
+                                             window, softcap, causal):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    gen = torch.Generator(device=cuda).manual_seed(s + d + 1)
+    q = torch.randn((b, s, hq, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    do = torch.randn((b, hq, s, d), generator=gen, device=cuda).to(dtype)
+    q = q.transpose(1, 2)                        # strided, as the model's
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fa_ops.flash_fwd(q, k, v, **kw)
+    before = (fa_ops.DQ.launches, fa_ops.DKV.launches)
+    got = fa_ops.flash_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa_ops.DQ.launches, fa_ops.DKV.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    want = fa_ref.ref_flash_bwd(q, k, v, out, lse, do, **kw)
+    # f32: sums over up to S keys / qpk * S queries in another order;
+    # bf16: the same f32 math, each result rounded once to bf16 (2**-8)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape, name
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol,
+                                   msg=name)
 
 
 def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -184,3 +239,45 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
     reqs = synthetic_requests(0, 4, vocab=cfg.vocab)
     rep = Engine(card, 2, 32).run(reqs)
     assert rep.generated_tokens == sum(r.max_new_tokens for r in reqs)
+
+
+def test_training_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import adamw_init
+    from repro_torch.train import state as state_lib
+    from repro_torch.train import step as step_lib
+    cfg = registry.get_smoke_config("gemma2_2b", flgw_groups=4,
+                                    flgw_path="grouped", use_flash=True)
+    params = transformer.lm_init(torch.Generator().manual_seed(0), cfg)
+    batch = SyntheticTokens(cfg.vocab, 2, 40, seed=3).tensors_at(0)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = _to(params, dev)
+        state = state_lib.reencode_plans(state_lib.TrainState(
+            params=p, opt=adamw_init(p),
+            step=torch.zeros((), dtype=torch.int32, device=dev)), cfg)
+        before = (fm_ops.BMM16.launches, fa_ops.DQ.launches,
+                  fa_ops.DKV.launches, fm_ops.BMM.launches)
+        _, m = step_lib.make_train_step(cfg)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        after = (fm_ops.BMM16.launches, fa_ops.DQ.launches,
+                 fa_ops.DKV.launches, fm_ops.BMM.launches)
+        out[dev.type] = (float(m["loss"]), float(m["grad_norm"]))
+        if dev.type == "cuda":
+            # 3 MLP products a layer, in the forward and its remat replay
+            assert after[0] - before[0] == 2 * 3 * cfg.n_layers
+            assert after[1] - before[1] == cfg.n_layers
+            assert after[2] - before[2] == cfg.n_layers
+            assert after[3] == before[3]
+    # bf16 activations with f32 sums in other orders on the two devices
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=5e-2, atol=5e-2)
+
+
+def _to(tree, dev):
+    """A copy of a tensor tree on ``dev`` (the optimizers write in place)."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev, copy=True)

@@ -15,6 +15,7 @@ from repro_torch.kernels import on_cpu  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flgw_matmul import ops as fm_ops  # noqa: E402
 from repro_torch.kernels.plan_encode import ops as pe_ops  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.marl import ic3net, train  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
@@ -43,8 +44,8 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
          os.path.join(ROOT, "chip_smoke.py")],
         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # every module of the serving slice is among those imported
-    assert int(out.stdout.split()[-1]) >= 38
+    # every module of the training slice is among those imported
+    assert int(out.stdout.split()[-1]) >= 49
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -61,20 +62,26 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     lm = registry.get_smoke_config("gemma2_2b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.init_cache(lm, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.train_lm("gemma2_2b", steps=1)
     cache = transformer.init_cache(lm, 1, 4, device="cpu")
     assert cache["pos"].device == torch.device("cpu")
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
-    kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM, fm_ops.FUSED, fa_ops.FWD)
+    kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM, fm_ops.BMM16,
+               fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ, fa_ops.DKV)
     before = [k.launches for k in kernels]
     ig = torch.randn(40, 4)
     pe_ops.balanced_assign(ig, 1, 1.25)
     fm_ops.grouped_bmm(torch.randn(2, 3, 4), torch.randn(2, 4, 5))
+    fm_ops.grouped_bmm(torch.randn(2, 3, 4).bfloat16(),
+                       torch.randn(2, 4, 5).bfloat16())
     fm_ops.fused_bmm(torch.randn(7, 3), torch.randn(2, 4, 5),
                      torch.zeros((2, 4), dtype=torch.int32))
-    q = torch.randn(1, 2, 5, 8)
-    fa_ops.flash_fwd(q, q[:, :1], q[:, :1])
+    q = torch.randn(1, 2, 5, 8, requires_grad=True)
+    out = fa_ops.flash_attention(q, q[:, :1], q[:, :1])
+    out.sum().backward()
     assert [k.launches for k in kernels] == before
 
 
@@ -89,6 +96,8 @@ def test_kernel_wrappers_refuse_other_devices_and_mixes():
                          torch.zeros((2, 4), dtype=torch.int32))
     with pytest.raises(ValueError, match="all lie on the CPU"):
         fa_ops.flash_fwd(meta[None], meta[None], meta[None])
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        fa_ops.flash_bwd(*[meta[None]] * 4, meta, meta[None])
 
 
 def test_kernel_cache_stays_inside_the_checkout(monkeypatch, tmp_path):
