@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Three paths, each at full width with random weights from a seed:
+The port's paths, each at full width with random weights from a seed:
 
 * IC3Net's actor half: the registered ``ic3net`` config (hidden 128,
   8 agents) with FLGW G=4 on the grouped path, predator-prey 10x10 with
@@ -13,7 +13,14 @@ Three paths, each at full width with random weights from a seed:
   MLP and attention projections and the flash-attention prefill;
 * training gemma2-2b: the same config with FLGW G=4 on the grouped path
   for the MLP (the launcher's targets), slack 1.25, AdamW, remat, B=4 x
-  S=1024 batches of ``SyntheticTokens(seed=0)``.
+  S=1024 batches of ``SyntheticTokens(seed=0)``;
+* the OSEL encoder (the sparse row memory on the mask-encode kernel) at
+  the paper's Fig. 10 shapes;
+* training IC3Net (the A2C learner): the actor's config and env, B=16,
+  RMSprop lr 1e-3, a dense warmup of 2 iterations, 10 iterations through
+  ``train``; and the Fig. 9 learning check (predator-prey 4 agents on
+  4x4, 12 steps, B=16, hidden 128, G=4, 800 iterations) on the masked
+  and the grouped path.
 
 The script
 
@@ -50,7 +57,21 @@ The script
      batches, checks which kernels each phase launched and that the two
      agree; replays one step of 2 layers of the trained weights on the CPU
      (B=1 x S=128); and profiles one flash training step;
-  6. prints one ``{"kernels": [...]}`` line, the card's name and power
+  6. holds ``osel_encode`` bitwise against its plain version at every
+     FLGW side of gemma2-2b, the five IC3Net layers, Fig. 10's grid and
+     ragged shapes; with the launch counts at 0, runs the OSEL encoder
+     (``encode``/``transpose_encode``) at Fig. 10's 128 x 512 and checks
+     its mask against ``flgw.mask_from_indices`` and the IS @ OS
+     baseline; times the kernel at 2304 x 9216 against its plain version
+     and ``torch.eq``; prints the FPGA cycle and footprint models' table;
+  7. with every launch count at 0, trains IC3Net 10 iterations through
+     ``train`` (2 dense, 8 grouped) and checks the launches exactly;
+     replays one more iteration's sampled actions and gates on the CPU
+     (loss within 1e-5, each gradient within 1e-4 relative norm, the gate
+     head's gradient exactly 0 on both); profiles one sparse iteration;
+     then runs the Fig. 9 learning check on the masked and the grouped
+     path against bands around the JAX package's success rates;
+  8. prints one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -91,9 +112,13 @@ from repro_torch.serving import (Engine, Request, ServeSession,  # noqa: E402
                                  max_seq_for, plan_cache, synthetic_requests)
 from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
 from repro_torch.launch.train import train_lm  # noqa: E402
-from repro_torch.optim.optimizers import global_norm  # noqa: E402
+from repro_torch.optim.optimizers import global_norm, rmsprop_init  # noqa
 from repro_torch.train import state as state_lib  # noqa: E402
 from repro_torch.train import step as step_lib  # noqa: E402
+from repro_torch.core import flgw, osel  # noqa: E402
+from repro_torch.core.schedule import SparsitySchedule  # noqa: E402
+from repro_torch.kernels.osel_encode import ops as os_ops  # noqa: E402
+from repro_torch.kernels.osel_encode import ref as os_ref  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -923,6 +948,306 @@ def profile_train(tr) -> dict:
     return profile(run, TRAIN_KERNELS)
 
 
+# ---------------------------------------------------------------------------
+# OSEL: the mask-encode kernel and the sparse row memory
+# ---------------------------------------------------------------------------
+
+# every FLGW side of gemma2-2b's MLP and attention (d 2304, d_ff 9216,
+# 8 x 256 query and 4 x 256 key/value features)
+OSEL_GEMMA = ((2304, 9216), (9216, 2304), (2304, 2048), (2304, 1024),
+              (2048, 2304))
+FIG10_M, FIG10_N, FIG10_G = 128, 512, (2, 4, 8, 16, 32)
+FIG10_SWEEP = (2048, 4096, 8192)     # N = M / 4 at G = 8
+OSEL_RAGGED = ((1, 64), (257, 129), (300, 200))
+
+
+def _osel_cases(ic3_params, device) -> list:
+    """(label, ig_idx, og_idx) of every shape the OSEL phase holds the
+    kernel at: random G=4 indices at gemma2-2b's FLGW sides, the actor
+    model's own grouping indices, Fig. 10's grid and ragged shapes."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+
+    def rand(m, n, g):
+        return (torch.randint(0, g, (m,), generator=gen, device=device),
+                torch.randint(0, g, (n,), generator=gen, device=device))
+    cases = [(f"gemma2_2b {m}x{n} G=4", *rand(m, n, 4))
+             for m, n in OSEL_GEMMA]
+    for path, p in grouped.iter_flgw_layers(ic3_params):
+        ig, og = flgw.grouping_indices(p["ig"].detach(), p["og"].detach())
+        cases.append((f"ic3net {path[-1]}", ig, og))
+    cases += [(f"fig10 {FIG10_M}x{FIG10_N} G={g}",
+               *rand(FIG10_M, FIG10_N, g)) for g in FIG10_G]
+    cases += [(f"fig10 {m}x{m // 4} G=8", *rand(m, m // 4, 8))
+              for m in FIG10_SWEEP]
+    cases += [(f"ragged {m}x{n} G=4", *rand(m, n, 4))
+              for m, n in OSEL_RAGGED]
+    return cases
+
+
+def run_osel(ic3_params, device) -> dict:
+    """The OSEL phase. With the counts at 0: the kernel held bitwise at
+    every case, then the encoder at Fig. 10's 128 x 512 (each G) checked
+    against the mask by indices, the IS @ OS baseline and the CPU encode;
+    the launches equal the osel_mask and encode calls made. Then the
+    kernel timed at the largest mask, and profiled."""
+    _zero((os_ops.OSEL,))
+    rows = []
+    calls = 0
+    for label, ig, og in _osel_cases(ic3_params, device):
+        got = os_ops.osel_mask(ig, og)
+        calls += 1
+        want = os_ref.ref_mask_indices(ig, og).to(torch.uint8)
+        err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+        check(torch.equal(got, want),
+              f"osel_encode == plain, bitwise, at {label} (max abs err {err})")
+        rows.append(dict(case=label, m=ig.shape[0], n=og.shape[0],
+                         max_abs_err=err))
+    torch.cuda.synchronize()
+    holds = os_ops.OSEL.launches
+
+    # the OSEL path: the sparse row memory, forward and transposed
+    _zero((os_ops.OSEL,))
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    for g in FIG10_G:
+        ig = torch.randn((FIG10_M, g), generator=gen, device=device)
+        og = torch.randn((g, FIG10_N), generator=gen, device=device)
+        ig_idx, og_idx = flgw.grouping_indices(ig, og)
+        mem = osel.encode(ig_idx, og_idx, g)
+        tmem = osel.transpose_encode(ig_idx, og_idx, g)
+        mask = flgw.mask_from_indices(ig_idx, og_idx, torch.bool)
+        check(torch.equal(osel.mask_from_memory(mem), mask)
+              and torch.equal(os_ops.reference_mask(ig, og), mask),
+              f"OSEL memory == mask by indices == IS @ OS at G={g}")
+        check(torch.equal(osel.mask_from_memory(tmem), mask.T),
+              f"transpose_encode gives the transposed mask at G={g}")
+        cpu = osel.encode(ig_idx.cpu(), og_idx.cpu(), g)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(mem, cpu)),
+              f"OSEL memory on the card == on the CPU, bitwise, at G={g}")
+    torch.cuda.synchronize()
+    path_launches = os_ops.OSEL.launches
+    encodes = 2 * len(FIG10_G)
+    check(holds == calls and path_launches == encodes,
+          f"osel_encode launched once per osel_mask ({holds} of {calls}) "
+          f"and encode call ({path_launches} of {encodes})")
+
+    m, n = OSEL_GEMMA[0]
+    ig = torch.randint(0, 4, (m,), generator=gen, device=device,
+                       dtype=torch.int32)
+    og = torch.randint(0, 4, (n,), generator=gen, device=device,
+                       dtype=torch.int32)
+    bnd, by = bound_ms(m * n + 4 * (m + n), m * n)
+    timing = dict(
+        m=m, n=n, ms=time_ms(lambda: os_ops.osel_mask(ig, og)),
+        plain_ms=time_ms(lambda: os_ref.ref_mask_indices(ig, og).to(
+            torch.uint8)),
+        library_ms=time_ms(lambda: torch.eq(ig[:, None], og[None, :])),
+        library="torch.eq(ig[:, None], og[None, :]) (bool out)",
+        bound_ms=bnd, bound_by=by)
+    timing["gb_per_s"] = (m * n + 4 * (m + n)) / timing["ms"] / 1e6
+    prof = profile(lambda: [os_ops.osel_mask(ig, og) for _ in range(50)],
+                   {"osel_encode": "osel_encode_kernel"})
+    return dict(rows=rows, holds=holds, launches=path_launches,
+                timing=timing, profile=prof)
+
+
+def fpga_model_table() -> list[dict]:
+    """The paper's FPGA encoder at Fig. 10's 128 x 512: cycles and
+    on-chip bytes with and without OSEL (a model, not a measurement)."""
+    rows = []
+    for g in FIG10_G:
+        c_osel = osel.cycle_model(FIG10_M, FIG10_N, g)["total"]
+        c_base = osel.cycle_model(FIG10_M, FIG10_N, g, use_osel=False)["total"]
+        f_dense = osel.footprint_model(FIG10_M, FIG10_N, g,
+                                       use_grouping=False)["total"]
+        f_grp = osel.footprint_model(FIG10_M, FIG10_N, g)["total"]
+        rows.append(dict(g=g, cycles_osel=c_osel, cycles_baseline=c_base,
+                         cycle_speedup=c_base / c_osel, bytes_dense=f_dense,
+                         bytes_grouped=f_grp, footprint_ratio=f_dense / f_grp))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Training IC3Net: the A2C learner
+# ---------------------------------------------------------------------------
+
+LEARN_ITERS = 10
+LEARN_SCHEDULE = SparsitySchedule(groups=4, warmup_steps=2)
+LEARN_REPLAY_LOSS_RTOL, LEARN_REPLAY_GRAD_REL = 1e-5, 1e-4
+LEARN_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
+                 "grouped_bmm_f32": "grouped_bmm_kernel"}
+# benchmarks/fig9_accuracy.py's config; the JAX package's final success
+# rates (mean of the last 80 iterations) at G=4: masked from
+# BENCH_fig9_accuracy.json, grouped from repro.marl.train.train under
+# use_reference_impl() (the command is in PERF.md). Philox and threefry
+# give other episodes, so the port is held to a band around them.
+FIG9_ENV = dict(n_agents=4, size=4, max_steps=12)
+FIG9_ITERS, FIG9_TAIL = 800, 80
+FIG9_JAX_PCT = {"masked": 93.3, "grouped": 87.2}
+FIG9_BAND_PCT = 15.0
+
+
+def run_learner(kernels, device) -> dict:
+    """10 iterations of ``train`` at full width with every launch count at
+    0 first; the launches checked exactly."""
+    env, ecfg = envs.make("predator_prey", **ENV)
+    cfg = dataclasses.replace(configs.config(), flgw_groups=4,
+                              flgw_path="grouped")
+    tcfg = train.TrainConfig(batch=BATCH, lr=1e-3)
+    _zero(kernels)
+    t0 = time.perf_counter()
+    model, hist = train.train(cfg, ecfg, tcfg, iterations=LEARN_ITERS,
+                              seed=SEED, env=env, schedule=LEARN_SCHEDULE,
+                              device=device)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernels}
+    layers = len(list(grouped.iter_flgw_layers(model.params)))
+    encodes = LEARN_ITERS + 1           # one before the loop, one a step
+    sparse_iters = LEARN_ITERS - LEARN_SCHEDULE.warmup_steps
+    want = {k.symbol: 0 for k in kernels}
+    want.update(plan_rank=2 * layers * encodes,
+                plan_place=2 * layers * encodes,
+                grouped_bmm_f32=sparse_iters * layers * ecfg.max_steps)
+    check(launches == want,
+          f"IC3Net learner launches {launches} == {want}")
+    check(all(np.isfinite(h["loss"]) for h in hist),
+          "every learner loss finite")
+    check(all(h["mask_sparsity"] == 0.0 for h in
+              hist[:LEARN_SCHEDULE.warmup_steps])
+          and all(h["mask_sparsity"] > 0.5 for h in
+                  hist[LEARN_SCHEDULE.warmup_steps:]),
+          "mask_sparsity 0 on the warmup, the grouped layout's after")
+    sparse = hist[LEARN_SCHEDULE.warmup_steps:]
+    return dict(
+        launches=launches, wall_s=wall_s, history=hist,
+        ms_per_iter=statistics.median(1e3 / h["steps_per_s"]
+                                      for h in sparse),
+        env_steps_per_s=statistics.median(h["env_steps_per_s"]
+                                          for h in sparse),
+        sparse_gflops=statistics.median(h["sparse_gflops"] for h in sparse),
+        model=model, env=env, ecfg=ecfg, tcfg=tcfg)
+
+
+def _grad_leaves(tree, prefix=""):
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from _grad_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def learner_replay(lr: dict) -> dict:
+    """One more learner iteration on the card (sparse, it = LEARN_ITERS),
+    its sampled actions and gates recorded, replayed through a CPU copy
+    of the model with the same weights and plans."""
+    model, env, ecfg, tcfg = lr["model"], lr["env"], lr["ecfg"], lr["tcfg"]
+    with torch.no_grad():
+        plans = model.encode_plans()
+    cpu_model = ic3net.IC3Net(model.cfg, seed=SEED, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        cpu_plans = cpu_model.encode_plans()
+    check(same_plans(plans.plans, cpu_plans.plans)
+          and int(plans.sig) == int(cpu_plans.sig),
+          "learner replay: plans encoded on the card == on the CPU")
+    gen = train.make_generator(SEED + 20, model.device)
+    state = env.reset(gen, ecfg, tcfg.batch)
+    start = type(state)(*(v.cpu() for v in state))
+    draw = train.sampler(gen)
+    record = []
+
+    def sample(t, logits, gate_logits):
+        a, g = draw(t, logits, gate_logits)
+        record.append((a, g))
+        return a, g
+    out = {}
+    m, g = train._loss_grads(model, env, ecfg, tcfg, state, sample,
+                             LEARN_ITERS, LEARN_SCHEDULE, plans)
+    out["card"] = (float(m["loss"]), dict(_grad_leaves(g)))
+    rec = [(a.cpu(), gt.cpu()) for a, gt in record]
+    t0 = time.perf_counter()
+    m, g = train._loss_grads(cpu_model, env, ecfg, tcfg, start,
+                             lambda t, lg, gl: rec[t], LEARN_ITERS,
+                             LEARN_SCHEDULE, cpu_plans)
+    cpu_s = time.perf_counter() - t0
+    out["cpu"] = (float(m["loss"]), dict(_grad_leaves(g)))
+    loss_card, loss_cpu = out["card"][0], out["cpu"][0]
+    check(abs(loss_card - loss_cpu) <= LEARN_REPLAY_LOSS_RTOL * abs(loss_cpu),
+          f"learner replay loss within rtol {LEARN_REPLAY_LOSS_RTOL} "
+          f"({loss_card} on the card, {loss_cpu} on the CPU)")
+    rel = {}
+    for name, want in out["cpu"][1].items():
+        got = out["card"][1][name].detach().cpu()
+        if name.startswith("gate."):
+            check(not got.any() and not want.any(),
+                  f"the gate head's gradient {name} exactly 0 on both")
+            continue
+        rel[name] = float((got - want).norm() / want.norm())
+        check(rel[name] <= LEARN_REPLAY_GRAD_REL,
+              f"learner replay gradient {name} within relative norm "
+              f"{LEARN_REPLAY_GRAD_REL} ({rel[name]})")
+    return dict(loss=(loss_card, loss_cpu), grad_rel=rel, cpu_s=cpu_s)
+
+
+def profile_learner(lr: dict) -> dict:
+    """The profiler over one sparse learner iteration: the plan refresh,
+    the reset, the rollout under autograd, the backward and RMSprop."""
+    model, env, ecfg, tcfg = lr["model"], lr["env"], lr["ecfg"], lr["tcfg"]
+    with torch.no_grad():
+        plans = model.encode_plans()
+    opt = rmsprop_init(model.params)
+    gen = train.make_generator(SEED + 21, model.device)
+    sample = train.sampler(gen)
+
+    def run():
+        p = train.maybe_refresh_plans(model, plans, LEARN_ITERS + 1,
+                                      LEARN_SCHEDULE)
+        state = env.reset(gen, ecfg, tcfg.batch)
+        _, m = train.train_step(model, opt, env, ecfg, tcfg, state, sample,
+                                LEARN_ITERS + 1, LEARN_SCHEDULE, p)
+        float(m["loss"])
+    run()       # warm
+    return profile(run, LEARN_KERNELS)
+
+
+def learning_check(device) -> dict:
+    """The Fig. 9 config trained on the card on the masked and the grouped
+    path; each final success rate within FIG9_BAND_PCT points of the JAX
+    package's."""
+    env, ecfg = envs.make("predator_prey", **FIG9_ENV)
+    out = {}
+    for path in ("masked", "grouped"):
+        cfg = ic3net.IC3NetConfig(hidden=128, flgw_groups=4, flgw_path=path)
+        t0 = time.perf_counter()
+        _, hist = train.train(cfg, ecfg, train.TrainConfig(batch=BATCH),
+                              iterations=FIG9_ITERS, seed=SEED, env=env,
+                              device=device)
+        wall_s = time.perf_counter() - t0
+        succ = np.array([h["success"] for h in hist]) * 100
+        out[path] = dict(
+            final_pct=float(succ[-FIG9_TAIL:].mean()),
+            first_pct=float(succ[:FIG9_TAIL].mean()),
+            mean_pct=float(succ.mean()),
+            mask_sparsity=hist[-1]["mask_sparsity"], wall_s=wall_s,
+            ms_per_iter=statistics.median(1e3 / h["steps_per_s"]
+                                          for h in hist),
+            jax_final_pct=FIG9_JAX_PCT[path])
+        print(f"  learning check {path}: final success "
+              f"{out[path]['final_pct']:.2f} % (JAX package "
+              f"{FIG9_JAX_PCT[path]} %), first {FIG9_TAIL} "
+              f"{out[path]['first_pct']:.2f} %, mean "
+              f"{out[path]['mean_pct']:.2f} %, sparsity "
+              f"{out[path]['mask_sparsity']:.4f}, {wall_s:.1f} s", flush=True)
+    for path, r in out.items():
+        floor = FIG9_JAX_PCT[path] - FIG9_BAND_PCT
+        check(r["final_pct"] >= floor,
+              f"learning check {path}: final success {r['final_pct']:.2f} "
+              f"% >= {floor:.1f} % (JAX {FIG9_JAX_PCT[path]} % less "
+              f"{FIG9_BAND_PCT})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -941,7 +1266,8 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     all_kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM, fm_ops.BMM16,
-                   fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ, fa_ops.DKV)
+                   fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ, fa_ops.DKV,
+                   os_ops.OSEL)
 
     # -- path 1: the IC3Net actor -------------------------------------------
     env, ecfg = envs.make("predator_prey", **ENV)
@@ -973,6 +1299,7 @@ def main() -> int:
         "plan_rank": "rank_kernel", "plan_place": "place_kernel",
         "grouped_bmm_f32": "grouped_bmm_kernel"})
     print_profile("encode + rollout", prof)
+    ic3_params = model.params        # the OSEL phase's IC3Net layers
     del model, cpu_model, plans
 
     # -- path 2: serving gemma2-2b -------------------------------------------
@@ -1056,6 +1383,49 @@ def main() -> int:
                               gnorm_rtol=TRAIN_GNORM_RTOL,
                               attn_grad_rtol=TRAIN_ATTN_GRAD_RTOL))
     del tr
+    torch.cuda.empty_cache()
+
+    # -- the OSEL encoder (the mask-encode kernel) ----------------------------
+    os_ = run_osel(ic3_params, dev)
+    ot = os_["timing"]
+    print(f"OSEL: osel_encode bitwise equal to its plain version at "
+          f"{len(os_['rows'])} shapes; the encoder at {FIG10_M}x{FIG10_N}, "
+          f"G in {FIG10_G}: {os_['launches']} launches, memory == mask by "
+          f"indices == IS @ OS; at {ot['m']}x{ot['n']}: {ot['ms']:.4f} ms "
+          f"({ot['gb_per_s']:.0f} GB/s), plain {ot['plain_ms']:.4f}, "
+          f"torch.eq {ot['library_ms']:.4f}, bound {ot['bound_ms']:.4f} "
+          f"({ot['bound_by']})", flush=True)
+    print_profile("50 x osel_mask at 2304x9216", os_["profile"])
+    fpga = fpga_model_table()
+    print(f"FPGA model of the paper's encoder at {FIG10_M}x{FIG10_N} "
+          "(osel.cycle_model / footprint_model: a model of the FPGA, not a "
+          "card measurement):")
+    for r in fpga:
+        print(f"  G={r['g']:>2}: cycles OSEL {r['cycles_osel']:.0f}, "
+              f"baseline {r['cycles_baseline']:.0f} "
+              f"({r['cycle_speedup']:.2f}x); bytes dense "
+              f"{r['bytes_dense']:.0f}, grouped {r['bytes_grouped']:.0f} "
+              f"({r['footprint_ratio']:.2f}x)")
+
+    # -- path 4: training IC3Net (the A2C learner) --------------------------
+    lr = run_learner(all_kernels, dev)
+    print(f"slice 4: IC3Net learner, {LEARN_ITERS} iterations "
+          f"({LEARN_SCHEDULE.warmup_steps} dense): launches {lr['launches']}; "
+          f"{lr['ms_per_iter']:.2f} ms per sparse iteration (median), "
+          f"{lr['env_steps_per_s']:.1f} env-steps/s, "
+          f"{lr['sparse_gflops']:.3f} sparse GFLOP/s; losses "
+          f"{[round(h['loss'], 4) for h in lr['history']]}", flush=True)
+    lrep = learner_replay(lr)
+    print(f"CPU replay of a learner iteration: loss {lrep['loss']} (card, "
+          f"CPU); max gradient relative difference "
+          f"{max(lrep['grad_rel'].values()):.3g}; gate head 0 on both",
+          flush=True)
+    lprof = profile_learner(lr)
+    print_profile("one sparse learner iteration", lprof)
+    learner_out = {k: v for k, v in lr.items()
+                   if k not in ("model", "env", "ecfg", "tcfg")}
+    del lr
+    fig9 = learning_check(dev)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -1067,7 +1437,9 @@ def main() -> int:
         return {"ic3net_actor": sl["launches"][sym],
                 "gemma2_serve": sv["launches"][sym],
                 "gemma2_train_chunked": ca["launches"][sym],
-                "gemma2_train_flash": fl["launches"][sym]}
+                "gemma2_train_flash": fl["launches"][sym],
+                "osel": os_["launches"] if sym == "osel_encode" else 0,
+                "ic3net_learner": learner_out["launches"][sym]}
 
     def launches(sym):
         return sum(path_launches(sym).values())
@@ -1192,6 +1564,18 @@ def main() -> int:
              f32_cores_bound_ms=bwd_rows[1]["dkv_f32_cores_bound_ms"],
              library_ms=bwd_rows[1]["library_ms"],
              timed_over=bwd_timed),
+        dict(name="osel_encode", route="cuda",
+             source="src/repro_torch/csrc/osel_encode.cu",
+             replaces="src/repro/kernels/osel_encode/osel_encode.py:27",
+             launches=launches("osel_encode"),
+             launches_by_path=path_launches("osel_encode"),
+             max_abs_err=max(r["max_abs_err"] for r in os_["rows"]),
+             ms=ot["ms"], plain_ms=ot["plain_ms"], bound_ms=ot["bound_ms"],
+             bound_by=ot["bound_by"], library_ms=ot["library_ms"],
+             timed_over=f"one call at M={ot['m']}, N={ot['n']} (the "
+                        "largest FLGW mask of gemma2-2b), int32 indices, "
+                        "uint8 out; bound: M*N + 4(M+N) bytes at 3.35 "
+                        "TB/s; library = torch.eq(ig[:, None], og[None, :])"),
     ]}
 
     OUT.mkdir(exist_ok=True)
@@ -1202,6 +1586,8 @@ def main() -> int:
         fused_rows=fused_rows, flash_rows=flash_rows, serve=sv, replay=rp,
         serve_profile=sprof, bmm16_rows=bmm16_rows, flash_bwd_rows=bwd_rows,
         train=train_out, train_replay=tp, train_profile=tprof,
+        osel=os_, fpga_model=fpga, learner=learner_out,
+        learner_replay=lrep, learner_profile=lprof, learning_check=fig9,
         **kernels_line), indent=1, default=str))
     print(json.dumps(kernels_line))
     print(card)

@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.core.encoder import PlanState
 from repro_torch.core.grouped import GroupPlan
-from repro_torch.optim.optimizers import AdamWState
+from repro_torch.marl.ic3net import IC3Net, IC3NetConfig
+from repro_torch.optim.optimizers import AdamWState, rmsprop_init
 from repro_torch.train.state import TrainState
 
 
@@ -90,6 +91,19 @@ def train_state_from_numpy(state, device=None) -> TrainState:
     return TrainState(params=lm_params_from_numpy(state.params, device),
                       opt=opt, step=tensor_from_numpy(state.step, device),
                       plans=plans)
+
+
+def ic3net_from_numpy(cfg: IC3NetConfig, params: dict, opt_state=None,
+                      device=None):
+    """A JAX IC3Net train state -> the port's ``(IC3Net, RMSprop state)``:
+    ``params`` and ``opt_state`` (the square-average tree, or None for a
+    fresh one) as numpy trees; ``cfg`` with ``obs_dim`` filled in.
+    ``device=None`` means the CUDA card."""
+    model = IC3Net(cfg, device=device)
+    model.load_state_dict(params_from_numpy(params))
+    opt = rmsprop_init(model.params) if opt_state is None else \
+        lm_params_from_numpy(opt_state, model.device)
+    return model, opt
 
 
 def tree_to_numpy(tree):

@@ -22,7 +22,7 @@ CHECKOUT = CSRC.parents[2]
 BUILD_DIR = CHECKOUT / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("plan_encode", "flgw_matmul", "flash_attention")
+SOURCES = ("plan_encode", "flgw_matmul", "flash_attention", "osel_encode")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -1,4 +1,4 @@
-"""MARL environment registry (predator-prey so far).
+"""MARL environment registry.
 
 Port of ``repro.marl.envs``: every environment is a module of functions
 over NamedTuple states -- ``reset``/``step``/``observe``/``success`` plus
@@ -10,7 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.marl.envs import predator_prey
+from repro_torch.marl.envs import (predator_prey, spread, traffic_junction,
+                                   traffic_junction_4way)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,8 +59,30 @@ def make(name: str, **overrides) -> tuple[Env, Any]:
     return env, env.default_config(**overrides)
 
 
-PREDATOR_PREY = register(Env(
-    name="predator_prey", config_cls=predator_prey.EnvConfig,
-    reset=predator_prey.reset, step=predator_prey.step,
-    observe=predator_prey.observe, success=predator_prey.success,
-    obs_dim=predator_prey.obs_dim, n_actions=predator_prey.n_actions))
+def _register_module(name: str, mod) -> Env:
+    return register(Env(
+        name=name, config_cls=mod.EnvConfig, reset=mod.reset, step=mod.step,
+        observe=mod.observe, success=mod.success, obs_dim=mod.obs_dim,
+        n_actions=mod.n_actions))
+
+
+PREDATOR_PREY = _register_module("predator_prey", predator_prey)
+TRAFFIC_JUNCTION = _register_module("traffic_junction", traffic_junction)
+SPREAD = _register_module("spread", spread)
+
+# 4-way TJ: two two-way roads with right/straight/left turning routes --
+# 12 curved routes through a shared 2x2 intersection (its own module).
+TRAFFIC_JUNCTION_4WAY = _register_module("traffic_junction_4way",
+                                         traffic_junction_4way)
+
+# Hard TJ: same step/observe dynamics, but a bigger grid, more cars and a
+# dense Geometric(p_arrive) arrival stream (its own config + reset).
+TRAFFIC_JUNCTION_HARD = register(Env(
+    name="traffic_junction_hard",
+    config_cls=traffic_junction.HardConfig,
+    reset=traffic_junction.reset_hard,
+    step=traffic_junction.step,
+    observe=traffic_junction.observe,
+    success=traffic_junction.success,
+    obs_dim=traffic_junction.obs_dim,
+    n_actions=traffic_junction.n_actions))

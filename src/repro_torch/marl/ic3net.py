@@ -111,9 +111,18 @@ class IC3Net(nn.Module):
         return (z, z), torch.ones((batch, self.cfg.n_agents),
                                   device=self.device)
 
-    def lstm_cell(self, x, hc, plans=None):
-        h, c = hc
+    def _flgw(self, flgw_path=None):
+        """The layers' FLGWConfig, its path overridden by ``flgw_path``
+        (the learner's dense warmup runs ``"dense"`` on the same
+        parameters)."""
         fl = self.cfg.flgw
+        if fl is None or flgw_path is None:
+            return fl
+        return dataclasses.replace(fl, path=flgw_path)
+
+    def lstm_cell(self, x, hc, plans=None, flgw_path=None):
+        h, c = hc
+        fl = self._flgw(flgw_path)
         p = self.params
         gates = proj(p["lstm_x"], x, fl, plan=plan_of(plans, "lstm_x")) \
             + proj(p["lstm_h"], h, fl, plan=plan_of(plans, "lstm_h")) \
@@ -123,16 +132,17 @@ class IC3Net(nn.Module):
         h = torch.sigmoid(o) * torch.tanh(c)
         return h, c
 
-    def policy_step(self, obs, hc, gate_prev, plans=None):
+    def policy_step(self, obs, hc, gate_prev, plans=None, flgw_path=None):
         """One communication + action step for every agent of B envs.
 
         obs: (B, A, obs_dim); hc: ((B, A, H), (B, A, H)); gate_prev:
         (B, A) float in [0, 1], the previous step's gate decisions.
+        ``flgw_path`` overrides ``cfg.flgw_path`` for this step.
         Returns (action_logits (B, A, n_act), value (B, A),
         gate_logits (B, A, 2), new_hc).
         """
         cfg = self.cfg
-        fl = cfg.flgw
+        fl = self._flgw(flgw_path)
         p = self.params
         h, c = hc
         comm_src = h.detach() if cfg.comm_detach else h
@@ -142,7 +152,7 @@ class IC3Net(nn.Module):
         total = cvec.sum(1, keepdim=True)
         comm_in = (total - cvec) / max(cfg.n_agents - 1, 1)
         e = torch.tanh(proj(p["enc"], obs, fl, plan=plan_of(plans, "enc")))
-        h, c = self.lstm_cell(e + comm_in, (h, c), plans)
+        h, c = self.lstm_cell(e + comm_in, (h, c), plans, flgw_path)
         logits = proj(p["policy"], h, fl, plan=plan_of(plans, "policy"))
         value = proj(p["value"], h)[..., 0]
         gate_logits = proj(p["gate"], h)

@@ -281,3 +281,95 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev, copy=True)
+
+
+@pytest.mark.parametrize("m,n,g", [(2304, 9216, 4), (9216, 2304, 4),
+                                   (128, 512, 32), (1, 64, 2), (257, 129, 4),
+                                   (300, 200, 8), (5, 3, 2), (64, 17, 3),
+                                   (4099, 16, 16)])
+def test_osel_mask_is_bitwise_its_plain_version(cuda, m, n, g):
+    from repro_torch.kernels.osel_encode import ops as os_ops
+    from repro_torch.kernels.osel_encode import ref as os_ref
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    ig = torch.randint(0, g, (m,), generator=gen, device=cuda)
+    # og a view one element into its storage: its data is not 16-byte
+    # aligned, which the kernel's og loads must handle
+    og = torch.randint(0, g, (n + 1,), generator=gen, device=cuda)[1:]
+    before = os_ops.OSEL.launches
+    got = os_ops.osel_mask(ig, og)
+    torch.cuda.synchronize()
+    assert os_ops.OSEL.launches == before + 1
+    want = os_ref.ref_mask_indices(ig, og).to(torch.uint8)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+    assert torch.equal(os_ops.osel_mask(ig.int(), og.contiguous().int()),
+                       want)
+    empty = os_ops.osel_mask(ig[:0], og)
+    assert empty.shape == (0, n) and os_ops.OSEL.launches == before + 2
+
+
+def test_osel_encode_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.core import osel
+    from repro_torch.kernels.osel_encode import ops as os_ops
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ig = torch.randn((128, 8), generator=gen, device=cuda)
+    og = torch.randn((8, 512), generator=gen, device=cuda)
+    ig_idx, og_idx = ig.argmax(1), og.argmax(0)
+    before = os_ops.OSEL.launches
+    mem = osel.encode(ig_idx, og_idx, 8)
+    tmem = osel.transpose_encode(ig_idx, og_idx, 8)
+    assert os_ops.OSEL.launches == before + 2
+    cpu = osel.encode(ig_idx.cpu(), og_idx.cpu(), 8)
+    for a, b in zip(mem, cpu):
+        assert torch.equal(a.cpu(), b)
+    mask = os_ops.reference_mask(ig, og)
+    assert torch.equal(osel.mask_from_memory(mem), mask)
+    assert torch.equal(osel.mask_from_memory(tmem), mask.T)
+
+
+def test_a2c_step_on_the_card_replays_on_the_cpu(cuda):
+    """One learner iteration on the grouped path on the card, its sampled
+    actions and gates recorded and replayed through the CPU model: loss
+    within 1e-5, every gradient within 1e-4 relative norm, the gate
+    head's gradient exactly 0 on both."""
+    env, ecfg = envs.make("predator_prey", n_agents=3, size=5, max_steps=10)
+    cfg = dataclasses.replace(configs.smoke(), flgw_path="grouped",
+                              obs_dim=env.obs_dim(ecfg))
+    tcfg = train.TrainConfig(batch=8)
+    out = {}
+    record = []
+    for dev in (cuda, torch.device("cpu")):
+        model = ic3net.IC3Net(cfg, seed=3, device=dev)
+        with torch.no_grad():
+            plans = model.encode_plans()
+        if dev.type == "cuda":
+            gen = train.make_generator(5, cuda)
+            state = env.reset(gen, ecfg, tcfg.batch)
+            start = type(state)(*(v.cpu() for v in state))
+            draw = train.sampler(gen)
+
+            def sample(t, lg, gl):
+                a, g = draw(t, lg, gl)
+                record.append((a.cpu(), g.cpu()))
+                return a, g
+            before = fm_ops.BMM.launches
+        else:
+            state = start
+
+            def sample(t, lg, gl):
+                return record[t]
+        m, g = train._loss_grads(model, env, ecfg, tcfg, state, sample, 0,
+                                 None, plans)
+        if dev.type == "cuda":
+            assert fm_ops.BMM.launches - before == 5 * ecfg.max_steps
+        out[dev.type] = (float(m["loss"]), {
+            k: {n: t.cpu() for n, t in v.items()} if isinstance(v, dict)
+            else v.cpu() for k, v in g.items()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    gc, gp = out["cuda"][1], out["cpu"][1]
+    assert not gc["gate"]["w"].any() and not gp["gate"]["w"].any()
+    for k, v in gp.items():
+        for n, want in (v.items() if isinstance(v, dict) else [("", v)]):
+            got = gc[k][n] if n else gc[k]
+            if want.any():
+                rel = float((got - want).norm() / want.norm())
+                assert rel <= 1e-4, (k, n, rel)

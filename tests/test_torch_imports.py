@@ -14,6 +14,7 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import on_cpu  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flgw_matmul import ops as fm_ops  # noqa: E402
+from repro_torch.kernels.osel_encode import ops as os_ops  # noqa: E402
 from repro_torch.kernels.plan_encode import ops as pe_ops  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.marl import ic3net, train  # noqa: E402
@@ -44,8 +45,10 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
          os.path.join(ROOT, "chip_smoke.py")],
         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # every module of the training slice is among those imported
-    assert int(out.stdout.split()[-1]) >= 49
+    # every module of the IC3Net learner and OSEL slice is among those
+    # imported (osel, load_balance, the osel_encode kernel package and the
+    # three environments)
+    assert int(out.stdout.split()[-1]) >= 57
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -57,6 +60,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         ic3net.IC3Net(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.make_generator(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train(cfg, iterations=1)
     assert resolve_device("cpu") == torch.device("cpu")
     assert ic3net.IC3Net(cfg, device="cpu").device == torch.device("cpu")
     lm = registry.get_smoke_config("gemma2_2b")
@@ -70,10 +75,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM, fm_ops.BMM16,
-               fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ, fa_ops.DKV)
+               fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ, fa_ops.DKV, os_ops.OSEL)
     before = [k.launches for k in kernels]
     ig = torch.randn(40, 4)
     pe_ops.balanced_assign(ig, 1, 1.25)
+    os_ops.osel_mask(ig.argmax(1), ig.argmax(1))
     fm_ops.grouped_bmm(torch.randn(2, 3, 4), torch.randn(2, 4, 5))
     fm_ops.grouped_bmm(torch.randn(2, 3, 4).bfloat16(),
                        torch.randn(2, 4, 5).bfloat16())
@@ -98,6 +104,8 @@ def test_kernel_wrappers_refuse_other_devices_and_mixes():
         fa_ops.flash_fwd(meta[None], meta[None], meta[None])
     with pytest.raises(ValueError, match="all lie on the CPU"):
         fa_ops.flash_bwd(*[meta[None]] * 4, meta, meta[None])
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        os_ops.osel_mask(meta[0, 0], torch.zeros(3, dtype=torch.int64))
 
 
 def test_kernel_cache_stays_inside_the_checkout(monkeypatch, tmp_path):
