@@ -25,7 +25,8 @@ The port's paths, each at full width with random weights from a seed:
 The script
 
   1. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-     per source, in parallel);
+     per source, in parallel) and prints each kernel's registers and
+     spills from ptxas;
   2. holds every kernel against its plain PyTorch version on the card at
      the shapes the path gives it (plan ids bitwise, grouped_bmm within
      rtol = atol = 1e-5) and times kernel, plain version and, where one
@@ -40,13 +41,16 @@ The script
   4. holds ``fused_bmm`` against its plain version at each FLGW projection
      shape of gemma2-2b for 4 and 4096 rows (bf16; one f32 case) and
      ``flash_fwd`` at the prefill's shapes, timing each against its plain
-     version and a PyTorch call; then, with every launch count at 0,
+     version and a PyTorch call (the flash kernels also with their
+     TFLOP/s, share of the bound and route: wgmma or mma.sync on the
+     tensor cores, or FP32 FMA); then, with every launch count at 0,
      builds a ``certify`` ServeSession, runs a B=4 x S=1024 prefill, one
      lockstep Engine run (4 requests, prompt 64, gen 32) and one
      continuous run (16 synthetic requests), and checks which kernels the
      path launched; replays a 4-layer cut of the same weights on the CPU
      (prefill B=1 x S=256 and 8 greedy decode steps from the card's KV
-     cache); and profiles one prefill plus 8 decode steps;
+     cache); and profiles one prefill plus 8 decode steps, checking that
+     ``flash_fwd`` ran on the tensor cores and never on FP32 FMA;
   5. holds ``grouped_bmm_bf16`` against its plain version at the
      training MLP's product shapes and ``flash_bwd_dq``/``flash_bwd_dkv``
      at the attention's (bf16, S=1024 with windows 4096 and 0, S=512 with
@@ -56,7 +60,8 @@ The script
      ``make_train_step`` with ``use_flash`` from the same init and
      batches, checks which kernels each phase launched and that the two
      agree; replays one step of 2 layers of the trained weights on the CPU
-     (B=1 x S=128); and profiles one flash training step;
+     (B=1 x S=128); and profiles one flash training step, checking the
+     same of ``flash_fwd`` and ``flash_bwd_dkv``;
   6. holds ``osel_encode`` bitwise against its plain version at every
      FLGW side of gemma2-2b, the five IC3Net layers, Fig. 10's grid and
      ragged shapes; with the launch counts at 0, runs the OSEL encoder
@@ -81,6 +86,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -157,6 +163,42 @@ def bound_ms(nbytes: float, ops: float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled symbol, with its template argument:
+    ``flash_fwd_wgmma_kernel<256>``, ``flash_fwd_kernel<bf16>``."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    arg = re.match(r"I(.+?)E", mangled[i:])
+    if arg is None:
+        return name
+    arg = arg.group(1)
+    arg = {"f": "float"}.get(arg, "bf16" if arg.endswith("bfloat16")
+                             else arg.removeprefix("Li"))
+    return f"{name}<{arg}>"
+
+
+def ptxas_usage(log: str) -> dict:
+    """``{kernel: {registers, spill_stores, spill_loads}}`` from the
+    ``nvcc -Xptxas -v`` report of one library (kernels named by
+    :func:`_kernel_name`)."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1])
+            usage[name] = {}
+        elif name and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            usage[name].update(spill_stores=nums[1], spill_loads=nums[2])
+        elif name and "Used" in line:
+            usage[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return usage
 
 
 def card_line() -> str:
@@ -380,6 +422,10 @@ FUSED_BF16_TOL = dict(rtol=1e-2, atol=1e-3)   # f32 sums, one bf16 rounding
 FUSED_F32_TOL = dict(rtol=1e-5, atol=1e-5)
 FLASH_BF16_TOL = dict(rtol=1e-2, atol=1e-2)   # |out| < 4, one bf16 rounding
 LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+# what computes each flash kernel's products at the path's shapes (bf16,
+# D = 256): the tensor cores by wgmma or mma.sync, or FP32 FMA
+FLASH_ROUTES = {"flash_fwd": "wgmma", "flash_bwd_dq": "fp32 fma",
+                "flash_bwd_dkv": "mma.sync"}
 # card vs CPU, both bf16 with f32 sums: 4 layers of activations rounded to
 # bf16 at the same places but from sums taken in other orders
 REPLAY_BF16_TOL = dict(rtol=5e-2, atol=5e-2)
@@ -387,7 +433,21 @@ SERVE_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
                  "grouped_bmm_f32": "grouped_bmm_kernel",
                  "fused_bmm": "fused_bmm_bf16_kernel",
                  "fused_bmm split-K sum": "reduce_splits_kernel",
-                 "flash_fwd": "flash_fwd_kernel"}
+                 "flash_fwd": "flash_fwd",
+                 "flash_fwd on FP32 FMA": "flash_fwd_kernel"}
+
+
+def check_flash_routes(prof: dict, what: str, names) -> None:
+    """The bf16 path's flash kernels ran on the tensor cores: the profile
+    saw launches of each and none of its FP32 FMA kernel (the route the C
+    entry takes for shapes the tensor-core kernels do not take)."""
+    for name in names:
+        ours = prof["kernels"]
+        check(ours[name]["launches"] > 0
+              and ours[f"{name} on FP32 FMA"]["launches"] == 0,
+              f"{what}: {name} ran on the tensor cores only "
+              f"({ours[name]['launches']} launches, "
+              f"{ours[f'{name} on FP32 FMA']['launches']} on FP32 FMA)")
 
 
 def serve_params(cfg, device) -> dict:
@@ -477,9 +537,9 @@ def check_flash_kernel(cfg, device) -> list[dict]:
               and torch.allclose(lse, l_ref, **LSE_TOL),
               f"flash_fwd == plain at S={s} window={window} (max abs err "
               f"{err}, lse {lerr})")
-        pairs = _attn_pairs(s, window)
+        flops = 4 * d * _attn_pairs(s, window) * b * hq
         nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 4 * b * hq * s
-        bnd, by = bound_ms(nbytes, 4 * d * pairs * b * hq, BF16_OPS_PER_S)
+        bnd, by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
         kw0 = dict(kw, softcap=0.0)
         row = dict(
             s=s, window=window, max_abs_err=err, lse_max_abs_err=lerr,
@@ -489,7 +549,9 @@ def check_flash_kernel(cfg, device) -> list[dict]:
             ms_softcap0=time_ms(lambda: fa_ops.flash_fwd(q, k, v, **kw0),
                                 20, 3),
             bound_ms=bnd, bound_by=by, peak_ops_per_s=BF16_OPS_PER_S,
-            library_ms=None)
+            library_ms=None, route=FLASH_ROUTES["flash_fwd"])
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["bound_share"] = bnd / row["ms"]
         if window == 0 or window >= s:      # SDPA's causal mask is the same
             row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), 20, 3)
@@ -682,9 +744,11 @@ TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_ATTN_GRAD_RTOL = 1e-3, 5e-3, 5e-2
 REPLAY_TRAIN_TOL = dict(rtol=5e-2, atol=5e-2)
 TRAIN_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
                  "grouped_bmm_bf16": "grouped_bmm_bf16_kernel",
-                 "flash_fwd": "flash_fwd_kernel",
+                 "flash_fwd": "flash_fwd",
                  "flash_bwd_dq": "flash_bwd_dq_kernel",
-                 "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+                 "flash_bwd_dkv": "flash_bwd_dkv",
+                 "flash_fwd on FP32 FMA": "flash_fwd_kernel",
+                 "flash_bwd_dkv on FP32 FMA": "flash_bwd_dkv_kernel"}
 
 
 def check_bmm_bf16_kernel(cfg, device) -> list[dict]:
@@ -769,7 +833,12 @@ def check_flash_bwd_kernels(cfg, device) -> list[dict]:
             # the tensor cores; not the card's bound for bf16 operands
             dq_f32_cores_bound_ms=bound_ms(dq_io, 6 * d * pairs)[0],
             dkv_f32_cores_bound_ms=bound_ms(dkv_io, 8 * d * pairs)[0],
-            library_ms=None)
+            library_ms=None, dq_route=FLASH_ROUTES["flash_bwd_dq"],
+            dkv_route=FLASH_ROUTES["flash_bwd_dkv"])
+        for name, n_flops in (("dq", 6 * d * pairs), ("dkv", 8 * d * pairs)):
+            row[f"{name}_tflops"] = n_flops / row[f"{name}_ms"] / 1e9
+            row[f"{name}_bound_share"] = (row[f"{name}_bound_ms"]
+                                          / row[f"{name}_ms"])
         if window == 0 or window >= s:
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
             o = F.scaled_dot_product_attention(*leaves, is_causal=True,
@@ -1261,10 +1330,11 @@ def main() -> int:
     logs = _build.build()
     build_s = time.perf_counter() - t0
     print(f"built {sorted(logs)} in {build_s:.2f} s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    ptxas = {name: ptxas_usage(log) for name, log in logs.items()}
+    for name, usage in ptxas.items():
+        for kernel, u in usage.items():
+            print(f"  {name}: {kernel}: {u}")
+    fa_usage = ptxas.get("flash_attention", {})
     all_kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM, fm_ops.BMM16,
                    fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ, fa_ops.DKV,
                    os_ops.OSEL)
@@ -1316,8 +1386,9 @@ def main() -> int:
               f"{r['bound_ms']:.4f} ({r['bound_by']})")
     for r in flash_rows:
         print(f"  flash_fwd S={r['s']} window={r['window']}: {r['ms']:.4f} "
-              f"ms (softcap 0: {r['ms_softcap0']:.4f}), plain "
-              f"{r['plain_ms']:.4f}, sdpa {r['library_ms']}, bound "
+              f"ms ({r['tflops']:.1f} TFLOP/s, {r['bound_share']:.3f} of the "
+              f"bound, {r['route']}; softcap 0: {r['ms_softcap0']:.4f}), "
+              f"plain {r['plain_ms']:.4f}, sdpa {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']})")
     print(f"gemma2-2b: {n_params:,} parameters; fused_bmm matches its plain "
           f"version at {len(fused_rows)} shapes (max abs err "
@@ -1341,6 +1412,7 @@ def main() -> int:
           f"({rp['clear_steps']} with a clear top-2 margin)", flush=True)
     sprof = profile_serve(session, scfg)
     print_profile("prefill + 8 decode steps", sprof)
+    check_flash_routes(sprof, "the serve profile", ("flash_fwd",))
     del session, params
     plan_cache.clear()
     torch.cuda.empty_cache()
@@ -1356,8 +1428,12 @@ def main() -> int:
               f"{r['bound_ms']:.4f} ({r['bound_by']})")
     for r in bwd_rows:
         print(f"  flash_bwd S={r['s']} window={r['window']}: dq "
-              f"{r['dq_ms']:.4f} ms (bound {r['dq_bound_ms']:.4f}), dkv "
-              f"{r['dkv_ms']:.4f} ms (bound {r['dkv_bound_ms']:.4f}), both "
+              f"{r['dq_ms']:.4f} ms ({r['dq_tflops']:.1f} TFLOP/s, "
+              f"{r['dq_bound_share']:.3f} of the bound "
+              f"{r['dq_bound_ms']:.4f}, {r['dq_route']}), dkv "
+              f"{r['dkv_ms']:.4f} ms ({r['dkv_tflops']:.1f} TFLOP/s, "
+              f"{r['dkv_bound_share']:.3f} of the bound "
+              f"{r['dkv_bound_ms']:.4f}, {r['dkv_route']}), both "
               f"{r['bwd_ms']:.4f}, plain {r['plain_ms']:.4f}, sdpa bwd "
               f"{r['library_ms']}", flush=True)
     print(f"training kernels match their plain versions: grouped_bmm_bf16 "
@@ -1378,6 +1454,8 @@ def main() -> int:
           f"CPU {tp['cpu']} (loss, grad norm)", flush=True)
     tprof = profile_train(tr)
     print_profile("one flash training step", tprof)
+    check_flash_routes(tprof, "the flash training profile",
+                       ("flash_fwd", "flash_bwd_dkv"))
     train_out = dict(chunked=ca, flash=fl, attn_grad_rel=tr["attn_grad_rel"],
                      tol=dict(loss_rtol=TRAIN_LOSS_RTOL,
                               gnorm_rtol=TRAIN_GNORM_RTOL,
@@ -1533,6 +1611,10 @@ def main() -> int:
              bound_by=flash_rows[1]["bound_by"],
              library_ms=flash_rows[1]["library_ms"],
              ms_softcap0=flash_rows[1]["ms_softcap0"],
+             tflops=flash_rows[1]["tflops"],
+             bound_share=flash_rows[1]["bound_share"],
+             tensor_core_route=flash_rows[1]["route"],
+             ptxas=fa_usage.get("flash_fwd_wgmma_kernel<256>"),
              timed_over=f"one call at B={SERVE_BATCH}, Hq=8, Hkv=4, "
                         f"S={PREFILL_SEQ}, D=256, causal, softcap 50; bound "
                         "at 989 TFLOP/s (bf16 tensor cores); library = SDPA "
@@ -1563,6 +1645,10 @@ def main() -> int:
              bound_by=bwd_rows[1]["dkv_bound_by"],
              f32_cores_bound_ms=bwd_rows[1]["dkv_f32_cores_bound_ms"],
              library_ms=bwd_rows[1]["library_ms"],
+             tflops=bwd_rows[1]["dkv_tflops"],
+             bound_share=bwd_rows[1]["dkv_bound_share"],
+             tensor_core_route=bwd_rows[1]["dkv_route"],
+             ptxas=fa_usage.get("flash_bwd_dkv_mma_kernel<256>"),
              timed_over=bwd_timed),
         dict(name="osel_encode", route="cuda",
              source="src/repro_torch/csrc/osel_encode.cu",

@@ -29,6 +29,10 @@ BMM16 = KernelEntry("flgw_matmul", "grouped_bmm_bf16",
 FUSED = KernelEntry("flgw_matmul", "fused_bmm",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I])
 _TILE, _DEPTH = 64, 32      # fused_bmm's bf16 row/column tile and k-step
+# Columns of y past n: n is the sink the padding slots write to, sliced
+# off; 8 of them keep y's rows 16-byte aligned (for n a multiple of 8),
+# which the flash kernels' tensor-core route needs of the v it is handed.
+SINK_COLS = 8
 
 
 def grouped_bmm(xg: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
@@ -94,7 +98,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, row_ids: torch.Tensor,
                                       col_valid))
     # Padding slots write to the sink column n, which is sliced off.
     flat_cols = torch.where(col_valid, col_ids, n).reshape(-1)
-    y = x.new_zeros((b, n + 1))
+    y = x.new_zeros((b, n + SINK_COLS))
     y[:, flat_cols] = yc.permute(1, 0, 2).reshape(b, -1)
     return y[:, :n]
 
@@ -189,6 +193,6 @@ def grouped_matmul_fused(x: torch.Tensor, wc: torch.Tensor,
     ids = torch.where(row_valid, row_ids, m).to(torch.int32)
     yc = fused_bmm(sink_transposed(x), wc, ids)              # (G, B, capN)
     flat_cols = torch.where(col_valid, col_ids, n).reshape(-1)
-    y = x.new_zeros((b, n + 1))
+    y = x.new_zeros((b, n + SINK_COLS))
     y[:, flat_cols] = yc.permute(1, 0, 2).reshape(b, -1)
     return y[:, :n]

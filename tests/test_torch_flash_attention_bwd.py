@@ -100,3 +100,60 @@ def test_rows_with_no_allowed_key_get_zero_gradient():
     dq, dk, dv = ops.flash_bwd(q, *kv, out, lse, do, causal=False, window=1)
     assert torch.all(dq[:, :, 4:] == 0)
     assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
+
+
+def _emulate_tc_dkv(q, k, v, out, lse, do, *, causal, window, softcap):
+    """The card's bf16 dk, dv pass (flash_bwd_dkv_mma_kernel) in plain
+    PyTorch: S^T and dP^T from bf16 operands with f32 sums, p and dz in
+    f32 from lse and delta, each entering P^T.dO and dZ^T.Q as a bf16
+    pair (the rounded value and its rounding residue) with f32 sums, dk
+    and dv rounded once to bf16."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, hkv, hq // hkv, s, d)
+    dog = do.float().reshape(b, hkv, hq // hkv, s, d)
+    z = torch.einsum("bgqsd,bgtd->bgqst", qg, k.float()) * d ** -0.5
+    dcap = torch.ones_like(z)
+    if softcap > 0:
+        th = torch.tanh(z * (1.0 / softcap))
+        z, dcap = th * softcap, 1.0 - th * th
+    allowed = ref.allowed_mask(s, t, causal=causal, window=window)
+    lse_g = lse.reshape(b, hkv, hq // hkv, s, 1)
+    p = torch.where(allowed, torch.exp(z - lse_g), 0.0)
+    delta = ref.delta_of(out, do).reshape(b, hkv, hq // hkv, s, 1)
+    dp = torch.einsum("bgqsd,bgtd->bgqst", dog, v.float())
+    dz = p * (dp - delta) * dcap
+    dk, dv = (sum(torch.einsum("bgqst,bgqsd->bgtd", part, x)
+                  for part in _bf16_pair(a)) for a, x in ((dz, qg), (p, dog)))
+    return (dk * d ** -0.5).bfloat16(), dv.bfloat16()
+
+
+def _bf16_pair(x):
+    """x as the kernel's two bf16 operands: rounded, and the residue
+    rounded (f32 values)."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+@pytest.mark.parametrize("hkv,s,window,softcap", [
+    (4, 256, 0, 50.0), (4, 256, 100, 0.0),
+    (2, 300, 100, 50.0)])                        # qpk 4, S ragged for 64
+def test_tensor_core_rounding_fits_the_card_tolerance(hkv, s, window,
+                                                      softcap):
+    """The card's bf16 dk, dv design, emulated at the model's head dim on
+    the forward's bf16 out and lse, against the JAX kernels on the same
+    bf16 values in f32 math: within the card tests' bf16 tolerance."""
+    q, k, v, do = (torch.from_numpy(a).bfloat16()
+                   for a in _case(8, 1, 8, hkv, s, 256))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    jq, jk, jv, jdo = (jnp.asarray(x.float().numpy()) for x in (q, k, v, do))
+    blk = dict(bq=s // 2, bk=s // 2, interpret=True)
+    out, lse = jflash.flash_fwd(jq, jk, jv, **blk, **kw)
+    _, want_dk, want_dv = jflash.flash_bwd(jq, jk, jv, out, lse, jdo, **blk,
+                                           **kw)
+    got_dk, got_dv = _emulate_tc_dkv(
+        q, k, v, torch.from_numpy(np.array(out)).bfloat16(),
+        torch.from_numpy(np.array(lse)), do, **kw)
+    for name, got, want in (("dk", got_dk, want_dk), ("dv", got_dv, want_dv)):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want),
+                                   rtol=1e-2, atol=1e-2, err_msg=name)

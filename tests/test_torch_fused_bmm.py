@@ -131,3 +131,27 @@ def test_attached_plans_take_the_fused_path_and_agree_with_gather():
             y_g = grouped.grouped_apply(x, *layer.values(), cfg, plan=bare)
             torch.testing.assert_close(y_f, y_g, **TOL)
     assert kops.FUSED.launches == calls          # the CPU took the plain path
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_compact_outputs_keep_rows_16_byte_aligned(fused):
+    """y (B, N) is a view past the sink columns whose rows start 16 bytes
+    apart in bf16, so a projection's output handed to the flash kernels
+    (the prefill's v) meets the tensor-core route's row alignment."""
+    m, n, g, b = 64, 128, 4, 5
+    p = _layer(7, m, n, g)
+    _, plan = _plans(p)
+    w = torch.from_numpy(p["w"]).bfloat16()
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (b, m)).astype(np.float32)).bfloat16()
+    if fused:
+        wc = kops.compact_weights(w, plan.row_ids, plan.col_ids,
+                                  plan.row_valid, plan.col_valid)
+        y = kops.grouped_matmul_fused(x, wc, plan.row_ids, plan.row_valid,
+                                      plan.col_ids, plan.col_valid, n=n)
+    else:
+        y = kops.grouped_matmul(x, w, plan.row_ids, plan.col_ids,
+                                plan.row_valid, plan.col_valid)
+    assert y.shape == (b, n) and y.stride(1) == 1
+    assert y.stride(0) * y.element_size() % 16 == 0
+    assert y.data_ptr() % 16 == 0

@@ -96,7 +96,14 @@ def test_grouped_bmm_bf16_matches_its_plain_version(cuda, g, b, k, n):
     (2, 8, 4, 512, 256, 128, 50.0, True),
     (2, 8, 4, 200, 256, 0, 50.0, True),      # ragged S
     (1, 4, 4, 130, 64, 40, 0.0, True),
-    (2, 4, 2, 96, 128, 7, 30.0, False)])
+    (2, 4, 2, 96, 128, 7, 30.0, False),
+    # the bf16 tensor-core pass's edges: 64-key tiles, 2 x 32 queries a
+    # step, D split over two warpgroups
+    (1, 8, 2, 300, 256, 100, 50.0, True),    # qpk 4, window edge in a tile
+    (2, 2, 2, 77, 128, 0, 30.0, True),       # qpk 1, S = 77
+    (1, 4, 2, 161, 64, 33, 0.0, False),      # window without causal
+    (1, 2, 1, 70, 32, 0, 0.0, True),         # D below a warpgroup's half
+    (1, 4, 2, 90, 20, 0, 50.0, True)])       # D % 16 != 0: FP32 FMA
 def test_flash_bwd_matches_its_plain_version(cuda, dtype, b, hq, hkv, s, d,
                                              window, softcap, causal):
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -187,17 +194,28 @@ def test_fused_bmm_matches_its_plain_version(cuda, dtype, tol, b, m, g, k, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,hq,hkv,s,d,window,softcap,causal", [
-    (2, 8, 4, 200, 256, 0, 50.0, True), (1, 4, 4, 130, 64, 40, 0.0, True),
-    (1, 2, 1, 70, 16, 0, 0.0, False), (2, 4, 2, 96, 128, 7, 30.0, False)])
-def test_flash_fwd_matches_its_plain_version(cuda, dtype, b, hq, hkv, s, d,
-                                             window, softcap, causal):
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,window,softcap,causal", [
+    (2, 8, 4, 200, 200, 256, 0, 50.0, True),
+    (1, 4, 4, 130, 130, 64, 40, 0.0, True),
+    (1, 2, 1, 70, 70, 16, 0, 0.0, False),
+    (2, 4, 2, 96, 96, 128, 7, 30.0, False),
+    # the bf16 tensor-core pass's edges: 128-query and 64-key tiles
+    (1, 8, 4, 1024, 1024, 256, 0, 50.0, True),   # the prefill's shapes
+    (1, 8, 2, 300, 300, 256, 100, 30.0, True),   # qpk 4, window edge
+    (2, 2, 2, 77, 77, 128, 0, 0.0, True),        # qpk 1
+    (1, 4, 2, 200, 333, 128, 0, 50.0, False),    # T > S, both ragged
+    (1, 4, 1, 300, 100, 64, 0, 0.0, True),       # T < S under causal
+    (1, 2, 2, 100, 40, 64, 8, 0.0, False),       # rows with no key
+    (1, 4, 2, 90, 90, 20, 0, 50.0, True),        # D % 16 != 0: FP32 FMA
+    (1, 2, 1, 150, 150, 40, 20, 0.0, True)])     # D % 16 != 0: FP32 FMA
+def test_flash_fwd_matches_its_plain_version(cuda, dtype, b, hq, hkv, s, t,
+                                             d, window, softcap, causal):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     gen = torch.Generator(device=cuda).manual_seed(s + d)
     q = torch.randn((b, s, hq, d), generator=gen, device=cuda).to(dtype)
-    k = torch.randn((b, hkv, s, d), generator=gen, device=cuda).to(dtype)
-    v = torch.randn((b, hkv, s, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, hkv, t, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, hkv, t, d), generator=gen, device=cuda).to(dtype)
     q = q.transpose(1, 2)                        # strided, as the model's
     before = fa_ops.FWD.launches
     out, lse = fa_ops.flash_fwd(q, k, v, causal=causal, window=window,
