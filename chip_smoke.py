@@ -41,16 +41,19 @@ The script
   4. holds ``fused_bmm`` against its plain version at each FLGW projection
      shape of gemma2-2b for 4 and 4096 rows (bf16; one f32 case) and
      ``flash_fwd`` at the prefill's shapes, timing each against its plain
-     version and a PyTorch call (the flash kernels also with their
-     TFLOP/s, share of the bound and route: wgmma or mma.sync on the
-     tensor cores, or FP32 FMA); then, with every launch count at 0,
+     version and a PyTorch call (with their TFLOP/s, share of the bound
+     and route: wgmma or mma.sync on the tensor cores, or FP32 FMA; the
+     4-row ``fused_bmm`` calls also over a ring of weight copies larger
+     than L2); then, with every launch count at 0,
      builds a ``certify`` ServeSession, runs a B=4 x S=1024 prefill, one
      lockstep Engine run (4 requests, prompt 64, gen 32) and one
      continuous run (16 synthetic requests), and checks which kernels the
      path launched; replays a 4-layer cut of the same weights on the CPU
      (prefill B=1 x S=256 and 8 greedy decode steps from the card's KV
      cache); and profiles one prefill plus 8 decode steps, checking that
-     ``flash_fwd`` ran on the tensor cores and never on FP32 FMA;
+     ``flash_fwd`` ran on the tensor cores and never on FP32 FMA, and
+     ``fused_bmm`` on wgmma in the prefill and on the streaming kernel in
+     decode, never on the wmma kernel;
   5. holds ``grouped_bmm_bf16`` against its plain version at the
      training MLP's product shapes and ``flash_bwd_dq``/``flash_bwd_dkv``
      at the attention's (bf16, S=1024 with windows 4096 and 0, S=512 with
@@ -61,7 +64,7 @@ The script
      batches, checks which kernels each phase launched and that the two
      agree; replays one step of 2 layers of the trained weights on the CPU
      (B=1 x S=128); and profiles one flash training step, checking the
-     same of ``flash_fwd`` and ``flash_bwd_dkv``;
+     same of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``;
   6. holds ``osel_encode`` bitwise against its plain version at every
      FLGW side of gemma2-2b, the five IC3Net layers, Fig. 10's grid and
      ragged shapes; with the launch counts at 0, runs the OSEL encoder
@@ -86,6 +89,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -424,14 +428,20 @@ FLASH_BF16_TOL = dict(rtol=1e-2, atol=1e-2)   # |out| < 4, one bf16 rounding
 LSE_TOL = dict(rtol=1e-5, atol=1e-4)
 # what computes each flash kernel's products at the path's shapes (bf16,
 # D = 256): the tensor cores by wgmma or mma.sync, or FP32 FMA
-FLASH_ROUTES = {"flash_fwd": "wgmma", "flash_bwd_dq": "fp32 fma",
+FLASH_ROUTES = {"flash_fwd": "wgmma", "flash_bwd_dq": "mma.sync",
                 "flash_bwd_dkv": "mma.sync"}
+# what computes fused_bmm at the path's shapes (bf16): wgmma for a
+# prefill's rows, FP32 FMA streaming wc for a decode step's few rows
+FUSED_ROUTES = {"prefill": "wgmma", "decode": "streaming fp32 fma"}
+L2_BYTES = 50e6               # H100 SXM L2
 # card vs CPU, both bf16 with f32 sums: 4 layers of activations rounded to
 # bf16 at the same places but from sums taken in other orders
 REPLAY_BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 SERVE_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
                  "grouped_bmm_f32": "grouped_bmm_kernel",
-                 "fused_bmm": "fused_bmm_bf16_kernel",
+                 "fused_bmm on wgmma": "fused_bmm_wgmma_kernel",
+                 "fused_bmm streaming": "fused_bmm_stream_kernel",
+                 "fused_bmm on wmma": "fused_bmm_bf16_kernel",
                  "fused_bmm split-K sum": "reduce_splits_kernel",
                  "flash_fwd": "flash_fwd",
                  "flash_fwd on FP32 FMA": "flash_fwd_kernel"}
@@ -450,6 +460,18 @@ def check_flash_routes(prof: dict, what: str, names) -> None:
               f"{ours[f'{name} on FP32 FMA']['launches']} on FP32 FMA)")
 
 
+def check_fused_routes(prof: dict) -> None:
+    """The serve profile's fused products ran on the new routes: wgmma in
+    the prefill, the streaming kernel in decode, and never the wmma
+    kernel that shapes outside both take."""
+    ours = prof["kernels"]
+    n = {k: ours[f"fused_bmm {k}"]["launches"]
+         for k in ("on wgmma", "streaming", "on wmma")}
+    check(n["on wgmma"] > 0 and n["streaming"] > 0 and n["on wmma"] == 0,
+          f"the serve profile: fused_bmm on wgmma (prefill) and streaming "
+          f"(decode) only ({n})")
+
+
 def serve_params(cfg, device) -> dict:
     return transformer.lm_init(
         torch.Generator(device=device).manual_seed(SEED), cfg)
@@ -458,7 +480,10 @@ def serve_params(cfg, device) -> dict:
 def check_fused_kernel(params, cfg) -> list[dict]:
     """fused_bmm against its plain version at each FLGW projection of
     block 0's local slot (the shapes every layer repeats), for a decode
-    step's 4 rows and a prefill's 4096, in bf16; one f32 case."""
+    step's 4 rows and a prefill's 4096, in bf16; one f32 case. The 4-row
+    calls are timed twice: on one wc (``ms``, which stays in L2) and over
+    a ring of wc copies larger than L2 (``ms_cold``), as a decode step
+    finds each layer's weights."""
     with torch.inference_mode():
         state = planenc.attach_compact(transformer.encode_plans(params, cfg),
                                        params)
@@ -507,8 +532,20 @@ def check_fused_kernel(params, cfg) -> list[dict]:
                 library_ms=time_ms(lambda: torch.bmm(xg, wc), it, wu),
                 library="torch.bmm on pre-gathered operands (gather not "
                         "counted)",
-                bound_ms=bnd, bound_by=by, peak_ops_per_s=peak))
+                bound_ms=bnd, bound_by=by, peak_ops_per_s=peak,
+                route="fp32 fma" if dtype == torch.float32
+                else FUSED_ROUTES["prefill" if n_rows > 64 else "decode"]))
             rows[-1]["tflops"] = ops / rows[-1]["ms"] / 1e9
+            rows[-1]["bound_share"] = bnd / rows[-1]["ms"]
+            if n_rows <= 64 and dtype == torch.bfloat16:
+                ring = [wc.clone() for _ in range(
+                    max(2, math.ceil(2 * L2_BYTES / (wc.numel() * es))))]
+                turn = iter(range(1 << 30))
+                rows[-1]["ms_cold"] = time_ms(lambda: fm_ops.fused_bmm(
+                    xp, ring[next(turn) % len(ring)], ids), 4 * len(ring),
+                    len(ring))
+                rows[-1]["wc_ring_copies"] = len(ring)
+                del ring
     return rows
 
 
@@ -745,9 +782,10 @@ REPLAY_TRAIN_TOL = dict(rtol=5e-2, atol=5e-2)
 TRAIN_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
                  "grouped_bmm_bf16": "grouped_bmm_bf16_kernel",
                  "flash_fwd": "flash_fwd",
-                 "flash_bwd_dq": "flash_bwd_dq_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_mma_kernel",
                  "flash_bwd_dkv": "flash_bwd_dkv",
                  "flash_fwd on FP32 FMA": "flash_fwd_kernel",
+                 "flash_bwd_dq on FP32 FMA": "flash_bwd_dq_kernel",
                  "flash_bwd_dkv on FP32 FMA": "flash_bwd_dkv_kernel"}
 
 
@@ -786,8 +824,9 @@ def check_bmm_bf16_kernel(cfg, device) -> list[dict]:
 def check_flash_bwd_kernels(cfg, device) -> list[dict]:
     """flash_bwd_dq and flash_bwd_dkv against the plain backward (f32
     math) at the training attention's shapes, bf16, softcap 50; each
-    kernel timed alone, the plain backward and SDPA's backward (softcap
-    0, where its causal mask is the same) for all three gradients."""
+    kernel timed alone (dq also at softcap 0), the plain backward and
+    SDPA's backward (softcap 0, where its causal mask is the same) for all
+    three gradients."""
     import torch.nn.functional as F
     b, hq, hkv, d = TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
@@ -811,6 +850,7 @@ def check_flash_bwd_kernels(cfg, device) -> list[dict]:
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         args = (b, hq, hkv, s, s, d, d ** -0.5, 1, window,
                 float(cfg.attn_softcap), 1)
+        args0 = args[:-2] + (0.0, 1)
         ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
         pairs = _attn_pairs(s, window) * b * hq
         io = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 8 * b * hq * s
@@ -821,6 +861,8 @@ def check_flash_bwd_kernels(cfg, device) -> list[dict]:
             s=s, window=window, max_abs_err=errs,
             dq_ms=time_ms(lambda: fa_ops.DQ(device, *ptrs, dq.data_ptr(),
                                             *args), 10, 2),
+            dq_ms_softcap0=time_ms(lambda: fa_ops.DQ(
+                device, *ptrs, dq.data_ptr(), *args0), 10, 2),
             dkv_ms=time_ms(lambda: fa_ops.DKV(device, *ptrs, dk.data_ptr(),
                                               dv.data_ptr(), *args), 10, 2),
             bwd_ms=time_ms(lambda: fa_ops.flash_bwd(q, k, v, out, lse, do,
@@ -829,8 +871,8 @@ def check_flash_bwd_kernels(cfg, device) -> list[dict]:
                                                           do, **kw), 5, 1),
             dq_bound_ms=dq_b, dq_bound_by=dq_by, dkv_bound_ms=dkv_b,
             dkv_bound_by=dkv_by,
-            # the ceiling of these kernels' own design, f32 FMA outside
-            # the tensor cores; not the card's bound for bf16 operands
+            # the ceiling of the FP32 FMA route (f32 calls, unaligned bf16
+            # ones); not the card's bound for bf16 operands
             dq_f32_cores_bound_ms=bound_ms(dq_io, 6 * d * pairs)[0],
             dkv_f32_cores_bound_ms=bound_ms(dkv_io, 8 * d * pairs)[0],
             library_ms=None, dq_route=FLASH_ROUTES["flash_bwd_dq"],
@@ -1335,6 +1377,7 @@ def main() -> int:
         for kernel, u in usage.items():
             print(f"  {name}: {kernel}: {u}")
     fa_usage = ptxas.get("flash_attention", {})
+    fm_usage = ptxas.get("flgw_matmul", {})
     all_kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM, fm_ops.BMM16,
                    fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ, fa_ops.DKV,
                    os_ops.OSEL)
@@ -1380,8 +1423,10 @@ def main() -> int:
     fused_rows = check_fused_kernel(params, scfg)
     flash_rows = check_flash_kernel(scfg, dev)
     for r in fused_rows:
+        cold = f", cold {r['ms_cold']:.4f}" if "ms_cold" in r else ""
         print(f"  fused_bmm {r['proj']:>4} {r['rows']:>4} rows {r['dtype']}: "
-              f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), plain "
+              f"{r['ms']:.4f} ms{cold} ({r['tflops']:.1f} TFLOP/s, "
+              f"{r['bound_share']:.3f} of the bound, {r['route']}), plain "
               f"{r['plain_ms']:.4f}, bmm {r['library_ms']:.4f}, bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']})")
     for r in flash_rows:
@@ -1413,6 +1458,7 @@ def main() -> int:
     sprof = profile_serve(session, scfg)
     print_profile("prefill + 8 decode steps", sprof)
     check_flash_routes(sprof, "the serve profile", ("flash_fwd",))
+    check_fused_routes(sprof)
     del session, params
     plan_cache.clear()
     torch.cuda.empty_cache()
@@ -1430,7 +1476,8 @@ def main() -> int:
         print(f"  flash_bwd S={r['s']} window={r['window']}: dq "
               f"{r['dq_ms']:.4f} ms ({r['dq_tflops']:.1f} TFLOP/s, "
               f"{r['dq_bound_share']:.3f} of the bound "
-              f"{r['dq_bound_ms']:.4f}, {r['dq_route']}), dkv "
+              f"{r['dq_bound_ms']:.4f}, {r['dq_route']}; softcap 0: "
+              f"{r['dq_ms_softcap0']:.4f}), dkv "
               f"{r['dkv_ms']:.4f} ms ({r['dkv_tflops']:.1f} TFLOP/s, "
               f"{r['dkv_bound_share']:.3f} of the bound "
               f"{r['dkv_bound_ms']:.4f}, {r['dkv_route']}), both "
@@ -1455,7 +1502,7 @@ def main() -> int:
     tprof = profile_train(tr)
     print_profile("one flash training step", tprof)
     check_flash_routes(tprof, "the flash training profile",
-                       ("flash_fwd", "flash_bwd_dkv"))
+                       ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
     train_out = dict(chunked=ca, flash=fl, attn_grad_rel=tr["attn_grad_rel"],
                      tol=dict(loss_rtol=TRAIN_LOSS_RTOL,
                               gnorm_rtol=TRAIN_GNORM_RTOL,
@@ -1523,14 +1570,19 @@ def main() -> int:
         return sum(path_launches(sym).values())
 
     prefill_layer = [r for r in fused_rows if r["rows"] == 4096]
+    decode_layer = [r for r in fused_rows
+                    if r["rows"] == 4 and "bfloat16" in r["dtype"]]
+    prefill_flops = sum(2 * r["g"] * r["rows"] * r["cap_m"] * r["cap_n"]
+                        for r in prefill_layer)
     train_layer = [r for r in bmm16_rows if r["proj"] != "ragged"]
     bwd_timed = (f"one call at B={TRAIN_BATCH}, Hq=8, Hkv=4, S={TRAIN_SEQ}, "
                  "D=256, causal, window 0, softcap 50, bf16; bound: dq "
                  "6 D, dkv 8 D flops per allowed (query, key) pair at 989 "
                  "TFLOP/s (bf16 tensor cores); f32_cores_bound_ms: the same "
-                 "flops at 67 TFLOP/s (f32 outside the tensor cores, where "
-                 "these kernels compute); plain ms and library ms (SDPA's "
-                 "backward, softcap 0) compute dq, dk and dv together")
+                 "flops at 67 TFLOP/s (the FP32 FMA route of f32 calls); "
+                 "dq's ms_softcap0 at softcap 0; plain ms and library ms "
+                 "(SDPA's backward, softcap 0) compute dq, dk and dv "
+                 "together")
     per_encode = "one encode: its calls at the path's 10 FLGW layer sides"
     kernels_line = {"kernels": [
         dict(name="plan_rank", route="cuda",
@@ -1595,10 +1647,27 @@ def main() -> int:
              bound_by=max(prefill_layer,
                           key=lambda r: r["bound_ms"])["bound_by"],
              library_ms=total(prefill_layer, "library_ms"),
+             tflops=prefill_flops / total(prefill_layer, "ms") / 1e9,
+             bound_share=(total(prefill_layer, "bound_ms")
+                          / total(prefill_layer, "ms")),
+             tensor_core_route=FUSED_ROUTES["prefill"],
+             decode=dict(ms=total(decode_layer, "ms"),
+                         ms_cold=total(decode_layer, "ms_cold"),
+                         plain_ms=total(decode_layer, "plain_ms"),
+                         bound_ms=total(decode_layer, "bound_ms"),
+                         bound_by=max(decode_layer, key=lambda r: r[
+                             "bound_ms"])["bound_by"],
+                         library_ms=total(decode_layer, "library_ms"),
+                         route=FUSED_ROUTES["decode"]),
+             ptxas={name: fm_usage.get(name) for name in (
+                 "fused_bmm_wgmma_kernel", "fused_bmm_stream_kernel<4>")},
              timed_over="one prefill layer: its 7 projections at 4096 rows, "
                         "bf16; bound at 989 TFLOP/s (bf16 tensor cores); "
                         "library = torch.bmm on pre-gathered operands, "
-                        "gather not counted"),
+                        "gather not counted; decode: the same 7 at 4 rows, "
+                        "ms on one wc each (in L2), ms_cold over a ring of "
+                        "wc copies larger than L2, bound by wc's bytes at "
+                        "3.35 TB/s"),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/"
@@ -1631,6 +1700,11 @@ def main() -> int:
              bound_by=bwd_rows[1]["dq_bound_by"],
              f32_cores_bound_ms=bwd_rows[1]["dq_f32_cores_bound_ms"],
              library_ms=bwd_rows[1]["library_ms"],
+             ms_softcap0=bwd_rows[1]["dq_ms_softcap0"],
+             tflops=bwd_rows[1]["dq_tflops"],
+             bound_share=bwd_rows[1]["dq_bound_share"],
+             tensor_core_route=bwd_rows[1]["dq_route"],
+             ptxas=fa_usage.get("flash_bwd_dq_mma_kernel<256>"),
              timed_over=bwd_timed),
         dict(name="flash_bwd_dkv", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",

@@ -31,9 +31,10 @@
 //
 // Two designs.
 //
-// (1) Tensor cores, bf16: flash_fwd (flash_fwd_wgmma_kernel) on wgmma and
-// flash_bwd_dkv (flash_bwd_dkv_mma_kernel) on mma.sync.m16n8k16, both with
-// f32 accumulators and tiles staged by cp.async in a 2-stage ring, so tile
+// (1) Tensor cores, bf16: flash_fwd (flash_fwd_wgmma_kernel) on wgmma,
+// flash_bwd_dkv (flash_bwd_dkv_mma_kernel) and flash_bwd_dq
+// (flash_bwd_dq_mma_kernel) on mma.sync.m16n8k16, all with f32
+// accumulators and tiles staged by cp.async in a 2-stage ring, so tile
 // j + 1 lands while tile j is computed. Softmax, p and dz are f32 in
 // registers; exponentials by exp2f with log2(e) folded into one FMA; the
 // softcap with tanhf (not tanh.approx), its division as a product by 1 /
@@ -44,14 +45,17 @@
 // where a few queries put p near 1, p rounded once to bf16 missed the 1e-2
 // tolerance by an ulp; so p and dz enter P^T.dO and dZ^T.Q as a bf16 pair,
 // the rounded value and its rounding residue (~16 bits), each B fragment
-// loaded once for both. These take D a multiple of 16 up to 256 (templated
+// loaded once for both. The dq pass rounds dz once, as dQ = dZ.K's A
+// operand: dq is a sum that ends in its own bf16 rounding, and a CPU
+// emulation of the design at head dim 256 finds the pair no closer to the
+// f32 result. These take D a multiple of 16 up to 256 (templated
 // on D rounded up to 64, 128 or 256; the tiles' columns past D are
 // zero-filled, so no product loop tests D) and 16-byte aligned rows (every
 // pointer and stride a multiple of 8 elements); the C entries send other
 // shapes to design (2) by that explicit test. The building blocks below
 // (stage_async, stage_async_sw, frag_a, frag_b, frag_b_t, mma_abt, mma_az,
-// c_to_a, c_to_a2, logit, gmma_desc, wgmma_ss, wgmma_rs_t, pair_sync)
-// serve the dq pass too.
+// c_to_a, c_to_a2, logit, gmma_desc, wgmma_ss, wgmma_rs_t, pair_sync) are
+// shared by the three.
 //
 //   flash_fwd_wgmma_kernel: one block of two warpgroups per (q head, batch
 //   row, 128-query tile), the heaviest causal tiles launched first; each
@@ -90,10 +94,30 @@
 //   KB), Q and dO 2 stages of 64 x 264 each (132 KB), lse and delta 2 x 64
 //   f32 a stage, the pairs' exchange 24 KB = 223 KB, one block per SM.
 //
-// (2) FP32 FMA: every float32 call, flash_bwd_dq, and bf16 shapes outside
-// (1). f32 math on the CUDA cores from f32 shared tiles, as the TPU
-// kernels cast q, k and v to f32; results rounded once to the operands'
-// type.
+//   flash_bwd_dq_mma_kernel replaces _dq_kernel: the dkv design with the
+//   roles of queries and keys swapped. Its bound at the training shapes
+//   (B = 4, Hq 8 / Hkv 4, S = 1024, D = 256, causal) is 6 D flops a live
+//   (query, key) pair at 989 TFLOP/s, 0.026 ms; its bytes (q, do, k, v
+//   read once, dq written once) take less. One block of 8 warps per (q
+//   head, batch row, 64-query tile), the heaviest causal tiles (the last)
+//   launched first, so the tail of the grid is short tiles. Q and dO stay
+//   resident; K and V stream in 64-key tiles through the 2-stage ring,
+//   live tiles only. Warps w and w + 4 share queries 16 w .. + 15 and own
+//   dq columns [0, D/2) and [D/2, D) in f32 registers (64 a thread at D =
+//   256). For each 32 keys warp w computes S = Q.K^T and warp w + 4 dP =
+//   dO.V^T over the whole D; the pair trades half of each through shared
+//   memory (named barrier 1 + w), each rebuilds p and dz in f32 from lse
+//   and delta (held in registers: the query tile never changes) for 16 of
+//   the keys, turns dz into a bf16 A fragment and adds dQ += dZ.K on its
+//   columns with K read transposed by ldmatrix, then adds the other warp's
+//   16 keys once their fragment has crossed. dq is scaled and rounded to
+//   bf16 once. Shared memory at D = 256: Q and dO 64 x 264 bf16 each (66
+//   KB), K and V 2 stages of 64 x 264 each (132 KB), the pairs' exchange
+//   12 KB = 210 KB, one block per SM.
+//
+// (2) FP32 FMA: every float32 call, and bf16 shapes outside (1). f32
+// math on the CUDA cores from f32 shared tiles, as the TPU kernels cast q,
+// k and v to f32; results rounded once to the operands' type.
 //
 //   flash_fwd_kernel: one block of 256 threads per (64-query tile, q
 //   head, batch row); four threads per query row. The q tile stays in
@@ -127,6 +151,8 @@
 #include <stdint.h>
 
 #include <initializer_list>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -667,36 +693,10 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
 using bf16 = __nv_bfloat16;
 
 constexpr int kTcBQ = 128;       // forward: query rows per block, 16 a warp
-constexpr int kTcBK = 64;        // forward: keys per step; dkv: keys a block
-constexpr int kTcBQd = 64;       // dkv: queries per step, in two halves
+constexpr int kTcBK = 64;        // forward, dq: keys a step; dkv: keys a block
+constexpr int kTcBQd = 64;       // dkv: queries per step, in two halves; dq:
+                                 // queries a block
 constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2(e))
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (4) bytes from device to shared memory without passing through
-// registers; zeros when !in (src is then never read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               ::"r"(smem_addr(dst)), "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most n of this thread's committed groups are in flight
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
-}
 
 // rows [r0, r0 + rows) of a (len, d) bf16 matrix with row stride rs
 // (elements) into the first kD columns of a (rows, kD + 8) shared tile,
@@ -824,12 +824,12 @@ __device__ __forceinline__ void mma_abt(float (&c)[nt][4], const bf16* x,
   }
 }
 
-// c (16 x 8 nt) += (a[0] + a[1]) (16 x 16, a bf16 pair from c_to_a2)
-// . z[k0 .. + 16, n0 .. + 8 nt) for z stored [k][n]; each B fragment is
-// loaded once for both halves of the pair.
-template <int nt>
+// c (16 x 8 nt) += (a[0] + .. + a[parts - 1]) (16 x 16: one fragment
+// from c_to_a, or a bf16 pair from c_to_a2) . z[k0 .. + 16, n0 .. + 8 nt)
+// for z stored [k][n]; each B fragment is loaded once for all the parts.
+template <int nt, int parts>
 __device__ __forceinline__ void mma_az(float (&c)[nt][4],
-                                       const uint32_t (&a)[2][4],
+                                       const uint32_t (&a)[parts][4],
                                        const bf16* z, int pitch, int k0,
                                        int n0, int lane) {
 #pragma unroll
@@ -837,7 +837,7 @@ __device__ __forceinline__ void mma_az(float (&c)[nt][4],
     uint32_t b[4];
     frag_b_t(b, z, pitch, k0, n0 + np * 16, lane);
 #pragma unroll
-    for (int x = 0; x < 2; ++x) {
+    for (int x = 0; x < parts; ++x) {
       mma_bf16(c[2 * np], a[x], b[0], b[1]);
       mma_bf16(c[2 * np + 1], a[x], b[2], b[3]);
     }
@@ -930,29 +930,6 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[8][4],
 #undef REPRO_D32_REGS
 #undef REPRO_D32_ALL
 #undef REPRO_D32
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Tie the accumulators to this point: wgmma writes them asynchronously,
-// so no read may move above the wait, nor a write below the issue.
-template <int n>
-__device__ __forceinline__ void fence_regs(float (&d)[n][4]) {
-#pragma unroll
-  for (int i = 0; i < n; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
-}
-// Make this thread's completed cp.async writes visible to wgmma's reads.
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // ---------------------------------------------------------------------------
 // Tensor-core design (bf16): the kernels
@@ -1048,7 +1025,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q,
                  gmma_desc(kt + (kk / 4) * kTcBK * 128 + (kk % 4) * 32),
                  kk > 0);
       wgmma_commit();
-      wgmma_wait();
+      wgmma_wait<0>();
       fence_regs(sc);
 
       // masks only where some (row, key) pair of the warp is not allowed
@@ -1117,7 +1094,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q,
           wgmma_rs_t(acc[c], pa[kc],
                      gmma_desc(vt + c * kTcBK * 128 + kc * 2 * 1024));
       wgmma_commit();
-      wgmma_wait();
+      wgmma_wait<0>();
 #pragma unroll
       for (int c = 0; c < kD / 64; ++c) fence_regs(acc[c]);
     }
@@ -1357,6 +1334,185 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 }
 
 template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int hq, int hkv, int s, int t,
+                        int d, float scale, int causal, int window,
+                        float softcap) {
+  constexpr int P = kD + 8;
+  constexpr int kHalf = kD / 2;               // dq columns a warpgroup
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);  // kTcBQd x P
+  bf16* dos = qs + kTcBQd * P;                 // kTcBQd x P
+  bf16* ks = dos + kTcBQd * P;                 // 2 stages of kTcBK x P
+  bf16* vs = ks + 2 * kTcBK * P;               // 2 stages of kTcBK x P
+  // what each warp hands its pair's other warp: half of its product (8
+  // f32 a lane), then its dZ A fragment (4 words a lane), lane-major so a
+  // warp's access is one 128-byte row
+  float* xdp = reinterpret_cast<float*>(vs + 2 * kTcBK * P);   // 8 x 8 x 32
+  uint32_t* xz = reinterpret_cast<uint32_t*>(xdp + 8 * 8 * 32);  // 8x4x32
+
+  const int h = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTcBQd;
+  const int hk = h / (hq / hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int pair = warp & 3;                   // warps pair and pair + 4
+  const int qr0 = pair * 16;                   // the pair's queries in the tile
+  const int qw0 = q0 + qr0;
+  const bool dp_warp = warp >= 4;              // computes dP, not S
+  const int c0 = (warp >> 2) * kHalf;          // its dq columns
+  const float inv_cap = softcap > 0.0f ? 1.0f / softcap : 0.0f;
+
+  const size_t qrow0 = (static_cast<size_t>(bi) * hq + h) * s;
+  const size_t krow0 = (static_cast<size_t>(bi) * hkv + hk) * t;
+  // lse log2(e) and delta of this thread's query rows g and g + 8
+  float l2[2], dl[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qpos = qw0 + g + rr * 8;
+    l2[rr] = qpos < s ? lse[qrow0 + qpos] * kLog2e : 0.0f;
+    dl[rr] = qpos < s ? delta[qrow0 + qpos] : 0.0f;
+  }
+
+  // Live key tiles only: keys above the tile's last query are dead under
+  // the causal mask, keys at or below (first query - window) under the
+  // window.
+  int k_end = t;
+  if (causal) k_end = min(t, q0 + kTcBQd);
+  int k_beg = 0;
+  if (window > 0) k_beg = max(0, q0 - window + 1) / kTcBK * kTcBK;
+  const int n_tiles = k_end > k_beg ? (k_end - k_beg + kTcBK - 1) / kTcBK
+                                    : 0;
+
+  stage_async<kD>(qs, q + qrow0 * d, d, q0, kTcBQd, s, d);
+  stage_async<kD>(dos, dout + qrow0 * d, d, q0, kTcBQd, s, d);
+  if (n_tiles > 0) {
+    stage_async<kD>(ks, k + krow0 * d, d, k_beg, kTcBK, t, d);
+    stage_async<kD>(vs, v + krow0 * d, d, k_beg, kTcBK, t, d);
+  }
+  cp_async_commit();
+
+  float acc[kHalf / 8][4];
+#pragma unroll
+  for (int i = 0; i < kHalf / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = k_beg + j * kTcBK;
+    if (j + 1 < n_tiles) {
+      const int st = (j + 1) & 1;
+      stage_async<kD>(ks + st * kTcBK * P, k + krow0 * d, d, k0 + kTcBK,
+                      kTcBK, t, d);
+      stage_async<kD>(vs + st * kTcBK * P, v + krow0 * d, d, k0 + kTcBK,
+                      kTcBK, t, d);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                          // tile j has landed
+    const bf16* kt = ks + (j & 1) * kTcBK * P;
+    const bf16* vt = vs + (j & 1) * kTcBK * P;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int kr0 = half * 32;              // the half's keys in the tile
+      const int kh0 = k0 + kr0;
+      const bool dead = qw0 >= s || kh0 >= t ||
+                        (causal && kh0 > qw0 + 15) ||
+                        (window > 0 && kh0 + 31 <= qw0 - window);
+      if (dead) continue;
+      // S (warp pair) or dP (warp pair + 4): 16 queries x 32 keys
+      float c[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[n][e] = 0.0f;
+      mma_abt<4, kD>(c, dp_warp ? dos : qs, dp_warp ? vt : kt, P, qr0, kr0,
+                     lane);
+      // Each warp of the pair makes p and dz for 16 of the 32 keys (n8
+      // tiles nm, nm + 1) from its own product and the other's.
+      const int nm = dp_warp ? 2 : 0;
+      const bool edge = qw0 + 16 > s || kh0 + 32 > t ||
+                        (causal && qw0 < kh0 + 31) ||
+                        (window > 0 && kh0 <= qw0 + 15 - window);
+      float mine[2][4];
+      float* give = xdp + (pair * 2 + dp_warp) * 8 * 32 + lane;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          mine[jj][e] = dp_warp ? c[2 + jj][e] : c[jj][e];
+          give[(jj * 4 + e) * 32] = dp_warp ? c[jj][e] : c[2 + jj][e];
+        }
+      pair_sync(pair);                        // the products have crossed
+      const float* take = xdp + (pair * 2 + !dp_warp) * 8 * 32 + lane;
+      float dzm[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float other = take[(jj * 4 + e) * 32];
+          const int rr = e >> 1;
+          const int kpos = kh0 + (nm + jj) * 8 + 2 * tq + (e & 1);
+          const bool ok =
+              !edge || allowed(qw0 + g + rr * 8, kpos, s, t, causal, window);
+          float dcap;
+          const float z = logit(dp_warp ? other : mine[jj][e], scale,
+                                softcap, inv_cap, &dcap);
+          const float p = ok ? exp2f(fmaf(z, kLog2e, -l2[rr])) : 0.0f;
+          dzm[jj][e] =
+              p * ((dp_warp ? mine[jj][e] : other) - dl[rr]) * dcap;
+        }
+      }
+      // dQ += dZ.K, dZ rounded once to bf16: first this warp's 16 keys,
+      // then the other warp's, whose fragment crosses meanwhile
+      const int kc = dp_warp ? 1 : 0;
+      {
+        uint32_t az[1][4];
+        c_to_a(az[0], dzm[0], dzm[1]);
+        uint32_t* give_a = xz + (pair * 2 + dp_warp) * 4 * 32 + lane;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) give_a[r * 32] = az[0][r];
+        mma_az<kHalf / 8>(acc, az, kt, P, kr0 + kc * 16, c0, lane);
+      }
+      pair_sync(pair);                        // the fragments have crossed
+      {
+        const uint32_t* take_a = xz + (pair * 2 + !dp_warp) * 4 * 32 + lane;
+        uint32_t az[1][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) az[0][r] = take_a[r * 32];
+        mma_az<kHalf / 8>(acc, az, kt, P, kr0 + (1 - kc) * 16, c0, lane);
+      }
+    }
+    __syncthreads();                          // stage j & 1 is free again
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qpos = qw0 + g + rr * 8;
+    if (qpos < s) {
+      bf16* dqr = dq + (qrow0 + qpos) * d;
+#pragma unroll
+      for (int i = 0; i < kHalf / 8; ++i) {
+        const int c = c0 + i * 8 + 2 * tq;
+        if (c < d)
+          *reinterpret_cast<__nv_bfloat162*>(dqr + c) = __floats2bfloat162_rn(
+              acc[i][2 * rr] * scale, acc[i][2 * rr + 1] * scale);
+      }
+    }
+  }
+}
+
+template <int kD>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                    void* lse, int b, int hq, int hkv, int s, int t, int d,
                    long long qsb, long long qsh, long long qss, long long ksb,
@@ -1402,6 +1558,29 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kD>
+int launch_dq_mma(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, int b, int hq, int hkv, int s, int t, int d,
+                  float scale, int causal, int window, float softcap,
+                  cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * (2 * kTcBQd + 4 * kTcBK) * (kD + 8) +
+                      sizeof(float) * (8 * 8 * 32 + 8 * 4 * 32);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma_kernel<kD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the query tile on the slowest axis, last (heaviest causal) tile first
+  const dim3 grid(hq, b, (s + kTcBQd - 1) / kTcBQd);
+  flash_bwd_dq_mma_kernel<kD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), hq, hkv, s, t, d, scale, causal, window,
+      softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -1427,11 +1606,17 @@ int bwd_entry(const void* q, const void* k, const void* v, const void* dout,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d > kMaxD || d < 4 || d % 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (is_bf16 && dq == nullptr && tc_shape(d, {q, k, v, dout}, {}))
+  if (is_bf16 && tc_shape(d, {q, k, v, dout}, {})) {
+    if (dq != nullptr)
+      return (d <= 64 ? &launch_dq_mma<64>
+              : d <= 128 ? &launch_dq_mma<128> : &launch_dq_mma<256>)(
+          q, k, v, dout, lse, delta, dq, b, hq, hkv, s, t, d, scale, causal,
+          window, softcap, st);
     return (d <= 64 ? &launch_dkv_mma<64>
             : d <= 128 ? &launch_dkv_mma<128> : &launch_dkv_mma<256>)(
         q, k, v, dout, lse, delta, dk, dv, b, hq, hkv, s, t, d, scale,
         causal, window, softcap, st);
+  }
   if (is_bf16)
     return launch_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, b,
                                      hq, hkv, s, t, d, scale, causal, window,
@@ -1476,7 +1661,8 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out,
 
 // q, dout, dq: (B, Hq, S, D); k, v: (B, Hkv, T, D); lse, delta: (B, Hq, S)
 // float32; every tensor contiguous; q, k, v, dout and dq of one type
-// (bf16 when is_bf16 else float32). dq = the gradient of q.
+// (bf16 when is_bf16 else float32). dq = the gradient of q. bf16 with D a
+// multiple of 16 and 16-byte aligned rows runs on the tensor cores.
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, int b, int hq, int hkv, int s, int t, int d,

@@ -46,22 +46,65 @@
 // shared memory first). x comes transposed so that one gathered id is a
 // run of consecutive rows: the gather's loads coalesce instead of
 // fetching a 32-byte sector for every 2-byte element. bf16 runs on the
-// tensor cores (wmma 16x16x16, f32 accumulators): 64-row tiles, 128
-// columns wide when there are more than 64 rows (64 wide otherwise),
-// 4 warps, 32 deep per shared-memory pass, operands staged with 16-byte
-// loads where the widths are multiples of 8. f32 runs the FP32-FMA tiling
-// of grouped_bmm (no TF32). What bounds it: a decode step (B = 4 rows)
-// streams every compact weight once, so it is bound by bytes (~1.6 GB a
-// forward of gemma2-2b at G = 4); a prefill (B = 4096 rows) is bound by
-// the tensor cores' operations. A few rows give a few dozen column tiles,
-// each walking up to 90 serial k-steps, so the caller may split K across
-// blocks (f32 partials, summed in split order by a second kernel). This
-// version neither pipelines its loads nor uses wgmma/TMA; ragged B, capM
-// and capN are masked here.
+// tensor cores with f32 accumulators; f32 runs the FP32-FMA tiling of
+// grouped_bmm (no TF32). What bounds it: a decode step (B = 4 rows)
+// streams every compact weight once, so it is bound by bytes (one layer's
+// 60.8 MB of wc at gemma2-2b's widths and G = 4: 0.018 ms at 3.35 TB/s);
+// a prefill (B = 4096 rows) is bound by the tensor cores' operations (one
+// layer's 7 projections: 249 GFLOP, 0.25 ms at 989 TFLOP/s). Three bf16
+// routes, chosen in the C entry by an explicit shape test:
+//
+//   fused_bmm_wgmma_kernel (prefill: B > 64, B and capN multiples of 8,
+//   16-byte aligned operands, capM up to 8,704, whose ids fit in shared
+//   memory). One block of two warpgroups per (256-row x 128-column output
+//   tile, g); each warpgroup owns 128 rows and runs two wgmma m64n128k16
+//   a k-step with f32 accumulators in registers (128 a thread), both
+//   operands from shared memory in the 128-byte swizzle. Both are MN-major
+//   there: a k-tile of the gathered x is 64 ids x 256 rows, each id a run
+//   of 256 consecutive B-rows of xt (512 contiguous bytes), and wc's tile
+//   is 64 k-rows x 128 columns of wc's rows; wgmma reads them with its
+//   transpose bits. The tile is 256 rows tall because the operands come
+//   from L2 (x is re-read by every column tile, wc by every row tile): a
+//   128 x 128 tile moves 32 KB a k-tile for 2.1 MFLOP, more than L2 feeds
+//   the tensor cores at their rate; 256 x 128 moves 48 KB for 4.2 MFLOP,
+//   and keeps capN's ragged last tile as narrow.
+//   Both operands are staged by 16-byte cp.async, x gathered by the
+//   k-tile's ids (Hopper's TMA has no gather; wc takes the same cp.async
+//   path so one load loop fills a stage) through a ring of 4 stages (48 KB
+//   each): k-tile j's wgmmas are issued before k-tile j - 1's are waited
+//   for, so the tensor cores do not idle between k-tiles, while the loads
+//   of k-tiles j + 1 and j + 2 are in flight. The group's ids sit in
+//   shared memory from the start, so no gather waits on an id's load.
+//   Rows past B, ids past capM and columns past capN are zero-filled by
+//   the copies and masked at the store, so the caller pads nothing. 193 KB
+//   of shared memory and 4 capM bytes of ids (204 KB at capM = 2880), one
+//   block per SM.
+//
+//   fused_bmm_stream_kernel (decode: B <= 64, capN a multiple of 8, wc
+//   16-byte aligned). A few rows do ~B flops per 2-byte weight, so the
+//   tensor cores do not matter; bytes in flight do. FP32 FMA: a block of
+//   256 threads covers 64 columns of one group's split of K for up to 8
+//   rows (4 when B <= 4); 8 threads share a k-row's 128 bytes of wc (one
+//   16-byte streaming load each), 32 k-lanes walk the split, each with 4
+//   rows' loads in flight while it multiplies the previous 4 (the first 4
+//   while the rows' gathered x values are staged once in shared memory as
+//   f32). The k-lanes' sums meet by warp shuffle and shared memory. K is
+//   split across blocks until the card holds about two blocks per SM (the
+//   wrapper plans it from the SM count), f32 partials summed in split
+//   order by reduce_splits_kernel, so the sum has one order whatever the
+//   launch.
+//
+//   fused_bmm_bf16_kernel (any other bf16 shape: B or capN not a multiple
+//   of 8, or unaligned operands): the first design, kept for those. wmma
+//   16x16x16, 64-row tiles 128 columns wide when there are more than 64
+//   rows (64 otherwise), 4 warps, 32 deep per shared-memory pass, no
+//   pipelining, split K as the stream kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -475,6 +518,326 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
   y[i] = __float2bfloat16(acc);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 prefill on wgmma (fused_bmm_wgmma_kernel)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kGM = 256;                // rows of x per block, 128 a warpgroup
+constexpr int kGN = 128;                // columns of wc per block
+constexpr int kGK = 64;                 // k-rows (ids) per stage
+constexpr int kGStages = 4;
+constexpr int kGThreads = 256;
+constexpr int kGXTile = kGK * kGM * 2;  // bytes of a stage's x tile
+constexpr int kGWTile = kGK * kGN * 2;  // bytes of a stage's wc tile
+constexpr int kGStage = kGXTile + kGWTile;
+constexpr int kGSmem = kGStages * kGStage + 1024;  // + atom alignment
+// the group's ids follow the stages in shared memory, up to 227 KB
+constexpr int kGMaxK = (232448 - kGSmem) / 4;
+
+// A stage's operand tile: 64 k-rows x 256 (x: rows of B) or 128 (wc:
+// columns of capN) MN-columns of bf16, MN-major, in wgmma's 128-byte
+// swizzle: 8 KB blocks of 64 columns, each 8 atoms of 8 k-rows x 128
+// bytes (1,024-aligned), where row r's 16-byte chunk c sits at chunk c ^
+// (r % 8) of its line, so the rows a wgmma reads fall in distinct banks.
+// The byte offset of (k-row kr, 16-byte chunk ch of the MN-columns):
+__device__ __forceinline__ int sw_offset(int kr, int ch) {
+  return (ch >> 3) * 8192 + (kr >> 3) * 1024 + (kr & 7) * 128 +
+         (((ch & 7) ^ (kr & 7)) << 4);
+}
+
+// The wgmma descriptor of an MN-major operand at p in that layout:
+// 128-byte swizzle, 1,024 bytes from one 8-row k-group to the next
+// (stride byte offset), 8,192 from one 64-column block to the next
+// (leading byte offset).
+__device__ __forceinline__ uint64_t gmma_desc_mn(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(8192 >> 4) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1)
+                                                      << 62;
+}
+
+// d (64 x 128 over the warpgroup; a warp's 16 rows as 16 n8 C fragments,
+// the mma.sync layout) += A . B, both from shared memory, MN-major
+// (wgmma's transpose bits set for both).
+__device__ __forceinline__ void wgmma_128_tt(float (&d)[16][4], uint64_t da,
+                                             uint64_t db) {
+#define REPRO_D4(i) \
+  "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : REPRO_D4(0), REPRO_D4(1), REPRO_D4(2), REPRO_D4(3), REPRO_D4(4),
+        REPRO_D4(5), REPRO_D4(6), REPRO_D4(7), REPRO_D4(8), REPRO_D4(9),
+        REPRO_D4(10), REPRO_D4(11), REPRO_D4(12), REPRO_D4(13),
+        REPRO_D4(14), REPRO_D4(15)
+      : "l"(da), "l"(db), "r"(1));
+#undef REPRO_D4
+}
+
+// y[g] (B, N) = xt[ids[g]]^T (B, K) . wc[g] (K, N), bf16 out, f32 sums;
+// blockIdx = (column tile, row tile, g).
+__global__ void __launch_bounds__(kGThreads, 1)
+fused_bmm_wgmma_kernel(const bf16* __restrict__ xt,
+                       const bf16* __restrict__ w,
+                       const int* __restrict__ ids, bf16* __restrict__ y,
+                       int b, int k, int n) {
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  base += (1024 - (smem_addr(base) & 1023)) & 1023;  // atoms 1,024-aligned
+
+  const int col0 = blockIdx.x * kGN;
+  const int row0 = blockIdx.y * kGM;
+  const int g = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;                    // the warpgroup's 128 rows
+  const int* idg = ids + static_cast<size_t>(g) * k;
+  const bf16* wg_ = w + static_cast<size_t>(g) * k * n;
+  const int nk = (k + kGK - 1) / kGK;
+
+  // the group's ids, read once, so no gather waits on an id load
+  int* ids_s = reinterpret_cast<int*>(base + kGStages * kGStage);
+  for (int e = tid; e < k; e += kGThreads) ids_s[e] = idg[e];
+  __syncthreads();
+
+  // k-tile i into stage st, 16-byte chunks of 8 rows of x or 8 columns
+  // of wc: a warp copies one id's 512 contiguous bytes of xt, half a warp
+  // one k-row's 256 of wc
+  auto issue = [&](int i, int st) {
+    char* xs = base + st * kGStage;
+    char* ws = xs + kGXTile;
+#pragma unroll
+    for (int j = 0; j < kGXTile / 16 / kGThreads; ++j) {
+      const int e = tid + j * kGThreads;
+      const int kr = e >> 5, ch = e & 31;
+      const int kk = i * kGK + kr;
+      const bool in = kk < k && row0 + ch * 8 < b;
+      const int id = in ? ids_s[kk] : 0;
+      cp_async16(xs + sw_offset(kr, ch),
+                 in ? xt + static_cast<size_t>(id) * b + row0 + ch * 8 : xt,
+                 in);
+    }
+#pragma unroll
+    for (int j = 0; j < kGWTile / 16 / kGThreads; ++j) {
+      const int e = tid + j * kGThreads;
+      const int kr = e >> 4, ch = e & 15;
+      const int kk = i * kGK + kr;
+      const bool in = kk < k && col0 + ch * 8 < n;
+      cp_async16(ws + sw_offset(kr, ch),
+                 in ? wg_ + static_cast<size_t>(kk) * n + col0 + ch * 8
+                    : wg_,
+                 in);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kGStages - 2; ++i) {
+    if (i < nk) issue(i, i);
+    cp_async_commit();
+  }
+
+  float acc[2][16][4];                          // the warpgroup's two m64
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      acc[h][i][0] = acc[h][i][1] = acc[h][i][2] = acc[h][i][3] = 0.0f;
+
+  // k-tile j's products run while k-tile j - 1's finish and the loads of
+  // k-tiles j + 1 .. j + 3 are in flight
+  for (int j = 0; j < nk; ++j) {
+    cp_async_wait<kGStages - 3>();
+    fence_async_proxy();
+    // k-tile j has landed; k-tile j - 2's products are done in both
+    // warpgroups, so its stage is free
+    __syncthreads();
+    const char* xs = base + (j % kGStages) * kGStage;
+    const char* ws = xs + kGXTile;
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    wgmma_fence();
+    // step kk: k-rows 16 kk .. + 15, two 8-row k-groups; rows 64 h .. + 63
+    // of the warpgroup's 128 are x's 64-column block 2 wg + h
+#pragma unroll
+    for (int kk = 0; kk < kGK / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        wgmma_128_tt(acc[h],
+                     gmma_desc_mn(xs + (2 * wg + h) * 8192 + kk * 2048),
+                     gmma_desc_mn(ws + kk * 2048));
+    wgmma_commit();
+    if (j + kGStages - 2 < nk)
+      issue(j + kGStages - 2, (j + kGStages - 2) % kGStages);
+    cp_async_commit();
+    wgmma_wait<1>();           // k-tile j - 1's products are done
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+  cp_async_wait<0>();
+
+  const int gq = lane >> 2, tq = lane & 3;
+  bf16* yg = y + static_cast<size_t>(g) * b * n;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row =
+          row0 + wg * 128 + h * 64 + (warp & 3) * 16 + gq + rr * 8;
+      if (row >= b) continue;
+      bf16* yr = yg + static_cast<size_t>(row) * n;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int c = col0 + i * 8 + 2 * tq;
+        if (c < n)
+          *reinterpret_cast<__nv_bfloat162*>(yr + c) = __floats2bfloat162_rn(
+              acc[h][i][2 * rr], acc[h][i][2 * rr + 1]);
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 decode on FP32 FMA (fused_bmm_stream_kernel)
+// ---------------------------------------------------------------------------
+
+constexpr int kSCols = 64;              // columns of wc per block, 8 a thread
+constexpr int kSLanes = 32;             // k-lanes per block
+constexpr int kSUnroll = 4;             // wc rows a k-lane has in flight
+constexpr int kSThreads = 256;
+constexpr int kSMaxSplit = 512;         // k-rows a block stages
+
+// 8 bf16 (one 16-byte word) as f32
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const uint32_t v[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(v[i] << 16);
+    f[2 * i + 1] = __uint_as_float(v[i] & 0xffff0000u);
+  }
+}
+
+// blockIdx = (column tile, split, row chunk * G + g): rows [RB rc, +RB)
+// of split s's k-rows [s k_split, (s + 1) k_split); with several splits
+// the f32 sums go to part (splits, G, B, N) for reduce_splits_kernel.
+template <int RB>
+__global__ void __launch_bounds__(kSThreads)
+fused_bmm_stream_kernel(const bf16* __restrict__ xt,
+                        const bf16* __restrict__ w,
+                        const int* __restrict__ ids, bf16* __restrict__ y,
+                        float* __restrict__ part, int ng, int b, int k,
+                        int n, int k_split) {
+  extern __shared__ float smf[];
+  const int col0 = blockIdx.x * kSCols;
+  const int split = blockIdx.y;
+  const int g = blockIdx.z % ng;
+  const int r0 = blockIdx.z / ng * RB;
+  const int k_beg = split * k_split;
+  const int kn = min(k, k_beg + k_split) - k_beg;
+  float* xs = smf;                      // kn x RB: the rows' x values
+  float* red = xs + kn * RB;            // 8 warps x RB x kSCols
+  const int tid = threadIdx.x;
+  const int cl = tid & 7, kl = tid >> 3;
+  const int* idg = ids + static_cast<size_t>(g) * k + k_beg;
+  const bf16* wg_ = w + (static_cast<size_t>(g) * k + k_beg) * n;
+
+  // a k-lane's next kSUnroll rows of wc (16 bytes each), in flight while
+  // the previous ones are multiplied; the first while x is staged
+  const int col = col0 + cl * 8;
+  const bool cin = col < n;
+  uint4 wv[kSUnroll];
+  auto load = [&](int kk) {
+#pragma unroll
+    for (int u = 0; u < kSUnroll; ++u) {
+      const int kr = kk + u * kSLanes;
+      wv[u] = cin && kr < kn
+          ? __ldcs(reinterpret_cast<const uint4*>(
+                wg_ + static_cast<size_t>(kr) * n + col))
+          : make_uint4(0, 0, 0, 0);
+    }
+  };
+  load(kl);
+
+  for (int e = tid; e < kn * RB; e += kSThreads) {
+    const int kk = e / RB, r = e % RB;
+    xs[e] = r0 + r < b
+        ? __bfloat162float(xt[static_cast<size_t>(idg[kk]) * b + r0 + r])
+        : 0.0f;
+  }
+  __syncthreads();
+
+  float acc[RB][8];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+  constexpr int kStep = kSLanes * kSUnroll;
+  for (int kk = kl; kk < kn; kk += kStep) {
+    uint4 cur[kSUnroll];
+#pragma unroll
+    for (int u = 0; u < kSUnroll; ++u) cur[u] = wv[u];
+    if (kk + kStep < kn) load(kk + kStep);
+#pragma unroll
+    for (int u = 0; u < kSUnroll; ++u) {
+      const int kr = kk + u * kSLanes;
+      if (kr >= kn) break;
+      float wf[8];
+      unpack8(cur[u], wf);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float xv = xs[kr * RB + r];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(xv, wf[c], acc[r][c]);
+      }
+    }
+  }
+
+  // the 4 k-lanes of a warp (lanes 8 apart), then the 8 warps
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], 8);
+      acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], 16);
+    }
+  const int warp = tid >> 5, lane = tid & 31;
+  if (lane < 8) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        red[(warp * RB + r) * kSCols + lane * 8 + c] = acc[r][c];
+  }
+  __syncthreads();
+  float* pg = part == nullptr ? nullptr
+      : part + (static_cast<size_t>(split) * ng + g) * b * n;
+  bf16* yg = y + static_cast<size_t>(g) * b * n;
+  for (int e = tid; e < RB * kSCols; e += kSThreads) {
+    const int r = e / kSCols, c = e % kSCols;
+    const int row = r0 + r, cc = col0 + c;
+    if (row >= b || cc >= n) continue;
+    float sum = 0.0f;
+#pragma unroll
+    for (int wi = 0; wi < kSThreads / 32; ++wi)
+      sum += red[(wi * RB + r) * kSCols + c];
+    const size_t at = static_cast<size_t>(row) * n + cc;
+    if (pg != nullptr)
+      pg[at] = sum;
+    else
+      yg[at] = __float2bfloat16(sum);
+  }
+}
+
 template <int BN>
 void launch_bf16(const void* xt, const void* wc, const void* ids, void* y,
                  void* part, int g, int b, int k, int n, int splits,
@@ -485,6 +848,38 @@ void launch_bf16(const void* xt, const void* wc, const void* ids, void* y,
       static_cast<const __nv_bfloat16*>(wc), static_cast<const int*>(ids),
       static_cast<__nv_bfloat16*>(y),
       splits > 1 ? static_cast<float*>(part) : nullptr, g, b, k, n, k_split);
+}
+
+int launch_wgmma(const void* xt, const void* wc, const void* ids, void* y,
+                 int g, int b, int k, int n, cudaStream_t stream) {
+  const int smem = kGSmem + 4 * k;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_bmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kGN - 1) / kGN, (b + kGM - 1) / kGM, g);
+  fused_bmm_wgmma_kernel<<<grid, kGThreads, smem, stream>>>(
+      static_cast<const bf16*>(xt), static_cast<const bf16*>(wc),
+      static_cast<const int*>(ids), static_cast<bf16*>(y), b, k, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int RB>
+void launch_stream(const void* xt, const void* wc, const void* ids, void* y,
+                   void* part, int g, int b, int k, int n, int splits,
+                   int k_split, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(k < k_split ? k : k_split) * RB +
+                       (kSThreads / 32) * RB * kSCols);
+  const dim3 grid((n + kSCols - 1) / kSCols, splits, g * ((b + RB - 1) / RB));
+  fused_bmm_stream_kernel<RB><<<grid, kSThreads, smem, stream>>>(
+      static_cast<const bf16*>(xt), static_cast<const bf16*>(wc),
+      static_cast<const int*>(ids), static_cast<bf16*>(y),
+      splits > 1 ? static_cast<float*>(part) : nullptr, g, b, k, n, k_split);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -525,18 +920,38 @@ int grouped_bmm_bf16(const void* x, const void* w, void* y, int g, int b,
 // wc: (G, K, N); ids: (G, K) int32 in [0, M]; y: (G, B, N). Contiguous,
 // bf16 when is_bf16 else float32. bf16 only: split s of `splits` takes
 // k-rows [s * k_split, (s + 1) * k_split), with splits * k_split >= K, a
-// multiple of 32, and then part is f32 scratch of (splits, G, B, N).
+// multiple of 32 and at most 512 when B <= 64, and then part is f32
+// scratch of (splits, G, B, N); B > 64 takes no split. bf16 routes: B >
+// 64 with B and N multiples of 8, 16-byte aligned xt and wc and K at most
+// 8,704 on wgmma; B <= 64 with N a multiple of 8 and wc 16-byte aligned
+// on the streaming FP32 FMA kernel; anything else on wmma.
 int fused_bmm(const void* xt, const void* wc, const void* ids, void* y,
               void* part, int g, int b, int k, int n, int is_bf16, int splits,
               int k_split, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    // wide column tiles halve how often a gathered x tile is re-read when
-    // there are many rows; narrow ones keep more blocks busy for a few
-    if (b > kWM)
+    if (splits < 1 || (splits > 1 && (k_split % kWK || k_split > kSMaxSplit)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const bool wide = n % 8 == 0 && aligned16(wc);
+    if (b > kWM && wide && b % 8 == 0 && aligned16(xt) && k <= kGMaxK) {
+      if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_wgmma(xt, wc, ids, y, g, b, k, n, st);
+    }
+    if (b <= kWM && wide && (splits > 1 || k <= kSMaxSplit)) {
+      if (b <= 4)
+        launch_stream<4>(xt, wc, ids, y, part, g, b, k, n, splits, k_split,
+                         st);
+      else
+        launch_stream<8>(xt, wc, ids, y, part, g, b, k, n, splits, k_split,
+                         st);
+    } else if (b > kWM) {
+      // wide column tiles halve how often a gathered x tile is re-read
+      // when there are many rows; narrow ones keep more blocks busy for a
+      // few
       launch_bf16<128>(xt, wc, ids, y, part, g, b, k, n, splits, k_split, st);
-    else
+    } else {
       launch_bf16<64>(xt, wc, ids, y, part, g, b, k, n, splits, k_split, st);
+    }
     if (splits > 1) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` alone into ``build/repro_torch/lib<name>-<digest>.so`` at the
 root of the checkout (no PyTorch headers, so a build takes seconds). The
-digest covers the source and the flags, so an edited source never loads
-a stale library. Builds happen on first use, or up front for all
+digest covers the source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header never loads a stale library. Builds happen on first use, or up front for all
 sources at once through :func:`build` (one ``nvcc`` per source, run in
 parallel).
 """
@@ -51,7 +51,8 @@ def _check_checkout() -> None:
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     _check_checkout()
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

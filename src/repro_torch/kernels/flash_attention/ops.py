@@ -36,14 +36,15 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype) -> None:
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0, softcap: float = 0.0
+              causal: bool = True, window: int = 0, softcap: float = 0.0,
+              scale: float | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """q: (B, Hq, S, D); k/v: (B, Hkv, T, D) -> (out, lse). bf16 or f32
-    on the card, D a multiple of 4 up to 256; see
-    :func:`ref.ref_flash_fwd`."""
+    on the card, D a multiple of 4 up to 256; ``scale`` None means
+    D ** -0.5; see :func:`ref.ref_flash_fwd`."""
     if on_cpu(q, k, v):
         return _ref.ref_flash_fwd(q, k, v, causal=causal, window=window,
-                                  softcap=softcap)
+                                  softcap=softcap, scale=scale)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q: the kernel takes bf16 or float32, got {q.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -61,14 +62,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         FWD(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, hq, hkv, s, t, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            d ** -0.5, int(causal), int(window), float(softcap),
+            _ref.head_scale(d, scale), int(causal), int(window), float(softcap),
             int(q.dtype == torch.bfloat16))
     return out, lse
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
-              causal: bool = True, window: int = 0, softcap: float = 0.0
+              causal: bool = True, window: int = 0, softcap: float = 0.0,
+              scale: float | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of :func:`flash_fwd`'s ``out`` (with its
     ``lse``) given the cotangent ``do``; see :func:`ref.ref_flash_bwd`.
@@ -76,7 +78,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_bwd_dq`` and ``flash_bwd_dkv`` run on contiguous copies."""
     if on_cpu(q, k, v, out, lse, do):
         return _ref.ref_flash_bwd(q, k, v, out, lse, do, causal=causal,
-                                  window=window, softcap=softcap)
+                                  window=window, softcap=softcap,
+                                  scale=scale)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q: the kernel takes bf16 or float32, got {q.dtype}")
     q, k, v, do = (x.contiguous() for x in (q, k, v, do))
@@ -94,7 +97,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = lse.float().contiguous()
     delta = _ref.delta_of(out, do).contiguous()
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    opts = (d ** -0.5, int(causal), int(window), float(softcap),
+    opts = (_ref.head_scale(d, scale), int(causal), int(window), float(softcap),
             int(q.dtype == torch.bfloat16))
     dims = (b, hq, hkv, s, t, d)
     if dq.numel():
@@ -112,23 +115,26 @@ class _FlashAttention(torch.autograd.Function):
     the saved ``(q, k, v, out, lse)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
         out, lse = flash_fwd(q, k, v, causal=causal, window=window,
-                             softcap=softcap)
+                             softcap=softcap, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, out, lse, do, **ctx.opts)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0, scale: float | None = None
+                    ) -> torch.Tensor:
     """q: (B, Hq, S, D); k/v: (B, Hkv, T, D) -> (B, Hq, S, D),
-    differentiable in q, k and v."""
-    return _FlashAttention.apply(q, k, v, causal, window, float(softcap))
+    differentiable in q, k and v; ``scale`` None means D ** -0.5."""
+    return _FlashAttention.apply(q, k, v, causal, window, float(softcap),
+                                 scale)

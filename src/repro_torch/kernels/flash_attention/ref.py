@@ -30,15 +30,23 @@ def allowed_mask(s: int, t: int, *, causal: bool, window: int,
     return allowed
 
 
+def head_scale(d: int, scale: float | None) -> float:
+    """The logits' scale: ``scale``, or D ** -0.5 when it is None, as the
+    TPU kernels take it."""
+    return float(d ** -0.5) if scale is None else float(scale)
+
+
 def ref_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int = 0, softcap: float = 0.0
+                  causal: bool = True, window: int = 0, softcap: float = 0.0,
+                  scale: float | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """q: (B, Hq, S, D); k/v: (B, Hkv, T, D) -> (out (B, Hq, S, D) in q's
-    dtype, lse (B, Hq, S) float32); logits scaled by D ** -0.5."""
+    dtype, lse (B, Hq, S) float32); logits ``q.k * scale`` (``scale``
+    None: D ** -0.5) before the softcap."""
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     qpk = hq // hkv
-    scale = d ** -0.5
+    scale = head_scale(d, scale)
     qg = q.reshape(b, hkv, qpk, s, d).float()
     z = torch.einsum("bgqsd,bgtd->bgqst", qg, k.float()) * scale
     if softcap > 0:
@@ -64,17 +72,19 @@ def delta_of(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def ref_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
-                  causal: bool = True, window: int = 0, softcap: float = 0.0
+                  causal: bool = True, window: int = 0, softcap: float = 0.0,
+                  scale: float | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of :func:`ref_flash_fwd`'s ``out`` given its cotangent
     ``do``: (dq, dk, dv) in q's, k's and v's dtypes, f32 math. ``p =
     exp(z - lse)`` is recomputed and masked to 0; ``dz = p (do.v -
-    delta)``, times ``1 - tanh(z_raw / softcap)^2`` under the softcap; dk
-    and dv sum over the q heads of each kv head."""
+    delta)``, times ``1 - tanh(z_raw / softcap)^2`` under the softcap; dq
+    and dk carry ``scale``; dk and dv sum over the q heads of each kv
+    head."""
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     qpk = hq // hkv
-    scale = d ** -0.5
+    scale = head_scale(d, scale)
     qg = q.reshape(b, hkv, qpk, s, d).float()
     dog = do.reshape(b, hkv, qpk, s, d).float()
     kf, vf = k.float(), v.float()

@@ -16,6 +16,7 @@ mask ragged tile edges themselves, so nothing is padded to a tile.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,7 +29,10 @@ BMM16 = KernelEntry("flgw_matmul", "grouped_bmm_bf16",
                     [_P, _P, _P, _I, _I, _I, _I])
 FUSED = KernelEntry("flgw_matmul", "fused_bmm",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I])
-_TILE, _DEPTH = 64, 32      # fused_bmm's bf16 row/column tile and k-step
+# fused_bmm's bf16 decode route: calls of at most _ROWS rows stream wc in
+# blocks of _COLS columns and up to 8 rows; K splits in multiples of the
+# _DEPTH-deep k-step, at most _MAX_SPLIT k-rows (what a block stages)
+_ROWS, _COLS, _DEPTH, _MAX_SPLIT = 64, 64, 32, 512
 # Columns of y past n: n is the sink the padding slots write to, sliced
 # off; 8 of them keep y's rows 16-byte aligned (for n a multiple of 8),
 # which the flash kernels' tensor-core route needs of the v it is handed.
@@ -142,7 +146,8 @@ def fused_bmm(xt: torch.Tensor, wc: torch.Tensor,
                          "do not fit")
     y = torch.empty((g, b, n), dtype=xt.dtype, device=xt.device)
     bf16 = xt.dtype == torch.bfloat16
-    splits, k_split = _k_splits(g, b, k, n, xt.device) if bf16 else (1, k)
+    splits, k_split = (k_splits(g, b, k, n, _sm_count(xt.device.index))
+                       if bf16 else (1, k))
     part = (torch.empty((splits, g, b, n), dtype=torch.float32,
                         device=xt.device) if splits > 1 else None)
     if y.numel():
@@ -152,19 +157,24 @@ def fused_bmm(xt: torch.Tensor, wc: torch.Tensor,
     return y
 
 
-def _k_splits(g: int, b: int, k: int, n: int,
-              device: torch.device) -> tuple[int, int]:
-    """(splits, k-rows per split) of a bf16 ``fused_bmm`` call. With at
-    most one row tile (decode) the column tiles alone fill few of the
-    card's SMs, so K is split until there are about two blocks per SM;
-    each split covers a multiple of the 32-deep k-step."""
-    if b > _TILE or k <= _DEPTH:
+def k_splits(g: int, b: int, k: int, n: int,
+             sms: int) -> tuple[int, int]:
+    """(splits, k-rows per split) of a bf16 ``fused_bmm`` call on a card
+    with ``sms`` SMs. More than ``_ROWS`` rows (prefill) take no split.
+    With fewer (decode) the blocks of 64 columns and up to 8 rows fill
+    few SMs, so K is split until there are about two blocks per SM; each
+    split covers a multiple of the 32-deep k-step, at most 512 k-rows."""
+    if b > _ROWS or k <= _DEPTH:
         return 1, k
-    tiles = g * -(-n // _TILE)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = g * -(-n // _COLS) * -(-b // (4 if b <= 4 else 8))
     want = min(-(-k // _DEPTH), max(1, -(-2 * sms // tiles)))
-    k_split = -(-(-(-k // want)) // _DEPTH) * _DEPTH
+    k_split = min(_MAX_SPLIT, -(-(-(-k // want)) // _DEPTH) * _DEPTH)
     return -(-k // k_split), k_split
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def sink_transposed(x: torch.Tensor) -> torch.Tensor:

@@ -155,3 +155,17 @@ def test_compact_outputs_keep_rows_16_byte_aligned(fused):
     assert y.shape == (b, n) and y.stride(1) == 1
     assert y.stride(0) * y.element_size() % 16 == 0
     assert y.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("k,n", [(720, 640), (720, 320), (640, 720),
+                                 (720, 2880), (2880, 720)])
+@pytest.mark.parametrize("b", [4, 64])
+def test_decode_splits_cover_k_in_k_steps(k, n, b):
+    """The split plan of a bf16 decode call at gemma2-2b's compact widths
+    (G = 4) on a 132-SM card: splits of a multiple of the 32-deep k-step,
+    at most the 512 k-rows a block stages, covering K exactly (the last
+    one not empty); a prefill's 4096 rows take none."""
+    splits, k_split = kops.k_splits(4, b, k, n, 132)
+    assert k_split % 32 == 0 and k_split <= 512
+    assert (splits - 1) * k_split < k <= splits * k_split
+    assert kops.k_splits(4, 4096, k, n, 132) == (1, k)

@@ -90,22 +90,28 @@ def test_grouped_bmm_bf16_matches_its_plain_version(cuda, g, b, k, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,hq,hkv,s,d,window,softcap,causal", [
-    (1, 8, 4, 1024, 256, 4096, 50.0, True),
-    (1, 8, 4, 1024, 256, 0, 0.0, True),
-    (2, 8, 4, 512, 256, 128, 50.0, True),
-    (2, 8, 4, 200, 256, 0, 50.0, True),      # ragged S
-    (1, 4, 4, 130, 64, 40, 0.0, True),
-    (2, 4, 2, 96, 128, 7, 30.0, False),
-    # the bf16 tensor-core pass's edges: 64-key tiles, 2 x 32 queries a
-    # step, D split over two warpgroups
-    (1, 8, 2, 300, 256, 100, 50.0, True),    # qpk 4, window edge in a tile
-    (2, 2, 2, 77, 128, 0, 30.0, True),       # qpk 1, S = 77
-    (1, 4, 2, 161, 64, 33, 0.0, False),      # window without causal
-    (1, 2, 1, 70, 32, 0, 0.0, True),         # D below a warpgroup's half
-    (1, 4, 2, 90, 20, 0, 50.0, True)])       # D % 16 != 0: FP32 FMA
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,softcap,causal,scale", [
+    (1, 8, 4, 1024, 256, 4096, 50.0, True, None),
+    (1, 8, 4, 1024, 256, 0, 0.0, True, None),
+    (2, 8, 4, 512, 256, 128, 50.0, True, None),
+    (2, 8, 4, 200, 256, 0, 50.0, True, None),      # ragged S
+    (1, 4, 4, 130, 64, 40, 0.0, True, None),
+    (2, 4, 2, 96, 128, 7, 30.0, False, None),
+    # the bf16 tensor-core passes' edges: dkv's 64-key tiles with 2 x 32
+    # queries a step, dq's 64-query tiles with 2 x 32 keys a step, D split
+    # over two warpgroups
+    (1, 8, 2, 300, 256, 100, 50.0, True, None),    # qpk 4, window edge
+    (2, 2, 2, 77, 128, 0, 30.0, True, None),       # qpk 1, S = 77
+    (1, 4, 2, 161, 64, 33, 0.0, False, None),      # window without causal
+    (1, 2, 1, 70, 32, 0, 0.0, True, None),         # D below a half
+    (1, 4, 2, 90, 20, 0, 50.0, True, None),        # D % 16: FP32 FMA
+    (1, 4, 2, 130, 256, 0, 50.0, True, None),      # 2 queries past 2 tiles
+    (2, 8, 2, 257, 256, 90, 50.0, True, None),     # qpk 4, window in a tile
+    (1, 4, 4, 192, 64, 0, 30.0, True, None),       # D 64
+    (1, 4, 1, 100, 128, 50, 0.0, True, None),      # D 128, qpk 4
+    (1, 8, 4, 256, 256, 0, 50.0, True, 0.1)])      # a scale not D ** -0.5
 def test_flash_bwd_matches_its_plain_version(cuda, dtype, b, hq, hkv, s, d,
-                                             window, softcap, causal):
+                                             window, softcap, causal, scale):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     gen = torch.Generator(device=cuda).manual_seed(s + d + 1)
@@ -114,7 +120,7 @@ def test_flash_bwd_matches_its_plain_version(cuda, dtype, b, hq, hkv, s, d,
             for _ in range(2))
     do = torch.randn((b, hq, s, d), generator=gen, device=cuda).to(dtype)
     q = q.transpose(1, 2)                        # strided, as the model's
-    kw = dict(causal=causal, window=window, softcap=softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     out, lse = fa_ops.flash_fwd(q, k, v, **kw)
     before = (fa_ops.DQ.launches, fa_ops.DKV.launches)
     got = fa_ops.flash_bwd(q, k, v, out, lse, do, **kw)
@@ -174,7 +180,21 @@ def test_rollout_on_the_card_replays_on_the_cpu(cuda):
                                        (1, 9, 3, 3, 5), (67, 64, 2, 40, 129),
                                        (64, 500, 4, 130, 200),
                                        (136, 300, 2, 70, 136),
-                                       (4, 9216, 4, 2880, 720)])
+                                       (4, 9216, 4, 2880, 720),
+                                       # wgmma: the prefill's up projection
+                                       (4096, 2304, 4, 720, 2880),
+                                       # the routes' boundary: streaming at
+                                       # 64 rows, wmma at 65 (not a
+                                       # multiple of 8), wgmma at 72
+                                       (64, 2304, 4, 720, 640),
+                                       (65, 2304, 4, 720, 640),
+                                       (72, 2304, 4, 720, 640),
+                                       # capN not a multiple of wgmma's
+                                       # 128-column tile
+                                       (256, 700, 3, 200, 200),
+                                       # widths not multiples of 8: wmma
+                                       (200, 300, 2, 50, 100),
+                                       (100, 400, 2, 90, 96)])
 def test_fused_bmm_matches_its_plain_version(cuda, dtype, tol, b, m, g, k, n):
     gen = torch.Generator(device=cuda).manual_seed(b + m + k)
     x = torch.randn((m + 1, b), generator=gen, device=cuda).to(dtype)
