@@ -30,7 +30,9 @@ The script
   2. holds every kernel against its plain PyTorch version on the card at
      the shapes the path gives it (plan ids bitwise, grouped_bmm within
      rtol = atol = 1e-5) and times kernel, plain version and, where one
-     PyTorch call computes the same function, that call;
+     PyTorch call computes the same function, that call (grouped_bmm_f32
+     and torch.bmm also by the profiler's device us a call and by the
+     host us a call takes to return);
   3. encodes the plans on the card and compares them bitwise with a CPU
      encode, then, with every launch count at 0, drives encode + one
      B=16 rollout and checks that each kernel was launched; replays the
@@ -55,16 +57,20 @@ The script
      ``fused_bmm`` on wgmma in the prefill and on the streaming kernel in
      decode, never on the wmma kernel;
   5. holds ``grouped_bmm_bf16`` against its plain version at the
-     training MLP's product shapes and ``flash_bwd_dq``/``flash_bwd_dkv``
-     at the attention's (bf16, S=1024 with windows 4096 and 0, S=512 with
-     window 128), timing each against its plain version and a PyTorch
-     call; then, with every launch count at 0 before each, trains 3 steps
-     through ``train_lm`` (the chunked attention core) and 3 through
-     ``make_train_step`` with ``use_flash`` from the same init and
-     batches, checks which kernels each phase launched and that the two
-     agree; replays one step of 2 layers of the trained weights on the CPU
-     (B=1 x S=128); and profiles one flash training step, checking the
-     same of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``;
+     training MLP's product shapes (its TMA + wgmma route; the wmma
+     kernel there too, on its route) and at a ragged case on each route,
+     and ``flash_bwd_dq``/``flash_bwd_dkv`` at the attention's (bf16,
+     S=1024 with windows 4096 and 0, S=512 with window 128), timing each
+     against its plain version and a PyTorch call; then, with every
+     launch count at 0 before each, trains 3 steps through ``train_lm``
+     (the chunked attention core) and 3 through ``make_train_step`` with
+     ``use_flash`` from the same init and batches, checks which kernels
+     each phase launched (``grouped_bmm_bf16`` exactly 6 a layer and
+     step) and that the two agree; replays one step of 2 layers of the
+     trained weights on the CPU (B=1 x S=128); and profiles one flash
+     training step, checking the same of ``flash_fwd``, ``flash_bwd_dq``
+     and ``flash_bwd_dkv``, and that ``grouped_bmm_bf16`` ran on the TMA
+     + wgmma kernel only;
   6. holds ``osel_encode`` bitwise against its plain version at every
      FLGW side of gemma2-2b, the five IC3Net layers, Fig. 10's grid and
      ragged shapes; with the launch counts at 0, runs the OSEL encoder
@@ -160,6 +166,32 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 2000, warmup: int = 50) -> float:
+    """Mean host us per call of ``fn``: the time for the call to return,
+    without waiting for the device (the device keeps up when its time a
+    call is shorter)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def device_us(fn, calls: int = 20) -> float:
+    """Device us per call of ``fn``: for each kernel or memset that
+    ``calls`` calls ran, the profiler's mean time an event times its
+    events a call. Means, not the sum over ``calls``: the profiler can
+    miss events in a run of short calls (section 7 of PERF.md)."""
+    fn()
+    top = profile(lambda: [fn() for _ in range(calls)], {})["top"]
+    return sum(t["device_us"] / t["count"]
+               * max(1, round(t["count"] / calls)) for t in top)
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -283,9 +315,15 @@ def check_bmm_kernel(model, plans, rows_b: int) -> list[dict]:
                            2 * g * b * k * n)
         rows.append(dict(
             layer=path[-1], g=g, b=b, k=k, n=n, max_abs_err=err,
+            cols=fm_ops.bmm_f32_cols(g, b, n, fm_ops._sm_count(
+                xg.device.index)),
             ms=time_ms(lambda: fm_ops.grouped_bmm(xg, wc)),
             plain_ms=time_ms(lambda: fm_ref.ref_grouped_bmm(xg, wc)),
             library_ms=time_ms(lambda: torch.bmm(xg, wc)),
+            device_us=device_us(lambda: fm_ops.grouped_bmm(xg, wc), 50),
+            library_device_us=device_us(lambda: torch.bmm(xg, wc), 50),
+            host_us=host_us(lambda: fm_ops.grouped_bmm(xg, wc)),
+            library_host_us=host_us(lambda: torch.bmm(xg, wc)),
             bound_ms=bnd, bound_by=by))
     return rows
 
@@ -438,7 +476,7 @@ L2_BYTES = 50e6               # H100 SXM L2
 # bf16 at the same places but from sums taken in other orders
 REPLAY_BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 SERVE_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
-                 "grouped_bmm_f32": "grouped_bmm_kernel",
+                 "grouped_bmm_f32": "grouped_bmm_f32_kernel",
                  "fused_bmm on wgmma": "fused_bmm_wgmma_kernel",
                  "fused_bmm streaming": "fused_bmm_stream_kernel",
                  "fused_bmm on wmma": "fused_bmm_bf16_kernel",
@@ -470,6 +508,17 @@ def check_fused_routes(prof: dict) -> None:
     check(n["on wgmma"] > 0 and n["streaming"] > 0 and n["on wmma"] == 0,
           f"the serve profile: fused_bmm on wgmma (prefill) and streaming "
           f"(decode) only ({n})")
+
+
+def check_bmm_routes(prof: dict) -> None:
+    """The flash-train profile's grouped products ran on the TMA + wgmma
+    kernel only, never on the wmma kernel that other shapes take."""
+    ours = prof["kernels"]
+    n = {k: ours[k]["launches"]
+         for k in ("grouped_bmm_bf16", "grouped_bmm_bf16 on wmma")}
+    check(n["grouped_bmm_bf16"] > 0 and n["grouped_bmm_bf16 on wmma"] == 0,
+          f"the flash training profile: grouped_bmm_bf16 on TMA + wgmma "
+          f"only ({n})")
 
 
 def serve_params(cfg, device) -> dict:
@@ -780,7 +829,8 @@ FLASH_BWD_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_ATTN_GRAD_RTOL = 1e-3, 5e-3, 5e-2
 REPLAY_TRAIN_TOL = dict(rtol=5e-2, atol=5e-2)
 TRAIN_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
-                 "grouped_bmm_bf16": "grouped_bmm_bf16_kernel",
+                 "grouped_bmm_bf16": "grouped_bmm_tma_kernel",
+                 "grouped_bmm_bf16 on wmma": "grouped_bmm_bf16_kernel",
                  "flash_fwd": "flash_fwd",
                  "flash_bwd_dq": "flash_bwd_dq_mma_kernel",
                  "flash_bwd_dkv": "flash_bwd_dkv",
@@ -789,35 +839,68 @@ TRAIN_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
                  "flash_bwd_dkv on FP32 FMA": "flash_bwd_dkv_kernel"}
 
 
+# grouped_bmm_bf16's routes by the C entry's route argument
+BMM16_ROUTES = {fm_ops.TMA: "tma + wgmma", fm_ops.WMMA: "wmma"}
+
+
 def check_bmm_bf16_kernel(cfg, device) -> list[dict]:
     """grouped_bmm_bf16 against its plain version at the training MLP's
-    compact products (4096 rows; up and gate share a shape), and one
-    ragged case; timed against its plain version and ``torch.bmm``."""
+    compact products (4096 rows; up and gate share a shape), on the TMA
+    route; a ragged case on the TMA route (K and N off the 64-deep k-tile
+    and the 256-wide column tile, rows off the 128-row tile) and one on
+    wmma (70 rows, 37 x 45). Each timed against its plain version and
+    ``torch.bmm`` (ms by CUDA events, device us a call by the profiler);
+    at the MLP's shapes the wmma kernel too, called on its route."""
     g = cfg.flgw_groups
     cap_d, cap_ff = compute_cap(cfg.d_model, g, 1.25), \
         compute_cap(cfg.d_ff, g, 1.25)
     rows_n = TRAIN_BATCH * TRAIN_SEQ
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     rows = []
-    for name, k, n in (("up", cap_d, cap_ff), ("gate", cap_d, cap_ff),
-                       ("down", cap_ff, cap_d), ("ragged", 37, 45)):
-        b = rows_n if name != "ragged" else 70
+    for name, b, k, n, want in (
+            ("up", rows_n, cap_d, cap_ff, fm_ops.TMA),
+            ("gate", rows_n, cap_d, cap_ff, fm_ops.TMA),
+            ("down", rows_n, cap_ff, cap_d, fm_ops.TMA),
+            ("ragged tma", 1000, 200, 328, fm_ops.TMA),
+            ("ragged", 70, 37, 45, fm_ops.WMMA)):
         xg = torch.randn((g, b, k), generator=gen, device=device).bfloat16()
         wc = torch.randn((g, k, n), generator=gen, device=device).bfloat16()
+        route = fm_ops.bmm_bf16_route(b, k, n, True)
+        check(route == want, f"grouped_bmm_bf16 at {name} takes "
+                             f"{BMM16_ROUTES[want]} ({BMM16_ROUTES[route]})")
         y = fm_ops.grouped_bmm(xg, wc)
         y_ref = fm_ref.ref_grouped_bmm(xg, wc)
         err = float((y.float() - y_ref.float()).abs().max())
         check(torch.allclose(y.float(), y_ref.float(), **BMM_BF16_TOL),
-              f"grouped_bmm_bf16 == plain at {name} (max abs err {err})")
+              f"grouped_bmm_bf16 == plain at {name}, {BMM16_ROUTES[route]} "
+              f"(max abs err {err})")
         bnd, by = bound_ms(2 * (g * b * k + g * k * n + g * b * n),
                            2 * g * b * k * n, BF16_OPS_PER_S)
         rows.append(dict(
             proj=name, g=g, b=b, k=k, n=n, max_abs_err=err,
+            route=BMM16_ROUTES[route],
             ms=time_ms(lambda: fm_ops.grouped_bmm(xg, wc), 20, 3),
+            device_us=device_us(lambda: fm_ops.grouped_bmm(xg, wc)),
             plain_ms=time_ms(lambda: fm_ref.ref_grouped_bmm(xg, wc), 20, 3),
             library_ms=time_ms(lambda: torch.bmm(xg, wc), 20, 3),
+            library_device_us=device_us(lambda: torch.bmm(xg, wc)),
             bound_ms=bnd, bound_by=by))
         rows[-1]["tflops"] = 2 * g * b * k * n / rows[-1]["ms"] / 1e9
+        rows[-1]["bound_share"] = bnd / rows[-1]["ms"]
+        if route == fm_ops.TMA and b == rows_n:
+            yw = torch.empty_like(y)
+
+            def wmma():
+                fm_ops.BMM16(device, xg.data_ptr(), wc.data_ptr(),
+                             yw.data_ptr(), g, b, k, n, fm_ops.WMMA)
+            wmma()
+            werr = float((yw.float() - y_ref.float()).abs().max())
+            check(torch.allclose(yw.float(), y_ref.float(), **BMM_BF16_TOL),
+                  f"grouped_bmm_bf16 == plain at {name}, wmma (max abs err "
+                  f"{werr})")
+            rows[-1].update(wmma_ms=time_ms(wmma, 20, 3),
+                            wmma_device_us=device_us(wmma),
+                            wmma_max_abs_err=werr)
     return rows
 
 
@@ -906,6 +989,10 @@ def _check_train_launches(launches: dict, phase: str, flash: bool) -> None:
     for name in ("fused_bmm", "grouped_bmm_f32"):
         check(launches[name] == 0, f"{name} not launched in training {phase}")
     layers = 26 * TRAIN_STEPS
+    # 3 MLP products a layer, in the forward and its remat replay
+    check(launches["grouped_bmm_bf16"] == 6 * layers,
+          f"grouped_bmm_bf16 launched 6 times per layer and step in {phase} "
+          f"({launches['grouped_bmm_bf16']} of {6 * layers})")
     if flash:
         # each layer's forward runs once more under remat in the backward
         check(launches["flash_bwd_dq"] == layers
@@ -1185,7 +1272,7 @@ LEARN_ITERS = 10
 LEARN_SCHEDULE = SparsitySchedule(groups=4, warmup_steps=2)
 LEARN_REPLAY_LOSS_RTOL, LEARN_REPLAY_GRAD_REL = 1e-5, 1e-4
 LEARN_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
-                 "grouped_bmm_f32": "grouped_bmm_kernel"}
+                 "grouped_bmm_f32": "grouped_bmm_f32_kernel"}
 # benchmarks/fig9_accuracy.py's config; the JAX package's final success
 # rates (mean of the last 80 iterations) at G=4: masked from
 # BENCH_fig9_accuracy.json, grouped from repro.marl.train.train under
@@ -1398,6 +1485,12 @@ def main() -> int:
     with torch.inference_mode():
         plans = model.encode_plans()
     bmm_rows = check_bmm_kernel(model, plans, BATCH * cfg.n_agents)
+    for r in bmm_rows:
+        print(f"  grouped_bmm_f32 {r['layer']:>7} {r['k']}x{r['n']} "
+              f"({r['cols']}-column tiles): {r['ms']:.4f} ms, "
+              f"{r['device_us']:.2f} device us, {r['host_us']:.1f} host us; "
+              f"bmm {r['library_ms']:.4f} ms, {r['library_device_us']:.2f} "
+              f"device us, {r['library_host_us']:.1f} host us")
     print("IC3Net kernels match their plain versions on the card; plan_rank "
           "and plan_place have no single PyTorch call to time as a library "
           "yardstick (library_ms null), grouped_bmm_f32 has torch.bmm",
@@ -1408,9 +1501,7 @@ def main() -> int:
           f"ms, rollout {sl['rollout_s'] * 1e3:.2f} ms, "
           f"{sl['env_steps_per_s']:.1f} env-steps/s, replay max abs err "
           f"{sl['replay_max_abs_err']}", flush=True)
-    prof = profile_path(model, env, ecfg, {
-        "plan_rank": "rank_kernel", "plan_place": "place_kernel",
-        "grouped_bmm_f32": "grouped_bmm_kernel"})
+    prof = profile_path(model, env, ecfg, LEARN_KERNELS)
     print_profile("encode + rollout", prof)
     ic3_params = model.params        # the OSEL phase's IC3Net layers
     del model, cpu_model, plans
@@ -1468,10 +1559,14 @@ def main() -> int:
     bmm16_rows = check_bmm_bf16_kernel(tcfg, dev)
     bwd_rows = check_flash_bwd_kernels(tcfg, dev)
     for r in bmm16_rows:
-        print(f"  grouped_bmm_bf16 {r['proj']:>6} {r['b']} rows: "
-              f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), plain "
-              f"{r['plain_ms']:.4f}, bmm {r['library_ms']:.4f}, bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+        wm = (f", wmma {r['wmma_ms']:.4f} ms ({r['wmma_device_us']:.1f} us)"
+              if "wmma_ms" in r else "")
+        print(f"  grouped_bmm_bf16 {r['proj']:>10} {r['b']} rows: "
+              f"{r['ms']:.4f} ms, {r['device_us']:.1f} device us "
+              f"({r['tflops']:.1f} TFLOP/s, {r['bound_share']:.3f} of the "
+              f"bound, {r['route']}){wm}, plain {r['plain_ms']:.4f}, bmm "
+              f"{r['library_ms']:.4f} ({r['library_device_us']:.1f} us), "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
     for r in bwd_rows:
         print(f"  flash_bwd S={r['s']} window={r['window']}: dq "
               f"{r['dq_ms']:.4f} ms ({r['dq_tflops']:.1f} TFLOP/s, "
@@ -1503,6 +1598,7 @@ def main() -> int:
     print_profile("one flash training step", tprof)
     check_flash_routes(tprof, "the flash training profile",
                        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    check_bmm_routes(tprof)
     train_out = dict(chunked=ca, flash=fl, attn_grad_rel=tr["attn_grad_rel"],
                      tol=dict(loss_rtol=TRAIN_LOSS_RTOL,
                               gnorm_rtol=TRAIN_GNORM_RTOL,
@@ -1574,7 +1670,9 @@ def main() -> int:
                     if r["rows"] == 4 and "bfloat16" in r["dtype"]]
     prefill_flops = sum(2 * r["g"] * r["rows"] * r["cap_m"] * r["cap_n"]
                         for r in prefill_layer)
-    train_layer = [r for r in bmm16_rows if r["proj"] != "ragged"]
+    train_layer = [r for r in bmm16_rows if r["b"] == TRAIN_BATCH * TRAIN_SEQ]
+    train_flops = sum(2 * r["g"] * r["b"] * r["k"] * r["n"]
+                      for r in train_layer)
     bwd_timed = (f"one call at B={TRAIN_BATCH}, Hq=8, Hkv=4, S={TRAIN_SEQ}, "
                  "D=256, causal, window 0, softcap 50, bf16; bound: dq "
                  "6 D, dkv 8 D flops per allowed (query, key) pair at 989 "
@@ -1617,8 +1715,19 @@ def main() -> int:
              bound_ms=total(bmm_rows, "bound_ms"),
              bound_by=max(bmm_rows, key=lambda r: r["bound_ms"])["bound_by"],
              library_ms=total(bmm_rows, "library_ms"),
+             device_us_per_launch=total(bmm_rows, "device_us") / len(bmm_rows),
+             library_device_us=total(bmm_rows, "library_device_us")
+             / len(bmm_rows),
+             host_us_per_call=dict(
+                 ours=total(bmm_rows, "host_us") / len(bmm_rows),
+                 library=total(bmm_rows, "library_host_us") / len(bmm_rows)),
+             compute_route="fp32 fma, 32-row x 32/64-column tiles",
+             ptxas={name: fm_usage.get(name) for name in (
+                 "grouped_bmm_f32_kernel<32>", "grouped_bmm_f32_kernel<64>")},
              timed_over="one policy step: its calls at the path's 5 FLGW "
-                        "layers"),
+                        "layers; device and host us: means over the 5 "
+                        "(the profiler's device time a call; host: the "
+                        "time for a call to return); library = torch.bmm"),
         dict(name="grouped_bmm_bf16", route="cuda",
              source="src/repro_torch/csrc/flgw_matmul.cu",
              replaces="src/repro/kernels/flgw_matmul/flgw_matmul.py:38",
@@ -1631,10 +1740,26 @@ def main() -> int:
              bound_by=max(train_layer,
                           key=lambda r: r["bound_ms"])["bound_by"],
              library_ms=total(train_layer, "library_ms"),
+             device_us_per_launch=total(train_layer, "device_us")
+             / len(train_layer),
+             library_device_us=total(train_layer, "library_device_us")
+             / len(train_layer),
+             tflops=train_flops / total(train_layer, "ms") / 1e9,
+             bound_share=(total(train_layer, "bound_ms")
+                          / total(train_layer, "ms")),
+             tensor_core_route=BMM16_ROUTES[fm_ops.TMA],
+             wmma=dict(ms=total(train_layer, "wmma_ms"),
+                       device_us_per_launch=total(train_layer,
+                                                  "wmma_device_us")
+                       / len(train_layer)),
+             ptxas={name: fm_usage.get(name) for name in (
+                 "grouped_bmm_tma_kernel", "grouped_bmm_bf16_kernel<128>")},
              timed_over="one training layer's forward: its 3 MLP products "
                         "(up, gate, down) at 4096 rows, bf16; bound at 989 "
-                        "TFLOP/s (bf16 tensor cores); library = torch.bmm "
-                        "on the same compact operands"),
+                        "TFLOP/s (bf16 tensor cores); device us a launch: "
+                        "the mean of the 3; library = torch.bmm on the same "
+                        "compact operands; wmma = the first design on the "
+                        "same calls"),
         dict(name="fused_bmm", route="cuda",
              source="src/repro_torch/csrc/flgw_matmul.cu",
              replaces="src/repro/kernels/flgw_matmul/flgw_matmul.py:93",

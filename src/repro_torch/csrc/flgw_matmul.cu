@@ -6,33 +6,59 @@
 //   y[g] = x[g] @ w[g],  x (G, B, K), w (G, K, N) -> y (G, B, N) in x's
 //   type, f32 accumulation.
 //
-// grouped_bmm_f32: plain FP32 FMA on the CUDA cores, accumulated in a
-// float32 register per output, never TF32: the MARL path runs this
-// product in f32 and must agree with the f32 reference to ~1e-6.
-//
-// What bounds grouped_bmm_f32 on this card: at the MARL path's shapes
-// (B = 128 rows, K <= 40, N <= 160, G = 4) one call moves at most
-// ~0.5 MB and does at most ~6.6 MFLOP, ~0.15 us of HBM time or ~0.1 us
-// of f32 ALU time, so the launch (microseconds) is the bound, not the
-// arithmetic. The design
-// is a simple, correct tiling: one block per (g, 64-row tile, 64-column
-// tile), 256 threads each owning a 4x4 patch of outputs, x and w staged
-// through shared memory 16 deep along K. Ragged edges (B, K, N not
-// multiples of the tile) are masked here, so the caller pads nothing.
-// wgmma/TMA tiles are later work: they pay only at far larger shapes.
+// grouped_bmm_f32: plain FP32 FMA on the CUDA cores, each output summed
+// over k in ascending order in one float32 register, never TF32: the MARL
+// path runs this product in f32 and must agree with the f32 reference to
+// ~1e-6. What bounds it: at the MARL path's shapes (B = 128 rows, K 10-40,
+// N 3-160, G = 4) one call moves at most ~0.5 MB and does at most ~6.6
+// MFLOP, ~0.15 us of HBM time or ~0.1 us of f32 ALU time, so latency
+// bounds it: the launch, then one round of loads, then K dependent FMAs.
+// The design cuts the rounds: blocks of 32 rows x 32 columns (64 when 32
+// would not fit the card in one wave; the wrapper picks), 256 threads,
+// the whole of K <= 64 fetched in one cp.async stage (larger K through a
+// 2-stage ring of 64-deep k-tiles), 16-byte copies where the widths allow.
+// Ragged B, K and N are masked here, so the caller pads nothing.
 //
 // grouped_bmm_bf16: the LM training path's product (bf16 models' plans
 // carry no compact weights, so every FLGW projection gathers its operands
-// and lands here). bf16 operands on the tensor cores through wmma
-// 16x16x16 with f32 accumulators, the output rounded once to bf16, as
-// the TPU kernel's bf16 x bf16 -> f32 dot. Tiles as fused_bmm's: 64 rows,
-// 128 columns wide when there are more than 64 rows (64 otherwise), 4
-// warps, 32 deep per shared-memory pass, 16-byte loads where the widths
-// are multiples of 8 and the base is 16-byte aligned. At gemma2-2b's
-// training shapes (B = 4096 rows, K x N = 720 x 2880 up/gate, 2880 x 720
-// down, G = 4) one call is ~68 GFLOP against ~134 MB, so the tensor cores'
-// operations bound it; this version neither pipelines its loads nor uses
-// wgmma/TMA. Ragged B, K and N are masked here.
+// and lands here). At gemma2-2b's training shapes (B = 4096 rows, K x N =
+// 720 x 2880 up/gate, 2880 x 720 down, G = 4) one call is ~68 GFLOP
+// against ~134 MB, so the tensor cores' operations bound it. bf16
+// operands, f32 accumulators, the output rounded once to bf16, as the TPU
+// kernel's bf16 x bf16 -> f32 dot. Two routes, which the wrapper chooses
+// by an explicit shape test and passes in (the C entry refuses a route
+// the shapes do not allow):
+//
+//   grouped_bmm_tma_kernel (B > 64, K and N multiples of 8, x, w and y
+//   16-byte aligned: TMA's 16-byte strides). The operands are dense, so
+//   TMA loads them: a producer lane keeps a ring of 4 stages full (x's
+//   128 rows x 64 k, K-major; w's 64 k x 256 columns as four 64-column
+//   boxes, MN-major; both in the 128-byte swizzle wgmma reads), with a
+//   full and an empty mbarrier per stage, and gives its registers to the
+//   two consumer warpgroups (setmaxnreg), each of which owns 64 rows x
+//   256 columns on wgmma m64n256k16 (128 f32 accumulators a thread),
+//   k-tile j's products issued before k-tile j - 1's are waited for. The
+//   tile is 128 x 256, not 256 x 128: with m64n256 each warpgroup reads
+//   a k-tile's w once a k-step (80 KB of shared-memory reads a k-tile for
+//   both, against 96 KB for two m64n128 each), and N = 2880 and 720 waste
+//   as much on the last column tile (6.7 %) as 128-wide tiles would on
+//   720. L2 feeds the operands: 48 KB a k-tile for 4.2 MFLOP on every
+//   SM asks ~7 TB/s of L2 reads at 60 % of the tensor cores' rate, about
+//   what L2 gives, and the first version of this kernel (one CTA a tile)
+//   stalled there on the card. So CTAs pair up in clusters of 2 that take
+//   two row tiles of one column tile, each loading half of w's boxes by
+//   TMA multicast to both (32 KB a k-tile a CTA). Persistent clusters,
+//   one CTA per SM, walk the pairs, so the producer loads the next tile
+//   while the consumers store this one; the consumers store 16-byte words
+//   after a 4 x 4 transpose within each quad of lanes. TMA zero-fills
+//   past each group's rows and columns; the epilogue masks rows past B
+//   and columns past N.
+//
+//   grouped_bmm_bf16_kernel (any other shape: B <= 64, ragged widths,
+//   unaligned views): the first design, kept for those. wmma 16x16x16,
+//   64-row tiles 128 columns wide when there are more than 64 rows (64
+//   otherwise), 4 warps, 32 deep per shared-memory pass, 16-byte loads
+//   where the widths are multiples of 8 and the base is 16-byte aligned.
 //
 // fused_bmm replaces the Pallas TPU kernel _fused_kernel (fused_bmm) of
 // the same file, the serving path's product on compact weights:
@@ -99,6 +125,7 @@
 //   16x16x16, 64-row tiles 128 columns wide when there are more than 64
 //   rows (64 otherwise), 4 warps, 32 deep per shared-memory pass, no
 //   pipelining, split K as the stream kernel.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -108,6 +135,8 @@
 
 namespace {
 
+// fused_bmm_f32_kernel's tiling: 64 x 64 outputs a block, a 4 x 4 patch a
+// thread, x and w staged 16 deep along K.
 constexpr int kBM = 64;   // rows of x per block
 constexpr int kBN = 64;   // columns of w per block
 constexpr int kBK = 16;   // depth staged per shared-memory pass
@@ -115,70 +144,129 @@ constexpr int kTM = 4;    // rows per thread
 constexpr int kTN = 4;    // columns per thread
 constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
 
-__global__ void __launch_bounds__(kThreads)
-grouped_bmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   float* __restrict__ y, int b, int k, int n) {
-  __shared__ float xs[kBK][kBM + 1];  // x tile, stored k-major
-  __shared__ float ws[kBK][kBN];
+// grouped_bmm_f32: a block owns 32 rows x BN (32 or 64) columns of one
+// group; warp w its rows 4 w .. 4 w + 3, lane l its columns l BN/32 ..
+// (l + 1) BN/32 - 1, so a warp's x reads are broadcasts and its w reads
+// consecutive. K comes in 64-deep k-tiles by cp.async, the whole of K in
+// one when K <= 64, else through a ring of 2 (one loading while the other
+// is multiplied); 16-byte copies where the widths are multiples of 4 and
+// the operand 16-byte aligned, 4-byte copies otherwise, zeros past the
+// edges.
+constexpr int kFM = 32;                 // rows per block
+constexpr int kFK = 64;                 // k-rows per k-tile
+constexpr int kFThreads = 256;
+
+template <int BN>
+__global__ void __launch_bounds__(kFThreads)
+grouped_bmm_f32_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w, float* __restrict__ y,
+                       int b, int k, int n) {
+  constexpr int kCN = BN / 32;          // columns a lane owns
+  constexpr int kRM = kFM / (kFThreads / 32);  // rows a warp owns: 4
+  __shared__ __align__(16) float xs[2][kFM * kFK];
+  __shared__ __align__(16) float ws[2][kFK * BN];
 
   const int g = blockIdx.z;
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN;
+  const int row0 = blockIdx.y * kFM;
+  const int col0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN);
-  const int ty = tid / (kBN / kTN);
+  const int r0 = (tid >> 5) * kRM, c0 = (tid & 31) * kCN;
   const float* xg = x + static_cast<size_t>(g) * b * k;
   const float* wg = w + static_cast<size_t>(g) * k * n;
-  float* yg = y + static_cast<size_t>(g) * b * n;
+  const bool vec_x = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_w = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int nk = (k + kFK - 1) / kFK;
 
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    for (int e = tid; e < kBM * kBK; e += kThreads) {
-      const int r = e / kBK, c = e % kBK;
-      const int gr = row0 + r, gc = k0 + c;
-      xs[c][r] = (gr < b && gc < k) ? xg[static_cast<size_t>(gr) * k + gc]
-                                    : 0.0f;
+  // k-tile j's kn valid k-rows into stage st; rows past B and columns
+  // past N as zeros (the compute reads no k past kn)
+  auto load = [&](int j, int st) {
+    const int k0 = j * kFK, kn = min(kFK, k - k0);
+    if (vec_x) {
+      const int kv = (kn + 3) / 4;
+      for (int e = tid; e < kFM * kv; e += kFThreads) {
+        const int r = e / kv, c = e % kv * 4;
+        const bool in = row0 + r < b;
+        cp_async16(&xs[st][r * kFK + c],
+                   in ? xg + static_cast<size_t>(row0 + r) * k + k0 + c : xg,
+                   in);
+      }
+    } else {
+      for (int e = tid; e < kFM * kn; e += kFThreads) {
+        const int r = e / kn, c = e % kn;
+        const bool in = row0 + r < b;
+        cp_async4(&xs[st][r * kFK + c],
+                  in ? xg + static_cast<size_t>(row0 + r) * k + k0 + c : xg,
+                  in);
+      }
     }
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int r = e / kBN, c = e % kBN;
-      const int gr = k0 + r, gc = col0 + c;
-      ws[r][c] = (gr < k && gc < n) ? wg[static_cast<size_t>(gr) * n + gc]
-                                    : 0.0f;
+    if (vec_w) {
+      for (int e = tid; e < kn * (BN / 4); e += kFThreads) {
+        const int r = e / (BN / 4), c = e % (BN / 4) * 4;
+        const bool in = col0 + c < n;
+        cp_async16(&ws[st][r * BN + c],
+                   in ? wg + static_cast<size_t>(k0 + r) * n + col0 + c : wg,
+                   in);
+      }
+    } else {
+      for (int e = tid; e < kn * BN; e += kFThreads) {
+        const int r = e / BN, c = e % BN;
+        const bool in = col0 + c < n;
+        cp_async4(&ws[st][e],
+                  in ? wg + static_cast<size_t>(k0 + r) * n + col0 + c : wg,
+                  in);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[kRM][kCN];
+#pragma unroll
+  for (int i = 0; i < kRM; ++i)
+#pragma unroll
+    for (int j = 0; j < kCN; ++j) acc[i][j] = 0.0f;
+
+  if (nk > 0) load(0, 0);
+  for (int j = 0; j < nk; ++j) {
+    if (j + 1 < nk) {
+      load(j + 1, (j + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* xa = xs[j & 1];
+    const float* wa = ws[j & 1] + c0;
+    const int kn = min(kFK, k - j * kFK);
+    // each output sums over k in ascending order, in one register
+#pragma unroll 4
+    for (int kk = 0; kk < kn; ++kk) {
+      float a[kRM], bv[kCN];
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kTM], bv[kTN];
+      for (int i = 0; i < kRM; ++i) a[i] = xa[(r0 + i) * kFK + kk];
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = xs[kk][ty * kTM + i];
+      for (int c = 0; c < kCN; ++c) bv[c] = wa[kk * BN + c];
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = ws[kk][tx * kTN + j];
+      for (int i = 0; i < kRM; ++i)
 #pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+        for (int c = 0; c < kCN; ++c) acc[i][c] = fmaf(a[i], bv[c], acc[i][c]);
     }
-    __syncthreads();
+    __syncthreads();         // the stage is free for k-tile j + 2
   }
 
+  float* yg = y + static_cast<size_t>(g) * b * n;
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int gr = row0 + ty * kTM + i;
+  for (int i = 0; i < kRM; ++i) {
+    const int gr = row0 + r0 + i;
     if (gr >= b) continue;
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int gc = col0 + tx * kTN + j;
-      if (gc < n) yg[static_cast<size_t>(gr) * n + gc] = acc[i][j];
+    for (int c = 0; c < kCN; ++c) {
+      const int gc = col0 + c0 + c;
+      if (gc < n) yg[static_cast<size_t>(gr) * n + gc] = acc[i][c];
     }
   }
 }
 
-// xt (M+1, B) gathered by ids, f32 FMA; same tiling as grouped_bmm_kernel.
+// xt (M+1, B) gathered by ids, f32 FMA.
 __global__ void __launch_bounds__(kThreads)
 fused_bmm_f32_kernel(const float* __restrict__ xt, const float* __restrict__ w,
                      const int* __restrict__ ids, float* __restrict__ y,
@@ -708,6 +796,226 @@ fused_bmm_wgmma_kernel(const bf16* __restrict__ xt,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 grouped product on TMA + wgmma (grouped_bmm_tma_kernel)
+// ---------------------------------------------------------------------------
+
+constexpr int kAM = 128;                // rows of x per output tile
+constexpr int kAN = 256;                // columns of w per output tile
+constexpr int kAK = 64;                 // k-rows per stage (128 bytes of x)
+constexpr int kAStages = 4;
+constexpr int kAThreads = 384;          // 2 consumer warpgroups + producer
+constexpr int kAXTile = kAM * kAK * 2;  // bytes of a stage's x tile: 16 KB
+constexpr int kAWBox = kAK * 64 * 2;    // bytes of one 64-column w box: 8 KB
+constexpr int kAStage = kAXTile + (kAN / 64) * kAWBox;   // 48 KB
+constexpr int kASmem = kAStages * kAStage + 2 * kAStages * 8 + 1024;
+
+// The wgmma descriptor of a K-major operand at p in the 128-byte swizzle
+// (TMA's SWIZZLE_128B with a 64-element inner box): 1,024 bytes from one
+// 8-row group to the next; the leading offset is not used when a 16-deep
+// step stays inside one 128-byte line.
+__device__ __forceinline__ uint64_t gmma_desc_k(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(1) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1)
+                                                      << 62;
+}
+
+// d (64 x 256 over the warpgroup; a warp's 16 rows as 32 n8 C fragments,
+// the mma.sync layout) += A . B, A K-major and B MN-major (wgmma's
+// transpose bit set for B only), both from shared memory.
+__device__ __forceinline__ void wgmma_256_nt(float (&d)[32][4], uint64_t da,
+                                             uint64_t db) {
+#define REPRO_D4(i) \
+  "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : REPRO_D4(0), REPRO_D4(1), REPRO_D4(2), REPRO_D4(3), REPRO_D4(4), REPRO_D4(5),
+        REPRO_D4(6), REPRO_D4(7), REPRO_D4(8), REPRO_D4(9), REPRO_D4(10), REPRO_D4(11),
+        REPRO_D4(12), REPRO_D4(13), REPRO_D4(14), REPRO_D4(15), REPRO_D4(16), REPRO_D4(17),
+        REPRO_D4(18), REPRO_D4(19), REPRO_D4(20), REPRO_D4(21), REPRO_D4(22), REPRO_D4(23),
+        REPRO_D4(24), REPRO_D4(25), REPRO_D4(26), REPRO_D4(27), REPRO_D4(28), REPRO_D4(29),
+        REPRO_D4(30), REPRO_D4(31)
+      : "l"(da), "l"(db), "r"(1));
+#undef REPRO_D4
+}
+
+// y[g] (B, N) = x[g] (B, K) . w[g] (K, N), bf16 out, f32 sums. Clusters
+// of 2 CTAs on neighbouring SMs take the two row tiles 2 p and 2 p + 1 of
+// one pair p (in (g, row pair, column tile) order, so the pairs in flight
+// share x's rows and w[g] in L2), persistently: cluster i takes pairs i,
+// i + clusters, ... Each CTA loads its own x tile and half of w's boxes,
+// multicast to both, so a k-tile moves 32 KB out of L2 a CTA, not 48.
+// Warps 0-7 are two consumer warpgroups, each owning 64 of the tile's 128
+// rows with 128 f32 accumulators a thread; warp 8's first lane is the
+// producer, which keeps the ring of kAStages stages full while the
+// consumers multiply, and runs ahead into the next pair while they store
+// this one. A stage is refilled once the consumers of both CTAs have
+// released it: each consumer warp arrives on its own CTA's empty barrier
+// and on the other's.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kAThreads, 1)
+grouped_bmm_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       bf16* __restrict__ y, int ng, int b, int k, int n) {
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  base += (1024 - (smem_addr(base) & 1023)) & 1023;  // swizzle atoms aligned
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kAStages * kAStage);
+  uint64_t* empty = full + kAStages;
+
+  const uint32_t rank = cluster_ctarank();      // the pair's row tile
+  const int ct = (n + kAN - 1) / kAN;
+  const int per_g = (b + 2 * kAM - 1) / (2 * kAM) * ct;
+  const int pairs = per_g * ng;
+  const int cluster = blockIdx.x >> 1, clusters = gridDim.x >> 1;
+  const int nk = (k + kAK - 1) / kAK;
+  // this cluster's k-tile loads; the last kAStages are never followed by
+  // a refill of their stage, so they are not released (no arrive can then
+  // reach the other CTA after it has finished)
+  const int loads =
+      (pairs > cluster ? (pairs - cluster + clusters - 1) / clusters : 0) *
+      nk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kAStages; ++s) {
+      mbar_init(&full[s], 1);                   // the producer's expect_tx
+      mbar_init(&empty[s], 16);                 // both CTAs' consumer warps
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();              // both CTAs' barriers exist before any use
+
+  if (warp >= 8) {
+    setmaxnreg_dec<40>();
+    if (warp != 8 || lane != 0) return;
+    int st = 0;
+    uint32_t ph = 0;
+    for (int p = cluster; p < pairs; p += clusters) {
+      const int g = p / per_g, rem = p % per_g;
+      const int row0 = (rem / ct * 2 + static_cast<int>(rank)) * kAM;
+      const int col0 = rem % ct * kAN;
+      // w's 64-column boxes wholly past N are not loaded: their columns
+      // only reach outputs the epilogue masks
+      const int boxes = min(kAN / 64, (n - col0 + 63) / 64);
+      const uint32_t bytes = kAXTile + boxes * kAWBox;
+      for (int j = 0; j < nk; ++j) {
+        mbar_wait(&empty[st], ph ^ 1);          // a fresh ring passes
+        mbar_expect_tx(&full[st], bytes);
+        char* xs = base + st * kAStage;
+        // x's rows past B (all of them in a pair's second tile when the
+        // row tiles are odd) arrive as zeros
+        tma_load_3d(xs, &xmap, &full[st], j * kAK, row0, g);
+        for (int c = static_cast<int>(rank); c < boxes; c += 2)
+          tma_load_3d_multicast(xs + kAXTile + c * kAWBox, &wmap, &full[st],
+                                col0 + c * 64, j * kAK, g, 0x3);
+        if (++st == kAStages) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int wg = warp >> 2;                     // the warpgroup's 64 rows
+  const int gq = lane >> 2, tq = lane & 3;
+  int st = 0, q = 0;                            // q: this k-tile's load
+  uint32_t ph = 0;
+  // k-tile q's stage goes back to both producers once its products are
+  // done in this warp
+  auto release = [&](int stage, int load) {
+    if (lane == 0 && load + kAStages < loads) {
+      mbar_arrive(&empty[stage]);
+      mbar_arrive_cluster(&empty[stage], rank ^ 1);
+    }
+  };
+  for (int p = cluster; p < pairs; p += clusters) {
+    const int g = p / per_g, rem = p % per_g;
+    const int row0 = (rem / ct * 2 + static_cast<int>(rank)) * kAM;
+    const int col0 = rem % ct * kAN;
+    float acc[32][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+    int prev = 0;
+    // k-tile j's products run while k-tile j - 1's finish
+    for (int j = 0; j < nk; ++j, ++q) {
+      mbar_wait(&full[st], ph);
+      const char* xs = base + st * kAStage;
+      const char* ws = xs + kAXTile;
+      fence_regs(acc);
+      wgmma_fence();
+      // step kk: k-rows 16 kk .. + 15, 32 bytes along x's 128-byte rows
+      // and two 8-row k-groups (2 KB) down w's boxes
+#pragma unroll
+      for (int kk = 0; kk < kAK / 16; ++kk)
+        wgmma_256_nt(acc, gmma_desc_k(xs + wg * 8192 + kk * 32),
+                     gmma_desc_mn(ws + kk * 2048));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (j > 0) release(prev, q - 1);
+      prev = st;
+      if (++st == kAStages) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (nk > 0) release(prev, q - 1);
+
+    // A quad's 4 threads hold columns 2 tq, 2 tq + 1 of each n8 block; a
+    // 4 x 4 transpose in the quad gives thread tq the 8 columns of block
+    // 4 m + tq, stored as one 16-byte word (a quarter of the stores of
+    // 4-byte pairs). Every lane shuffles; the stores are masked.
+    bf16* yg = y + static_cast<size_t>(g) * b * n;
+    const unsigned quad = lane & ~3u;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = row0 + wg * 64 + (warp & 3) * 16 + gq + rr * 8;
+      bf16* yr = yg + static_cast<size_t>(row) * n;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        uint32_t v[4], u[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const __nv_bfloat162 h = __floats2bfloat162_rn(
+              acc[4 * m + i][2 * rr], acc[4 * m + i][2 * rr + 1]);
+          v[i] = *reinterpret_cast<const uint32_t*>(&h);
+        }
+        // round r: thread s sends its pair of block (s - r) & 3, thread t
+        // receives thread (t + r) & 3's pair of block t
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int si = (tq - r) & 3, di = (tq + r) & 3;
+          const uint32_t send = si == 0 ? v[0] : si == 1 ? v[1]
+                                : si == 2 ? v[2] : v[3];
+          const uint32_t got = __shfl_sync(0xffffffffu, send, quad | di);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) u[i] = di == i ? got : u[i];
+        }
+        const int c = col0 + (4 * m + tq) * 8;
+        if (row < b && c < n)
+          *reinterpret_cast<uint4*>(yr + c) = make_uint4(u[0], u[1], u[2],
+                                                         u[3]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16 decode on FP32 FMA (fused_bmm_stream_kernel)
 // ---------------------------------------------------------------------------
 
@@ -882,25 +1190,126 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point so that the library needs no -lcuda; null if the driver lacks it.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a contiguous bf16 (G, rows, cols) tensor in boxes of
+// box_rows x 64 columns (128 bytes) with the 128-byte swizzle; the group
+// is the outer dimension, so a box past a group's last row or column
+// reads zeros, never the next group. Needs cols % 8 == 0 (16-byte row
+// strides) and a 16-byte aligned base.
+cudaError_t encode_bf16_map(CUtensorMap* map, const void* p, int g,
+                            int rows, int cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(g)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(rows) * cols * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int launch_tma(const void* x, const void* w, void* y, int g, int b, int k,
+               int n, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  cudaError_t err = encode_bf16_map(&xmap, x, g, b, k, kAM);
+  if (err == cudaSuccess) err = encode_bf16_map(&wmap, w, g, k, n, kAK);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(grouped_bmm_tma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kASmem);
+  // as many clusters as the card holds at once (one CTA an SM)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2, 1, 1);
+  cfg.blockDim = dim3(kAThreads, 1, 1);
+  cfg.dynamicSmemBytes = kASmem;
+  cfg.stream = stream;
+  int resident = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&resident, grouped_bmm_tma_kernel,
+                                         &cfg);
+  if (err == cudaSuccess && resident < 1) err = cudaErrorInvalidConfiguration;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int pairs = g * ((b + 2 * kAM - 1) / (2 * kAM)) * ((n + kAN - 1) / kAN);
+  const int clusters = pairs < resident ? pairs : resident;
+  grouped_bmm_tma_kernel<<<2 * clusters, kAThreads, kASmem, stream>>>(
+      xmap, wmap, static_cast<bf16*>(y), g, b, k, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN>
+void launch_f32(const void* x, const void* w, void* y, int g, int b, int k,
+                int n, cudaStream_t stream) {
+  const dim3 grid((n + BN - 1) / BN, (b + kFM - 1) / kFM, g);
+  grouped_bmm_f32_kernel<BN><<<grid, kFThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(y), b, k, n);
+}
+
 }  // namespace
 
 extern "C" {
 
-// x: (G, B, K), w: (G, K, N), y: (G, B, N); contiguous float32.
+// x: (G, B, K), w: (G, K, N), y: (G, B, N); contiguous float32. cols,
+// the output tile's columns, is 32 or 64 (ops.bmm_f32_cols); anything
+// else is refused.
 int grouped_bmm_f32(const void* x, const void* w, void* y, int g, int b,
-                    int k, int n, void* stream) {
-  const dim3 grid((n + kBN - 1) / kBN, (b + kBM - 1) / kBM, g);
-  grouped_bmm_kernel<<<grid, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(y), b, k, n);
+                    int k, int n, int cols, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cols == 32)
+    launch_f32<32>(x, w, y, g, b, k, n, st);
+  else if (cols == 64)
+    launch_f32<64>(x, w, y, g, b, k, n, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (G, B, K), w: (G, K, N), y: (G, B, N); contiguous bf16.
+// x: (G, B, K), w: (G, K, N), y: (G, B, N); contiguous bf16. route
+// (ops.bmm_bf16_route): 1, TMA + wgmma, only for B > 64, K > 0, K and N
+// multiples of 8 and 16-byte aligned x, w and y, else refused; 0, wmma,
+// for any shape.
 int grouped_bmm_bf16(const void* x, const void* w, void* y, int g, int b,
-                     int k, int n, void* stream) {
+                     int k, int n, int route, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (b <= kWM || k <= 0 || k % 8 || n % 8 || !aligned16(x) ||
+        !aligned16(w) || !aligned16(y))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tma(x, w, y, g, b, k, n, st);
+  }
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
   const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(w);
   __nv_bfloat16* yp = static_cast<__nv_bfloat16*>(y);

@@ -37,6 +37,96 @@ __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// mbarriers in shared memory: init (one thread, then a barrier),
+// arrive, arrive with the bytes a TMA copy will deliver, and wait for
+// the phase of the given parity to complete.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// TMA: one box of a 3-d tensor map (a __grid_constant__ CUtensorMap) at
+// coordinates (c0 innermost, c1, c2) into shared memory; the bytes are
+// reported to bar. Elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The same, written to the same offset of dst and reported to the same
+// offset of bar in every CTA of the cluster that mask names.
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst,
+                                                      const void* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "h"(mask)
+      : "memory");
+}
+
+// Thread block clusters: this CTA's rank, a barrier over every thread of
+// the cluster, and an arrive on the mbarrier at bar's offset in CTA cta
+// (CTA-scope release, as CUTLASS's ClusterBarrier::arrive: a consumer
+// arrives once wgmma.wait_group has retired its reads of the stage; a
+// cluster-scope release would also wait for its earlier global stores,
+// which on the card made the multicast product slower than none).
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      ::"r"(smem_addr(bar)), "r"(cta) : "memory");
+}
+
+// Move this warpgroup's registers to (inc) or from (dec) the others.
+template <int n>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(n));
+}
+template <int n>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(n));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }

@@ -33,15 +33,25 @@ class KernelEntry:
         self._fn = None
 
     def __call__(self, device: torch.device, *args) -> None:
-        """Launch on ``device``'s current stream."""
+        """Launch on ``device``'s current stream. The device is made
+        current only when it is not already, and the stream is read as
+        its raw handle: both without building Python objects, since the
+        MARL path's launches are a few microseconds of device time
+        each."""
         if self._fn is None:
             lib = _build.load(self.library)
             fn = getattr(lib, self.symbol)
             fn.argtypes = [*self.argtypes, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._fn = fn
-        with torch.cuda.device(device):
-            err = self._fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if index == current:
+            err = self._fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                err = self._fn(*args,
+                               torch._C._cuda_getCurrentRawStream(index))
         if err != 0:
             describe = _build.load(self.library).repro_cuda_error_string
             describe.argtypes = [ctypes.c_int]

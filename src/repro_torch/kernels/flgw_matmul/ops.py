@@ -24,15 +24,20 @@ from repro_torch.kernels import KernelEntry, check_operand, on_cpu
 from repro_torch.kernels.flgw_matmul import ref as _ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-BMM = KernelEntry("flgw_matmul", "grouped_bmm_f32", [_P, _P, _P, _I, _I, _I, _I])
+BMM = KernelEntry("flgw_matmul", "grouped_bmm_f32",
+                  [_P, _P, _P, _I, _I, _I, _I, _I])
 BMM16 = KernelEntry("flgw_matmul", "grouped_bmm_bf16",
-                    [_P, _P, _P, _I, _I, _I, _I])
+                    [_P, _P, _P, _I, _I, _I, _I, _I])
 FUSED = KernelEntry("flgw_matmul", "fused_bmm",
                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I])
 # fused_bmm's bf16 decode route: calls of at most _ROWS rows stream wc in
 # blocks of _COLS columns and up to 8 rows; K splits in multiples of the
 # _DEPTH-deep k-step, at most _MAX_SPLIT k-rows (what a block stages)
 _ROWS, _COLS, _DEPTH, _MAX_SPLIT = 64, 64, 32, 512
+# grouped_bmm_bf16's routes, the C entry's route argument
+WMMA, TMA = 0, 1
+# grouped_bmm_f32's blocks: _F32_ROWS rows x 32 or 64 columns
+_F32_ROWS = 32
 # Columns of y past n: n is the sink the padding slots write to, sliced
 # off; 8 of them keep y's rows 16-byte aligned (for n a multiple of 8),
 # which the flash kernels' tensor-core route needs of the v it is handed.
@@ -41,8 +46,10 @@ SINK_COLS = 8
 
 def grouped_bmm(xg: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
     """(G, B, capM) @ (G, capM, capN) -> (G, B, capN) in xg's dtype, f32
-    accumulation; bf16 (``grouped_bmm_bf16``) or float32
-    (``grouped_bmm_f32``) on the card. See :func:`ref.ref_grouped_bmm`."""
+    accumulation; bf16 (``grouped_bmm_bf16``, on the route
+    :func:`bmm_bf16_route` picks) or float32 (``grouped_bmm_f32``, in
+    tiles :func:`bmm_f32_cols` sizes) on the card. See
+    :func:`ref.ref_grouped_bmm`."""
     if on_cpu(xg, wc):
         return _ref.ref_grouped_bmm(xg, wc)
     if xg.dtype not in (torch.bfloat16, torch.float32):
@@ -57,10 +64,34 @@ def grouped_bmm(xg: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
     n = wc.shape[2]
     y = torch.empty((g, b, n), dtype=xg.dtype, device=xg.device)
     if y.numel():
-        entry = BMM16 if xg.dtype == torch.bfloat16 else BMM
-        entry(xg.device, xg.data_ptr(), wc.data_ptr(), y.data_ptr(), g, b, k,
-              n)
+        xp, wp = xg.data_ptr(), wc.data_ptr()
+        if xg.dtype == torch.bfloat16:
+            route = bmm_bf16_route(b, k, n, xp % 16 == 0 and wp % 16 == 0)
+            BMM16(xg.device, xp, wp, y.data_ptr(), g, b, k, n, route)
+        else:
+            cols = bmm_f32_cols(g, b, n, _sm_count(xg.device.index))
+            BMM(xg.device, xp, wp, y.data_ptr(), g, b, k, n, cols)
     return y
+
+
+def bmm_bf16_route(b: int, k: int, n: int, aligned: bool) -> int:
+    """The route of a bf16 ``grouped_bmm`` call with B rows, K x N
+    weights and operands 16-byte aligned or not: :data:`TMA` (TMA +
+    wgmma) for more than ``_ROWS`` rows, K > 0 and K, N multiples of 8
+    (TMA's 16-byte row strides) on aligned operands; :data:`WMMA` (the
+    first design) for every other call."""
+    tma = b > _ROWS and k > 0 and k % 8 == 0 and n % 8 == 0 and aligned
+    return TMA if tma else WMMA
+
+
+def bmm_f32_cols(g: int, b: int, n: int, sms: int) -> int:
+    """The columns of a float32 ``grouped_bmm`` block (``_F32_ROWS``
+    rows) on a card with ``sms`` SMs: 32 while the call's 32-column
+    blocks fit the card in one wave (the MARL path's calls: latency
+    bound, so more, smaller blocks finish sooner), 64 when they would
+    not (fewer blocks, each reusing its x tile over more columns)."""
+    blocks = g * -(-b // _F32_ROWS) * -(-n // 32)
+    return 32 if blocks <= sms else 64
 
 
 def gather_x(x: torch.Tensor, row_ids: torch.Tensor,

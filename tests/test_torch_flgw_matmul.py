@@ -9,8 +9,10 @@ jnp = pytest.importorskip("jax.numpy")
 
 from repro.core import flgw as jflgw  # noqa: E402
 from repro.core import grouped as jgrouped  # noqa: E402
+from repro.kernels import use_reference_impl  # noqa: E402
 from repro.kernels.flgw_matmul import flgw_matmul as jkernel  # noqa: E402
 from repro.kernels.flgw_matmul import ops as jkops  # noqa: E402
+from repro.kernels.flgw_matmul import ref as jref  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import flgw, grouped  # noqa: E402
@@ -35,14 +37,80 @@ def _j(p):
     return {k: jnp.asarray(v) for k, v in p.items()}
 
 
-def test_grouped_bmm_plain_version_matches_jax_kernel():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_bmm_plain_version_matches_jax_kernel(dtype):
+    """At a ragged K (36: not a multiple of 8, so no TMA tile divides it):
+    f32 against the Pallas kernel in interpret mode; bf16 against the JAX
+    reference under ``use_reference_impl()``, as the other bf16 parity
+    tests run it, within one bf16 rounding (f32 sums in another order)."""
     rng = np.random.default_rng(0)
-    xg = rng.standard_normal((4, 8, 40)).astype(np.float32)
-    wc = rng.standard_normal((4, 40, 16)).astype(np.float32)
-    want = jkernel.grouped_bmm(jnp.asarray(xg), jnp.asarray(wc), bb=8, bn=16,
-                               bk=40, interpret=True)
-    got = kops.grouped_bmm(torch.from_numpy(xg), torch.from_numpy(wc))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    xg = rng.standard_normal((4, 8, 36)).astype(np.float32)
+    wc = rng.standard_normal((4, 36, 16)).astype(np.float32)
+    if dtype == "float32":
+        want = jkernel.grouped_bmm(jnp.asarray(xg), jnp.asarray(wc), bb=8,
+                                   bn=16, bk=36, interpret=True)
+        got = kops.grouped_bmm(torch.from_numpy(xg), torch.from_numpy(wc))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        return
+    with use_reference_impl():
+        want = jref.ref_grouped_bmm(jnp.asarray(xg, jnp.bfloat16),
+                                    jnp.asarray(wc, jnp.bfloat16))
+    got = kops.grouped_bmm(torch.from_numpy(xg).bfloat16(),
+                           torch.from_numpy(wc).bfloat16())
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("b,k,n,aligned,route", [
+    (64, 720, 640, True, kops.WMMA),      # rows: wmma up to 64 ...
+    (65, 720, 640, True, kops.TMA),       # ... TMA past it, any row count
+    (72, 720, 640, True, kops.TMA),
+    (4096, 720, 2880, True, kops.TMA),    # the train MLP's up and gate
+    (4096, 2880, 720, True, kops.TMA),    # and down
+    (300, 8, 136, True, kops.TMA),        # K = 8, N = 136
+    (300, 720, 45, True, kops.WMMA),      # N not a multiple of 8
+    (300, 37, 720, True, kops.WMMA),      # K not a multiple of 8
+    (300, 0, 136, True, kops.WMMA),       # K = 0: no TMA map
+    (4096, 720, 2880, False, kops.WMMA),  # an unaligned view
+    (4, 720, 2880, True, kops.WMMA)])
+def test_bf16_bmm_route_is_a_shape_test(b, k, n, aligned, route):
+    assert kops.bmm_bf16_route(b, k, n, aligned) == route
+
+
+@pytest.mark.parametrize("g,b,n,cols", [
+    (4, 128, 3, 32), (4, 128, 40, 32), (4, 128, 160, 32),  # the actor's
+    (4, 64, 160, 32), (4, 65, 160, 32), (4, 72, 160, 32),
+    (1, 128, 160, 32), (4, 128, 720, 64), (1, 256, 720, 64),
+    (4, 128, 2880, 64), (4, 4096, 2880, 64)])
+def test_f32_bmm_tile_width_fills_one_wave(g, b, n, cols):
+    """32-column blocks while they fit a 132-SM card in one wave, 64
+    past it."""
+    assert kops.bmm_f32_cols(g, b, n, 132) == cols
+
+
+def test_tma_route_rounding_fits_the_card_tolerance():
+    """The TMA kernel's sums as the card takes them: a 128 x 256 tile's
+    f32 accumulators over 16-deep steps of zero-filled 64-deep k-tiles
+    (K = 200: the last k-tile ragged), rounded once to bf16, against the
+    plain version within the card tests' rtol = atol = 1e-2."""
+    rng = np.random.default_rng(7)
+    g, b, k, n = 2, 130, 200, 264
+    xg = torch.from_numpy(rng.standard_normal((g, b, k)).astype(
+        np.float32)).bfloat16()
+    wc = torch.from_numpy(rng.standard_normal((g, k, n)).astype(
+        np.float32)).bfloat16()
+    kp = -(-k // 64) * 64
+    x = torch.zeros((g, b, kp))
+    w = torch.zeros((g, kp, n))
+    x[:, :, :k], w[:, :k] = xg.float(), wc.float()
+    acc = torch.zeros((g, b, n))
+    for s in range(0, kp, 16):
+        acc += x[:, :, s:s + 16] @ w[:, s:s + 16]
+    torch.testing.assert_close(acc.bfloat16().float(),
+                               kops.grouped_bmm(xg, wc).float(),
+                               rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.parametrize("m,n,g", [(32, 128, 4), (30, 5, 2)])

@@ -57,11 +57,26 @@ def test_plan_encode_kernels_are_bitwise_their_plain_versions(
 
 @pytest.mark.parametrize("g,b,k,n", [(4, 128, 10, 40), (4, 128, 40, 160),
                                      (4, 128, 40, 3), (1, 7, 17, 65),
-                                     (3, 130, 1, 64), (2, 64, 64, 64)])
+                                     (3, 130, 1, 64), (2, 64, 64, 64),
+                                     # 32-row blocks' edges, 32 columns
+                                     (4, 64, 40, 160), (4, 65, 40, 160),
+                                     (4, 72, 40, 160), (1, 128, 40, 160),
+                                     # K = 8; 720 and 2880 through the
+                                     # 2-stage ring; N = 45 (4-byte
+                                     # copies), 136, 720 and 2880 (64
+                                     # columns past one wave)
+                                     (2, 128, 8, 40), (4, 128, 720, 160),
+                                     (1, 256, 2880, 720), (2, 128, 40, 45),
+                                     (2, 100, 40, 136), (4, 128, 40, 720),
+                                     (1, 64, 64, 2880)])
 def test_grouped_bmm_matches_its_plain_version(cuda, g, b, k, n):
     gen = torch.Generator(device=cuda).manual_seed(b + k + n)
     xg = torch.randn((g, b, k), generator=gen, device=cuda)
     wc = torch.randn((g, k, n), generator=gen, device=cuda)
+    if k > 64:
+        # weights at the model's init scale, so that sums of K terms stay
+        # O(1) against the fixed tolerance of f32 sums in another order
+        wc *= k ** -0.5
     before = fm_ops.BMM.launches
     y = fm_ops.grouped_bmm(xg, wc)
     torch.cuda.synchronize()
@@ -73,7 +88,17 @@ def test_grouped_bmm_matches_its_plain_version(cuda, g, b, k, n):
 @pytest.mark.parametrize("g,b,k,n", [(4, 4096, 720, 2880),
                                      (4, 4096, 2880, 720),
                                      (4, 4, 720, 2880), (3, 70, 37, 45),
-                                     (2, 130, 48, 136), (1, 7, 17, 65)])
+                                     (2, 130, 48, 136), (1, 7, 17, 65),
+                                     # the routes' boundary: wmma at 64
+                                     # rows, TMA at 65 and 72
+                                     (4, 64, 720, 640), (4, 65, 720, 640),
+                                     (4, 72, 720, 640),
+                                     # K = 8; N = 45 (wmma); G = 1 with K
+                                     # and N ragged against the 64-deep
+                                     # k-tile and the 256-wide column tile
+                                     (2, 200, 8, 136), (2, 300, 720, 45),
+                                     (1, 300, 200, 328),
+                                     (1, 1000, 2880, 2880)])
 def test_grouped_bmm_bf16_matches_its_plain_version(cuda, g, b, k, n):
     gen = torch.Generator(device=cuda).manual_seed(b + k + n)
     xg = torch.randn((g, b, k), generator=gen, device=cuda).bfloat16()
@@ -85,6 +110,57 @@ def test_grouped_bmm_bf16_matches_its_plain_version(cuda, g, b, k, n):
                                                            before[1])
     assert y.dtype == torch.bfloat16 and y.shape == (g, b, n)
     # f32 sums in another order, then one bf16 rounding each (2**-8)
+    torch.testing.assert_close(y.float(), fm_ref.ref_grouped_bmm(xg, wc)
+                               .float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grouped_bmm_on_unaligned_views_matches_its_plain_version(cuda,
+                                                                  dtype):
+    """Operands that are contiguous views one element into their storage:
+    bf16 then takes the wmma route, f32 the 4-byte copies."""
+    g, b, k, n = 2, 300, 720, 720
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    xg = torch.randn((g * b * k + 1,), generator=gen, device=cuda).to(
+        dtype)[1:].view(g, b, k)
+    wc = (torch.randn((g * k * n + 1,), generator=gen, device=cuda)
+          * k ** -0.5).to(dtype)[1:].view(g, k, n)
+    assert xg.data_ptr() % 16 and wc.data_ptr() % 16
+    assert fm_ops.bmm_bf16_route(b, k, n, False) == fm_ops.WMMA
+    y = fm_ops.grouped_bmm(xg, wc)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(y.float(), fm_ref.ref_grouped_bmm(xg, wc)
+                               .float(), rtol=tol, atol=tol)
+
+
+def test_grouped_bmm_entries_refuse_what_the_shapes_do_not_allow(cuda):
+    """The C entries never pick another route: the TMA route at 64 rows,
+    at a K or N not a multiple of 8 or on an unaligned operand, an unknown
+    route, and an f32 tile width other than 32 or 64 raise; the wmma route
+    takes any shape, the train MLP's up included."""
+    def call(entry, xg, wc, b, k, n, route):
+        y = torch.empty((xg.shape[0], b, n), dtype=xg.dtype, device=cuda)
+        entry(cuda, xg.data_ptr(), wc.data_ptr(), y.data_ptr(), xg.shape[0],
+              b, k, n, route)
+        return y
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for b, k, n, off in ((64, 720, 640, 0), (200, 36, 640, 0),
+                         (200, 720, 45, 0), (200, 720, 640, 1)):
+        xg = torch.randn((b * k + off,), generator=gen, device=cuda)
+        xg = xg.bfloat16()[off:].view(1, b, k)
+        wc = torch.randn((1, k, n), generator=gen, device=cuda).bfloat16()
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            call(fm_ops.BMM16, xg, wc, b, k, n, fm_ops.TMA)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        call(fm_ops.BMM16, xg, wc, 200, 720, 640, 2)
+    x32 = torch.randn((1, 128, 40), generator=gen, device=cuda)
+    w32 = torch.randn((1, 40, 160), generator=gen, device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        call(fm_ops.BMM, x32, w32, 128, 40, 160, 48)
+    xg = torch.randn((4, 4096, 720), generator=gen, device=cuda).bfloat16()
+    wc = torch.randn((4, 720, 2880), generator=gen, device=cuda).bfloat16()
+    y = call(fm_ops.BMM16, xg, wc, 4096, 720, 2880, fm_ops.WMMA)
     torch.testing.assert_close(y.float(), fm_ref.ref_grouped_bmm(xg, wc)
                                .float(), rtol=1e-2, atol=1e-2)
 
