@@ -32,7 +32,12 @@ The script
      rtol = atol = 1e-5) and times kernel, plain version and, where one
      PyTorch call computes the same function, that call (grouped_bmm_f32
      and torch.bmm also by the profiler's device us a call and by the
-     host us a call takes to return);
+     host us a call takes to return): ``plan_assign`` at every IC3Net
+     side, with its bound by bytes and ``torch.sort`` of the same number
+     of keys as a yardstick for its sort step; ``plan_rank`` and
+     ``plan_place`` at a side past the sort route's limit, where they
+     run; and one whole encode's wall ms and device kernels at the
+     IC3Net and gemma2-2b training widths;
   3. encodes the plans on the card and compares them bitwise with a CPU
      encode, then, with every launch count at 0, drives encode + one
      B=16 rollout and checks that each kernel was launched; replays the
@@ -41,7 +46,9 @@ The script
      gate_logp within 1e-4); times rollouts (env-steps/s); and profiles
      one encode + rollout (device busy share, kernel device times);
   4. holds ``fused_bmm`` against its plain version at each FLGW projection
-     shape of gemma2-2b for 4 and 4096 rows (bf16; one f32 case) and
+     shape of gemma2-2b for 4 and 4096 rows (bf16; one f32 case),
+     ``plan_assign`` at every FLGW side of the served model (13 stacked
+     layers a slot) and at the MLP's sides with 26 layers in a launch, and
      ``flash_fwd`` at the prefill's shapes, timing each against its plain
      version and a PyTorch call (with their TFLOP/s, share of the bound
      and route: wgmma or mma.sync on the tensor cores, or FP32 FMA; the
@@ -94,6 +101,7 @@ result line. Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -127,6 +135,7 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serving import (Engine, Request, ServeSession,  # noqa: E402
                                  max_seq_for, plan_cache, synthetic_requests)
 from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
+from repro_torch.launch import time_encode  # noqa: E402
 from repro_torch.launch.train import train_lm  # noqa: E402
 from repro_torch.optim.optimizers import global_norm, rmsprop_init  # noqa
 from repro_torch.train import state as state_lib  # noqa: E402
@@ -202,14 +211,18 @@ def bound_ms(nbytes: float, ops: float,
 
 
 def _kernel_name(mangled: str) -> str:
-    """A kernel's name from its mangled symbol, with its template argument:
-    ``flash_fwd_wgmma_kernel<256>``, ``flash_fwd_kernel<bf16>``."""
+    """A kernel's name from its mangled symbol, with its template
+    arguments: ``flash_fwd_wgmma_kernel<256>``, ``flash_fwd_kernel<bf16>``,
+    ``plan_assign_kernel<128, 4>``."""
     i, name = (3 if mangled.startswith("_ZN") else 2), mangled
     while i < len(mangled) and mangled[i].isdigit():
         j = i
         while mangled[j].isdigit():
             j += 1
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    ints = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+    if ints:
+        return f"{name}<{', '.join(re.findall(r'Li(\d+)E', ints[1]))}>"
     arg = re.match(r"I(.+?)E", mangled[i:])
     if arg is None:
         return name
@@ -220,9 +233,9 @@ def _kernel_name(mangled: str) -> str:
 
 
 def ptxas_usage(log: str) -> dict:
-    """``{kernel: {registers, spill_stores, spill_loads}}`` from the
-    ``nvcc -Xptxas -v`` report of one library (kernels named by
-    :func:`_kernel_name`)."""
+    """``{kernel: {registers, static_smem_bytes, spill_stores,
+    spill_loads}}`` from the ``nvcc -Xptxas -v`` report of one library
+    (kernels named by :func:`_kernel_name`)."""
     usage, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -234,6 +247,8 @@ def ptxas_usage(log: str) -> dict:
         elif name and "Used" in line:
             usage[name]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[name]["static_smem_bytes"] = int(smem[1]) if smem else 0
     return usage
 
 
@@ -245,51 +260,146 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check_encode_kernels(model, slack: float) -> list[dict]:
-    """rank and place against their plain versions at every FLGW layer
-    side of the path; the whole assignment against the sort oracle."""
-    rows = []
-    for path, p in grouped.iter_flgw_layers(model.params):
-        for side, scores, axis in (("ig", p["ig"], 1), ("og", p["og"], 0)):
-            scores = scores.detach()
-            pref, strength, bi = pe_ops.preferences(scores, axis)
-            m, g = scores.shape if axis else scores.shape[::-1]
-            cap = compute_cap(m, g, slack)
-            rk, hist = pe_ops.rank(pref, strength, g, bi)
-            rk_ref, hist_ref = pe_ref.ref_rank(pref, strength, g, bi)
-            check(torch.equal(rk, rk_ref) and torch.equal(hist, hist_ref),
-                  f"plan_rank == plain at {path} {side}")
-            slot = pe_ops.place(pref, rk, hist, g, cap)
-            slot_ref = pe_ref.ref_place(pref, rk_ref, hist_ref, g, cap)
-            check(torch.equal(slot, slot_ref),
-                  f"plan_place == plain at {path} {side}")
-            oracle = pe_ref.ref_balanced_assign(
-                scores if axis else scores.T, slack)
-            check(torch.equal(pe_ops.balanced_assign(scores, axis, slack),
-                              oracle),
-                  f"balanced_assign == sort oracle at {path} {side}")
-            l, mp = pref.shape
-            n_it = mp // bi
-            rank_b, rank_by = bound_ms(4 * (3 * l * mp + l * n_it * g),
-                                       l * mp * mp)
-            place_b, place_by = bound_ms(4 * (3 * l * mp + l * n_it * g),
-                                         l * mp * g)
-            rows.append(dict(
-                layer=path[-1], side=side, items=m, groups=g, mp=mp,
-                tile=bi, cap=cap,
-                rank_max_abs_err=max(int((rk - rk_ref).abs().max()),
-                                     int((hist - hist_ref).abs().max())),
-                place_max_abs_err=int((slot - slot_ref).abs().max()),
-                rank_ms=time_ms(lambda: pe_ops.rank(pref, strength, g, bi)),
-                rank_plain_ms=time_ms(
-                    lambda: pe_ref.ref_rank(pref, strength, g, bi), 50, 5),
-                rank_bound_ms=rank_b, rank_bound_by=rank_by,
-                place_ms=time_ms(lambda: pe_ops.place(pref, rk, hist, g,
-                                                      cap)),
-                place_plain_ms=time_ms(
-                    lambda: pe_ref.ref_place(pref, rk, hist, g, cap), 50, 5),
-                place_bound_ms=place_b, place_bound_by=place_by))
-    return rows
+# A side past the sort route's limits, where plan_rank and plan_place run:
+# gemma2-27b's d_ff (ROADMAP Queue 1, item 4), one layer, G = 4.
+TILED_SIDE = (1, 36864, 4)
+# gemma2-2b's MLP sides with the two slots' 13 layers in one launch (L = 26),
+# beside the real L = 13 sides the serve phase holds.
+LM26_SIDES = ((26, 2304, 1), (26, 9216, 0), (26, 9216, 1), (26, 2304, 0))
+ASSIGN_KERNEL = {"plan_assign": "plan_assign_kernel"}
+# plan_assign's tiers (threads, items a thread; csrc/plan_encode.cu's
+# by_tier)
+ASSIGN_TIERS = ("128, 1", "128, 4", "256, 8", "512, 8", "512, 20",
+                "1024, 16")
+
+
+def flgw_sides(params):
+    """``(name, scores, axis)`` of every FLGW grouping side of a tree."""
+    for path, p in grouped.iter_flgw_layers(params):
+        name = "/".join(path)
+        yield f"{name}.ig", p["ig"].detach(), 1
+        yield f"{name}.og", p["og"].detach(), 0
+
+
+def time_assign(scores, axis: int, slack: float) -> dict:
+    """plan_assign at one side: ms by events over back-to-back calls, the
+    profiler's device us a launch (and how many of 20 launches it
+    recorded), the plain version's ms, the bound by bytes (scores read
+    once, ids and group written once) and ``torch.sort(stable=True)`` of
+    an (L, M) int64 key, a yardstick for the sort step alone."""
+    m, g = scores.shape[-2:] if axis else scores.shape[-2:][::-1]
+    l = scores.numel() // (m * g)
+    cap = compute_cap(m, g, slack)
+    bnd, by = bound_ms(4 * l * m * g + 8 * l * g * cap + 8 * l * m, 0)
+    calls = 20
+    ours = profile(lambda: [pe_ops.assign(scores, axis, slack)
+                            for _ in range(calls)],
+                   ASSIGN_KERNEL)["kernels"]["plan_assign"]
+    key = torch.randint(0, 2 ** 40, (l, m), device=scores.device)
+    dev_us = ours["device_us_mean"]
+    return dict(
+        ms=time_ms(lambda: pe_ops.assign(scores, axis, slack)),
+        device_us=dev_us, profiler_recorded_launches=ours["launches"],
+        profiler_calls=calls,
+        plain_ms=time_ms(lambda: pe_ref.ref_assign(scores, axis, slack),
+                         20, 3),
+        bound_ms=bnd, bound_by=by,
+        bound_share=None if dev_us is None else bnd / (dev_us / 1e3),
+        sort_yardstick_ms=time_ms(
+            lambda: torch.sort(key, dim=-1, stable=True)))
+
+
+def check_assign_one(what: str, scores, axis: int, slack: float) -> dict:
+    """plan_assign at one side against its plain version (ids and groups)
+    and, layer by layer, against the sort oracle; bitwise."""
+    m, g = scores.shape[-2:] if axis else scores.shape[-2:][::-1]
+    l = scores.numel() // (m * g)
+    cap = compute_cap(m, g, slack)
+    check(pe_ops.assign_route(m, g) == "sort",
+          f"{what}: {m} items in {g} groups take the sort route")
+    before = (pe_ops.ASSIGN.launches, pe_ops.RANK.launches,
+              pe_ops.PLACE.launches)
+    ids, group = pe_ops.assign(scores, axis, slack)
+    check((pe_ops.ASSIGN.launches, pe_ops.RANK.launches,
+           pe_ops.PLACE.launches) == (before[0] + 1, *before[1:]),
+          f"{what}: one plan_assign launch, no plan_rank or plan_place")
+    ids, group = ids.reshape(l, g * cap), group.reshape(l, m)
+    want_ids, want_group = pe_ref.ref_assign(scores, axis, slack)
+    err = max(int((ids - want_ids).abs().max()),
+              int((group - want_group).abs().max()))
+    check(err == 0, f"plan_assign == plain at {what} (max abs err {err})")
+    rows = (scores if axis else scores.transpose(-1, -2)).reshape(l, m, g)
+    check(all(torch.equal(ids[i].reshape(g, cap),
+                          pe_ref.ref_balanced_assign(rows[i], slack))
+              for i in range(l)),
+          f"plan_assign == sort oracle at {what}")
+    return dict(side=what, layers=l, items=m, groups=g, axis=axis, cap=cap,
+                max_abs_err=err)
+
+
+def check_assign_kernel(sides, slack: float) -> list[dict]:
+    """plan_assign checked and timed at every side of ``sides``
+    (``(name, scores, axis)``)."""
+    return [{**check_assign_one(name, scores, axis, slack),
+             **time_assign(scores, axis, slack)}
+            for name, scores, axis in sides]
+
+
+def check_tiled_route(slack: float, device) -> dict:
+    """plan_rank and plan_place against their plain versions at a side
+    past the sort route's limit, where ``assign`` takes them, and the
+    whole assignment there against the sort oracle; each timed, with its
+    bound by bytes (pref, strength and rank read once, rank, histograms
+    and slots written once)."""
+    l, m, g = TILED_SIDE
+    check(pe_ops.assign_route(m, g) == "tiled",
+          f"{m} items in {g} groups take the tiled route")
+    scores = torch.randn(TILED_SIDE, device=device,
+                         generator=torch.Generator(device=device)
+                         .manual_seed(SEED + 5))
+    cap = compute_cap(m, g, slack)
+    pref, strength, bi = pe_ops.preferences(scores, 1)
+    rk, hist = pe_ops.rank(pref, strength, g, bi)
+    rk_ref, hist_ref = pe_ref.ref_rank(pref, strength, g, bi)
+    rank_err = max(int((rk - rk_ref).abs().max()),
+                   int((hist - hist_ref).abs().max()))
+    check(rank_err == 0, "plan_rank == plain past the sort limit")
+    slot = pe_ops.place(pref, rk, hist, g, cap)
+    place_err = int((slot - pe_ref.ref_place(pref, rk_ref, hist_ref, g, cap)
+                     ).abs().max())
+    check(place_err == 0, "plan_place == plain past the sort limit")
+    before = (pe_ops.ASSIGN.launches, pe_ops.RANK.launches,
+              pe_ops.PLACE.launches)
+    ids = pe_ops.balanced_assign(scores, 1, slack)
+    check((pe_ops.ASSIGN.launches, pe_ops.RANK.launches,
+           pe_ops.PLACE.launches) == (before[0], before[1] + 1,
+                                      before[2] + 1),
+          "past the sort limit, assign runs plan_rank and plan_place")
+    check(torch.equal(ids[0], pe_ref.ref_balanced_assign(scores[0], slack)),
+          "balanced_assign == sort oracle past the sort limit")
+    mp = pref.shape[1]
+    n_it = mp // bi
+    calls = 10
+    prof = profile(lambda: [pe_ops.place(pref, *pe_ops.rank(
+        pref, strength, g, bi), g, cap) for _ in range(calls)],
+        {"plan_rank": "rank_kernel", "plan_place": "place_kernel"})
+    out = dict(layers=l, items=m, groups=g, mp=mp, tile=bi, cap=cap)
+    for name, err, fn, plain, nbytes in (
+            ("rank", rank_err, lambda: pe_ops.rank(pref, strength, g, bi),
+             lambda: pe_ref.ref_rank(pref, strength, g, bi),
+             4 * (3 * l * mp + l * n_it * g)),
+            ("place", place_err,
+             lambda: pe_ops.place(pref, rk, hist, g, cap),
+             lambda: pe_ref.ref_place(pref, rk, hist, g, cap),
+             4 * (3 * l * mp + l * n_it * g))):
+        bnd, by = bound_ms(nbytes, 0)
+        k = prof["kernels"][f"plan_{name}"]
+        out[name] = dict(max_abs_err=err, ms=time_ms(fn, 20, 3),
+                         plain_ms=time_ms(plain, 10, 2), bound_ms=bnd,
+                         bound_by=by, device_us=k["device_us_mean"],
+                         profiler_recorded_launches=k["launches"],
+                         profiler_calls=calls)
+    return out
 
 
 def check_bmm_kernel(model, plans, rows_b: int) -> list[dict]:
@@ -344,9 +454,7 @@ def run_slice(model, cpu_model, env, ecfg, kernels) -> dict:
           "plans encoded on the card == plans encoded on the CPU")
 
     # The main path, with every launch count at 0: encode, then rollout.
-    for k in kernels:
-        k.launches = 0
-    torch.cuda.synchronize()
+    _zero(kernels)
     t0 = time.perf_counter()
     with torch.inference_mode():
         plans = model.encode_plans()
@@ -355,8 +463,9 @@ def run_slice(model, cpu_model, env, ecfg, kernels) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {k.symbol: k.launches for k in kernels}
-    for name in ("plan_rank", "plan_place", "grouped_bmm_f32"):
+    for name in ("plan_assign", "grouped_bmm_f32"):
         check(launches[name] > 0, f"{name} launched on the IC3Net path")
+    check_sort_route(launches, "the IC3Net path")
 
     # Replay the card's episodes on the CPU through the plain path.
     start = env.reset(train.make_generator(SEED, model.device), ecfg, BATCH)
@@ -397,6 +506,13 @@ def run_slice(model, cpu_model, env, ecfg, kernels) -> dict:
         agent_steps_per_s=BATCH * ecfg.max_steps * ecfg.n_agents / rollout_s,
         encode_ms=enc_ms, replay_max_abs_err=errs,
         success_rate=float(r.success.float().mean()))
+
+
+def check_sort_route(launches: dict, what: str) -> None:
+    """Every side of the path took the sort route: no plan_rank or
+    plan_place launch."""
+    for name in ("plan_rank", "plan_place"):
+        check(launches[name] == 0, f"{name} not launched on {what}")
 
 
 def profile(fn, names) -> dict:
@@ -475,7 +591,8 @@ L2_BYTES = 50e6               # H100 SXM L2
 # card vs CPU, both bf16 with f32 sums: 4 layers of activations rounded to
 # bf16 at the same places but from sums taken in other orders
 REPLAY_BF16_TOL = dict(rtol=5e-2, atol=5e-2)
-SERVE_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
+SERVE_KERNELS = {"plan_assign": "plan_assign_kernel",
+                 "plan_rank": "rank_kernel", "plan_place": "place_kernel",
                  "grouped_bmm_f32": "grouped_bmm_f32_kernel",
                  "fused_bmm on wgmma": "fused_bmm_wgmma_kernel",
                  "fused_bmm streaming": "fused_bmm_stream_kernel",
@@ -652,9 +769,7 @@ def run_serve(cfg, params, kernels) -> dict:
     session, a B=4 x S=1024 prefill, one lockstep and one continuous
     Engine run."""
     plan_cache.clear()
-    for k in kernels:
-        k.launches = 0
-    torch.cuda.synchronize()
+    _zero(kernels)
     t0 = time.perf_counter()
     session = ServeSession(cfg, params, plan_policy="certify")
     torch.cuda.synchronize()
@@ -689,8 +804,9 @@ def run_serve(cfg, params, kernels) -> dict:
                   admission="continuous").run(cont_reqs)
     torch.cuda.synchronize()
     launches = {k.symbol: k.launches for k in kernels}
-    for name in ("plan_rank", "plan_place", "fused_bmm", "flash_fwd"):
+    for name in ("plan_assign", "fused_bmm", "flash_fwd"):
         check(launches[name] > 0, f"{name} launched on the serving path")
+    check_sort_route(launches, "the serving path")
     check(launches["grouped_bmm_f32"] == 0,
           "grouped_bmm_f32 not launched on the serving path")
     for rep, reqs in ((lock, lock_reqs), (cont, cont_reqs)):
@@ -828,7 +944,8 @@ FLASH_BWD_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 # grad (relative norm of the difference) see the backward kernels.
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_ATTN_GRAD_RTOL = 1e-3, 5e-3, 5e-2
 REPLAY_TRAIN_TOL = dict(rtol=5e-2, atol=5e-2)
-TRAIN_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
+TRAIN_KERNELS = {"plan_assign": "plan_assign_kernel",
+                 "plan_rank": "rank_kernel", "plan_place": "place_kernel",
                  "grouped_bmm_bf16": "grouped_bmm_tma_kernel",
                  "grouped_bmm_bf16 on wmma": "grouped_bmm_bf16_kernel",
                  "flash_fwd": "flash_fwd",
@@ -978,14 +1095,20 @@ def check_flash_bwd_kernels(cfg, device) -> list[dict]:
 
 
 def _zero(kernels) -> None:
+    """The state every driven phase starts from: each launch count at 0,
+    the interpreter's garbage collected (so that a full collection of
+    the earlier phases' objects, the profiler's among them, does not land
+    in a timed step) and the device idle."""
     for k in kernels:
         k.launches = 0
+    gc.collect()
     torch.cuda.synchronize()
 
 
 def _check_train_launches(launches: dict, phase: str, flash: bool) -> None:
-    for name in ("plan_rank", "plan_place", "grouped_bmm_bf16"):
+    for name in ("plan_assign", "grouped_bmm_bf16"):
         check(launches[name] > 0, f"{name} launched in training {phase}")
+    check_sort_route(launches, f"training {phase}")
     for name in ("fused_bmm", "grouped_bmm_f32"):
         check(launches[name] == 0, f"{name} not launched in training {phase}")
     layers = 26 * TRAIN_STEPS
@@ -1034,6 +1157,33 @@ def compare_core_grads(params, batch, cfg) -> dict:
     return rel
 
 
+_FULL_GC = dict(t0=0.0, ms=0.0)   # wall ms of the full collections so far
+
+
+def _time_full_gcs(phase: str, info: dict) -> None:
+    """A ``gc.callbacks`` entry: adds each full (generation 2) garbage
+    collection's wall ms to ``_FULL_GC["ms"]``."""
+    if info["generation"] != 2:
+        return
+    if phase == "start":
+        _FULL_GC["t0"] = time.perf_counter()
+    else:
+        _FULL_GC["ms"] += (time.perf_counter() - _FULL_GC["t0"]) * 1e3
+
+
+def host_events(dev) -> dict:
+    """What can stall a step's host time: the caching allocator's retries
+    of a device allocation after freeing its cache, and the interpreter's
+    full garbage collections, their count and their wall ms."""
+    return dict(alloc_retries=torch.cuda.memory_stats(dev).get(
+        "num_alloc_retries", 0), full_gcs=gc.get_stats()[2]["collections"],
+        full_gc_ms=_FULL_GC["ms"])
+
+
+def events_since(dev, before: dict) -> dict:
+    return {k: v - before[k] for k, v in host_events(dev).items()}
+
+
 def run_train(kernels) -> dict:
     """Phase (a): ``train_lm`` (chunked core); phase (b):
     ``make_train_step`` with ``use_flash`` from the same init and
@@ -1041,6 +1191,7 @@ def run_train(kernels) -> dict:
     dev = resolve_device()
     torch.cuda.reset_peak_memory_stats(dev)
     _zero(kernels)
+    before = host_events(dev)
     state, hist = train_lm("gemma2_2b", smoke=False, steps=TRAIN_STEPS,
                            batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=1,
                            seed=SEED, device=dev, **TRAIN_FLGW)
@@ -1050,7 +1201,9 @@ def run_train(kernels) -> dict:
     a = dict(loss=[float(h["loss"]) for h in hist],
              grad_norm=[float(h["grad_norm"]) for h in hist],
              step_s=[h["step_s"] for h in hist], launches=la,
-             peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+             peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             peak_reserved_gb=torch.cuda.max_memory_reserved(dev) / 1e9,
+             host_events=events_since(dev, before))
     del state, hist
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1068,6 +1221,7 @@ def run_train(kernels) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     _zero(kernels)
     b = dict(loss=[], grad_norm=[], step_s=[])
+    before = host_events(dev)
     for i in range(TRAIN_STEPS):
         batch = ds.tensors_at(i, dev)
         torch.cuda.synchronize()
@@ -1082,7 +1236,9 @@ def run_train(kernels) -> dict:
               flush=True)
     lb = {k.symbol: k.launches for k in kernels}
     _check_train_launches(lb, "phase (b)", flash=True)
-    b.update(launches=lb, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    b.update(launches=lb, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             peak_reserved_gb=torch.cuda.max_memory_reserved(dev) / 1e9,
+             host_events=events_since(dev, before))
     for ph in (a, b):
         check(all(np.isfinite(ph["loss"])) and all(np.isfinite(ph["grad_norm"])),
               "every training loss and grad norm finite")
@@ -1271,7 +1427,8 @@ def fpga_model_table() -> list[dict]:
 LEARN_ITERS = 10
 LEARN_SCHEDULE = SparsitySchedule(groups=4, warmup_steps=2)
 LEARN_REPLAY_LOSS_RTOL, LEARN_REPLAY_GRAD_REL = 1e-5, 1e-4
-LEARN_KERNELS = {"plan_rank": "rank_kernel", "plan_place": "place_kernel",
+LEARN_KERNELS = {"plan_assign": "plan_assign_kernel",
+                 "plan_rank": "rank_kernel", "plan_place": "place_kernel",
                  "grouped_bmm_f32": "grouped_bmm_f32_kernel"}
 # benchmarks/fig9_accuracy.py's config; the JAX package's final success
 # rates (mean of the last 80 iterations) at G=4: masked from
@@ -1303,8 +1460,7 @@ def run_learner(kernels, device) -> dict:
     encodes = LEARN_ITERS + 1           # one before the loop, one a step
     sparse_iters = LEARN_ITERS - LEARN_SCHEDULE.warmup_steps
     want = {k.symbol: 0 for k in kernels}
-    want.update(plan_rank=2 * layers * encodes,
-                plan_place=2 * layers * encodes,
+    want.update(plan_assign=2 * layers * encodes,
                 grouped_bmm_f32=sparse_iters * layers * ecfg.max_steps)
     check(launches == want,
           f"IC3Net learner launches {launches} == {want}")
@@ -1454,6 +1610,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}", flush=True)
+    gc.callbacks.append(_time_full_gcs)
 
     t0 = time.perf_counter()
     logs = _build.build()
@@ -1465,9 +1622,10 @@ def main() -> int:
             print(f"  {name}: {kernel}: {u}")
     fa_usage = ptxas.get("flash_attention", {})
     fm_usage = ptxas.get("flgw_matmul", {})
-    all_kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM, fm_ops.BMM16,
-                   fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ, fa_ops.DKV,
-                   os_ops.OSEL)
+    pe_usage = ptxas.get("plan_encode", {})
+    all_kernels = (pe_ops.ASSIGN, pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM,
+                   fm_ops.BMM16, fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ,
+                   fa_ops.DKV, os_ops.OSEL)
 
     # -- path 1: the IC3Net actor -------------------------------------------
     env, ecfg = envs.make("predator_prey", **ENV)
@@ -1481,7 +1639,24 @@ def main() -> int:
           "the seed gives the same weights on the card and the CPU")
     slack = cfg.flgw.capacity_slack
 
-    enc_rows = check_encode_kernels(model, slack)
+    assign_rows = check_assign_kernel(flgw_sides(model.params), slack)
+    for r in assign_rows:
+        print(f"  plan_assign {r['side']:>12} L={r['layers']} "
+              f"M={r['items']}: {r['ms']:.4f} ms, {r['device_us']} "
+              f"device us ({r['profiler_recorded_launches']} of "
+              f"{r['profiler_calls']} recorded), plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.2e} "
+              f"({r['bound_by']}), torch.sort "
+              f"{r['sort_yardstick_ms']:.4f}")
+    tiled = check_tiled_route(slack, model.device)
+    print(f"  past the sort limit (L, M, G = {TILED_SIDE}): plan_rank "
+          f"{tiled['rank']['ms']:.4f} ms ({tiled['rank']['device_us']} device "
+          f"us), plan_place {tiled['place']['ms']:.4f} ms "
+          f"({tiled['place']['device_us']} device us), bitwise their plain "
+          "versions; balanced_assign == the sort oracle", flush=True)
+    enc_t = time_encode.measure(model.device)
+    print(f"encode: IC3Net {enc_t['ic3net']}, gemma2-2b train config "
+          f"{enc_t['gemma2_2b_train']}", flush=True)
     with torch.inference_mode():
         plans = model.encode_plans()
     bmm_rows = check_bmm_kernel(model, plans, BATCH * cfg.n_agents)
@@ -1491,8 +1666,8 @@ def main() -> int:
               f"{r['device_us']:.2f} device us, {r['host_us']:.1f} host us; "
               f"bmm {r['library_ms']:.4f} ms, {r['library_device_us']:.2f} "
               f"device us, {r['library_host_us']:.1f} host us")
-    print("IC3Net kernels match their plain versions on the card; plan_rank "
-          "and plan_place have no single PyTorch call to time as a library "
+    print("IC3Net kernels match their plain versions on the card; the plan "
+          "encode kernels have no single PyTorch call to time as a library "
           "yardstick (library_ms null), grouped_bmm_f32 has torch.bmm",
           flush=True)
 
@@ -1511,6 +1686,23 @@ def main() -> int:
     scfg = registry.get_config("gemma2_2b", **SERVE_FLGW)
     params = serve_params(scfg, dev)
     n_params = sum(t.numel() for t in _leaves(params))
+    # every FLGW side of the served model (L = 13 stacked layers a slot),
+    # then the MLP's sides with both slots' layers in one launch (L = 26)
+    lm_slack = flgw.FLGWConfig().capacity_slack   # transformer.encode_plans'
+    gen26 = torch.Generator(device=dev).manual_seed(SEED + 6)
+    lm_assign_rows = check_assign_kernel(
+        [*flgw_sides(params),
+         *[(f"L=26 M={m} axis {axis}", torch.randn(
+             (l, m, 4) if axis else (l, 4, m), generator=gen26, device=dev),
+            axis) for l, m, axis in LM26_SIDES]], lm_slack)
+    for r in lm_assign_rows:
+        print(f"  plan_assign {r['side']:>22} L={r['layers']} "
+              f"M={r['items']}: {r['ms']:.4f} ms, {r['device_us']} "
+              f"device us ({r['profiler_recorded_launches']} of "
+              f"{r['profiler_calls']} recorded), plain "
+              f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.2e} "
+              f"({r['bound_by']}), torch.sort "
+              f"{r['sort_yardstick_ms']:.4f}", flush=True)
     fused_rows = check_fused_kernel(params, scfg)
     flash_rows = check_flash_kernel(scfg, dev)
     for r in fused_rows:
@@ -1590,7 +1782,12 @@ def main() -> int:
           f"{fl['step_ms']:.1f} ms/step ({fl['tokens_per_s']:.0f} tokens/s), "
           f"losses {fl['loss']}, grad norms {fl['grad_norm']}, peak "
           f"{fl['peak_gb']:.1f} GB; launches (a) {ca['launches']}, (b) "
-          f"{fl['launches']}", flush=True)
+          f"{fl['launches']}; step ms (a) "
+          f"{[round(t * 1e3, 1) for t in ca['step_s']]}, (b) "
+          f"{[round(t * 1e3, 1) for t in fl['step_s']]}; reserved peak (a) "
+          f"{ca['peak_reserved_gb']:.1f}, (b) {fl['peak_reserved_gb']:.1f} GB; "
+          f"host events (a) {ca['host_events']}, (b) {fl['host_events']}",
+          flush=True)
     tp = train_replay(tr["cfg"], tr["state"].params)
     print(f"CPU replay of a training step (2 layers): card {tp['card']}, "
           f"CPU {tp['cpu']} (loss, grad norm)", flush=True)
@@ -1651,9 +1848,6 @@ def main() -> int:
     def total(rows, key):
         return sum(r[key] for r in rows)
 
-    def bound_by(rows, key):
-        return max(rows, key=lambda r: r[f"{key}_bound_ms"])[f"{key}_bound_by"]
-
     def path_launches(sym):
         return {"ic3net_actor": sl["launches"][sym],
                 "gemma2_serve": sv["launches"][sym],
@@ -1682,29 +1876,68 @@ def main() -> int:
                  "(SDPA's backward, softcap 0) compute dq, dk and dv "
                  "together")
     per_encode = "one encode: its calls at the path's 10 FLGW layer sides"
+
+    def per_side(rows):
+        return [{k: r[k] for k in (
+            "side", "layers", "items", "groups", "ms", "device_us",
+            "profiler_recorded_launches", "plain_ms", "bound_ms",
+            "bound_share", "sort_yardstick_ms")}
+            for r in rows]
+
+    def tiled_entry(name, line):
+        t = tiled[name]
+        return dict(name=f"plan_{name}", route="cuda",
+                    source="src/repro_torch/csrc/plan_encode.cu",
+                    replaces=f"src/repro/kernels/plan_encode/plan_encode.py:"
+                             f"{line}",
+                    launches=launches(f"plan_{name}"),
+                    launches_by_path=path_launches(f"plan_{name}"),
+                    max_abs_err=t["max_abs_err"], ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=None,
+                    device_us_per_launch=t["device_us"],
+                    profiler_recorded_launches=t[
+                        "profiler_recorded_launches"],
+                    timed_over=f"one call at L, M, G = {TILED_SIDE} (past "
+                               "the sort route's limit, the tiled route); "
+                               "bound by bytes at 3.35 TB/s")
+
     kernels_line = {"kernels": [
-        dict(name="plan_rank", route="cuda",
+        dict(name="plan_assign", route="cuda",
              source="src/repro_torch/csrc/plan_encode.cu",
-             replaces="src/repro/kernels/plan_encode/plan_encode.py:50",
-             launches=launches("plan_rank"),
-             launches_by_path=path_launches("plan_rank"),
-             max_abs_err=max(r["rank_max_abs_err"] for r in enc_rows),
-             ms=total(enc_rows, "rank_ms"),
-             plain_ms=total(enc_rows, "rank_plain_ms"),
-             bound_ms=total(enc_rows, "rank_bound_ms"),
-             bound_by=bound_by(enc_rows, "rank"), library_ms=None,
-             timed_over=per_encode),
-        dict(name="plan_place", route="cuda",
-             source="src/repro_torch/csrc/plan_encode.cu",
-             replaces="src/repro/kernels/plan_encode/plan_encode.py:81",
-             launches=launches("plan_place"),
-             launches_by_path=path_launches("plan_place"),
-             max_abs_err=max(r["place_max_abs_err"] for r in enc_rows),
-             ms=total(enc_rows, "place_ms"),
-             plain_ms=total(enc_rows, "place_plain_ms"),
-             bound_ms=total(enc_rows, "place_bound_ms"),
-             bound_by=bound_by(enc_rows, "place"), library_ms=None,
-             timed_over=per_encode),
+             replaces="src/repro/kernels/plan_encode/plan_encode.py:50 and "
+                      ":81 (_rank_kernel + _place_kernel, one launch)",
+             launches=launches("plan_assign"),
+             launches_by_path=path_launches("plan_assign"),
+             max_abs_err=max(r["max_abs_err"]
+                             for r in assign_rows + lm_assign_rows),
+             ms=total(assign_rows, "ms"),
+             plain_ms=total(assign_rows, "plain_ms"),
+             bound_ms=total(assign_rows, "bound_ms"), bound_by="bytes",
+             library_ms=None,
+             device_us_per_launch=statistics.mean(
+                 r["device_us"] for r in assign_rows
+                 if r["device_us"] is not None),
+             profiler_recorded_launches=sum(
+                 r["profiler_recorded_launches"] for r in assign_rows),
+             profiler_calls=sum(r["profiler_calls"] for r in assign_rows),
+             sort_yardstick_ms=total(assign_rows, "sort_yardstick_ms"),
+             ic3net_sides=per_side(assign_rows),
+             lm_sides=per_side(lm_assign_rows),
+             encode=enc_t,
+             ptxas={f"plan_assign_kernel<{tier}>": pe_usage.get(
+                 f"plan_assign_kernel<{tier}>") for tier in ASSIGN_TIERS},
+             timed_over=per_encode + " (ms, plain ms, bound, sort "
+                        "yardstick: sums over the 10, each timed at its "
+                        "side; device us: the mean over the 10 of the "
+                        "profiler's over 20 calls each); lm_sides: "
+                        "gemma2-2b's sides, one call each; bound by bytes "
+                        "(scores read once, ids and group written once) at "
+                        "3.35 TB/s; sort_yardstick_ms: torch.sort(stable) "
+                        "of an (L, M) int64 key, the sort step alone, no "
+                        "library call computes the function"),
+        tiled_entry("rank", 50),
+        tiled_entry("place", 81),
         dict(name="grouped_bmm_f32", route="cuda",
              source="src/repro_torch/csrc/flgw_matmul.cu",
              replaces="src/repro/kernels/flgw_matmul/flgw_matmul.py:38",
@@ -1866,7 +2099,8 @@ def main() -> int:
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=build_s, build_logs=logs, encode_rows=enc_rows,
+        build_s=build_s, build_logs=logs, assign_rows=assign_rows,
+        lm_assign_rows=lm_assign_rows, tiled_route=tiled, encode=enc_t,
         bmm_rows=bmm_rows, slice=sl, profile=prof, serve_params=n_params,
         fused_rows=fused_rows, flash_rows=flash_rows, serve=sv, replay=rp,
         serve_profile=sprof, bmm16_rows=bmm16_rows, flash_bwd_rows=bwd_rows,

@@ -53,33 +53,16 @@ def balanced_assign(scores: torch.Tensor, axis: int,
     return pe_ops.balanced_assign(scores, axis, slack)
 
 
-def _group_of_item(ids: torch.Tensor, size: int) -> torch.Tensor:
-    """(..., G, cap) unclipped item ids -> (..., size) group of each item.
-
-    Padding slots hold ``size`` and scatter into one sink slot that is
-    sliced off, so every item gets the group that actually holds it.
-    """
-    lead = ids.shape[:-2]
-    g = ids.shape[-2]
-    flat = ids.reshape(-1, ids.shape[-2] * ids.shape[-1])
-    gid = torch.arange(g, device=ids.device).repeat_interleave(ids.shape[-1])
-    out = torch.zeros((flat.shape[0], size + 1), dtype=torch.int64,
-                      device=ids.device)
-    out.scatter_(1, flat, gid.expand_as(flat))
-    return out[:, :size].reshape(*lead, size)
-
-
 def make_plan(ig: torch.Tensor, og: torch.Tensor,
               slack: float = 1.0) -> GroupPlan:
     """Build the compact layout from the grouping matrices ``ig``
     (..., M, G) and ``og`` (..., G, N); leading dims go through one
-    launch of each encode kernel."""
+    launch of the encode kernel a side. Each item's group comes from the
+    unclipped assignment (the group whose slot holds it)."""
     m = ig.shape[-2]
     n = og.shape[-1]
-    row_ids = balanced_assign(ig, axis=1, slack=slack)
-    col_ids = balanced_assign(og, axis=0, slack=slack)
-    row_group = _group_of_item(row_ids, m)
-    col_group = _group_of_item(col_ids, n)
+    row_ids, row_group = pe_ops.assign(ig, 1, slack)
+    col_ids, col_group = pe_ops.assign(og, 0, slack)
     return GroupPlan(row_ids.clamp(max=m - 1), col_ids.clamp(max=n - 1),
                      row_ids < m, col_ids < n, row_group, col_group)
 

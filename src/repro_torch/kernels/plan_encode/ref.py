@@ -2,16 +2,40 @@
 
 ``ref_rank`` and ``ref_place`` compute what the CUDA kernels ``plan_rank``
 and ``plan_place`` compute, term by term (padding items included), so the
-card can hold each kernel bitwise against them. ``ref_balanced_assign`` is
-the semantic ground truth of the whole assignment: the lexsort deal of
-``repro.kernels.plan_encode.ref``, written as two stable sorts because
-torch has no ``lexsort``.
+card can hold each kernel bitwise against them. ``ref_assign`` is the
+plain version of ``plan_assign``: the same chain on the CPU (preferences,
+rank, place, the inverse permutation and each item's group).
+``ref_balanced_assign`` is the semantic ground truth of the whole
+assignment: the lexsort deal of ``repro.kernels.plan_encode.ref``,
+written as two stable sorts because torch has no ``lexsort``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.tiling import compute_cap
+from repro_torch.kernels.tiling import compute_cap, plan_block, round_up
+
+
+def preferences(scores: torch.Tensor, axis: int, block: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """``(pref, strength, bi)`` of every item, flattened to (L, Mp) and
+    padded to a multiple of the tile side ``bi``. Padding items carry the
+    sentinel group G and strength -inf: never counted, never placed
+    (their slots are sliced off)."""
+    scores = scores.detach()
+    if axis == 0:
+        scores = scores.transpose(-1, -2)
+    m, g = scores.shape[-2:]
+    flat = scores.reshape(-1, m, g)
+    pref = flat.argmax(-1).to(torch.int32)
+    strength = flat.amax(-1).to(torch.float32)
+    bi = plan_block(m, block)
+    pad = round_up(m, bi) - m
+    l = flat.shape[0]
+    pref = torch.cat([pref, pref.new_full((l, pad), g)], dim=1)
+    strength = torch.cat(
+        [strength, strength.new_full((l, pad), float("-inf"))], dim=1)
+    return pref, strength, bi
 
 
 def ref_rank(pref: torch.Tensor, strength: torch.Tensor, g: int,
@@ -66,6 +90,33 @@ def ref_place(pref: torch.Tensor, rank: torch.Tensor, hist: torch.Tensor,
     lo_sel = (match * free_before).sum(-1)
     ovf_slot = gsel * cap + kc_sel + (q - lo_sel)
     return torch.where(keep, kept_slot, ovf_slot).to(torch.int32)
+
+
+def ids_from_slots(slot: torch.Tensor, m: int, g: int,
+                   cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(L, M) slot of every real item -> ``(ids (L, G*cap), group (L, M))``,
+    int64: the inverse permutation (padding slots hold ``m``) and the
+    group holding each item, ``slot // cap``. Every real item's slot lies
+    in [0, G*cap) and is unique, so the scatter writes each slot at most
+    once."""
+    l = slot.shape[0]
+    slot = slot.long()
+    ids = torch.full((l, g * cap), m, dtype=torch.int64, device=slot.device)
+    ids.scatter_(1, slot, torch.arange(m, device=slot.device).expand(l, m))
+    return ids, slot // cap
+
+
+def ref_assign(scores: torch.Tensor, axis: int, slack: float = 1.0,
+               block: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``plan_assign``: ``scores`` (..., M, G) with
+    axis==1 or (..., G, N) with axis==0 -> ``(ids (L, G*cap), group
+    (L, M))``, int64, the leading dims flattened to L. ``block`` is the
+    tile side of the rank/place chain; the answer does not depend on it."""
+    m, g = (scores.shape[-2:] if axis else scores.shape[-2:][::-1])
+    cap = compute_cap(m, g, slack)
+    pref, strength, bi = preferences(scores, axis, block)
+    slot = ref_place(pref, *ref_rank(pref, strength, g, bi), g, cap)
+    return ids_from_slots(slot[:, :m], m, g, cap)
 
 
 def ref_balanced_assign(scores: torch.Tensor,

@@ -48,11 +48,107 @@ def test_plan_encode_kernels_are_bitwise_their_plain_versions(
     rk_ref, hist_ref = pe_ref.ref_rank(pref, strength, g, bi)
     assert torch.equal(rk, rk_ref) and torch.equal(hist, hist_ref)
     assert torch.equal(slot, pe_ref.ref_place(pref, rk, hist, g, cap))
-    ids = pe_ops.balanced_assign(scores, 1, slack, block=block)
+    ids, _ = pe_ref.ids_from_slots(slot[:, :m], m, g, cap)
     flat = scores.reshape(-1, m, g)
     for layer, want in enumerate(flat):
         assert torch.equal(ids.reshape(-1, g, cap)[layer],
                            pe_ref.ref_balanced_assign(want, slack))
+
+
+def _assign_case(case, gen, cuda):
+    """(scores, axis) of one plan_assign card case."""
+    kind, lead, m, g = case
+    shape = (*lead, m, g)
+    if kind == "ties":         # many exactly tied argmaxes and strengths
+        s = torch.randint(-1, 2, shape, generator=gen, device=cuda).float()
+    elif kind == "zeros":      # strengths tie across the sign of zero
+        s = torch.where(torch.rand(shape, generator=gen, device=cuda) < 0.5,
+                        -0.0, 0.0)
+        s[torch.rand(shape, generator=gen, device=cuda) < 0.2] = -1.0
+    else:
+        s = torch.randn(shape, generator=gen, device=cuda)
+    if kind in ("cols", "strided"):
+        s = s.transpose(-1, -2).contiguous()          # og: (..., G, N)
+        return (s, 0) if kind == "cols" else (s.transpose(-1, -2), 1)
+    return s, 1
+
+
+# IC3Net's five FLGW layers' sides (rows of ig, columns of og), gemma2-2b's
+# L = 26 sides at G = 4 (attention and MLP widths, both axes), the route's
+# limits (its corner, the most items in the most groups, takes the most
+# shared memory), ties, signed zeros and a strided og view (og.T read in place)
+ASSIGN_CASES = [
+    *[("rows", (), m, 4) for m in (30, 128)],
+    *[("cols", (), n, 4) for n in (128, 512, 5)],
+    *[("rows", (26,), m, 4) for m in (2304, 9216)],
+    *[("cols", (26,), n, 4) for n in (1024, 2048, 2304, 9216)],
+    ("rows", (), pe_ops.SORT_MAX_ITEMS, 4),
+    ("rows", (), pe_ops.SORT_MAX_ITEMS, pe_ops.SORT_MAX_GROUPS),
+    ("rows", (), 4096, 1),
+    ("rows", (2,), 4097, pe_ops.SORT_MAX_GROUPS), ("rows", (3,), 700, 3),
+    ("ties", (2,), 3000, 4), ("ties", (), 100, 8), ("zeros", (2,), 600, 4),
+    ("zeros", (), 9216, 2), ("strided", (), 512, 4),
+    ("strided", (26,), 2304, 4)]
+
+
+@pytest.mark.parametrize("slack", [1.0, 1.25])
+@pytest.mark.parametrize("case", ASSIGN_CASES, ids=str)
+def test_plan_assign_is_bitwise_its_plain_version(cuda, case, slack):
+    gen = torch.Generator(device=cuda).manual_seed(case[2])
+    scores, axis = _assign_case(case, gen, cuda)
+    m, g = case[2], case[3]
+    assert pe_ops.assign_route(m, g) == "sort"
+    before = (pe_ops.ASSIGN.launches, pe_ops.RANK.launches,
+              pe_ops.PLACE.launches)
+    ids, group = pe_ops.assign(scores, axis, slack)
+    torch.cuda.synchronize()
+    assert (pe_ops.ASSIGN.launches, pe_ops.RANK.launches,
+            pe_ops.PLACE.launches) == (before[0] + 1, *before[1:])
+    want_ids, want_group = pe_ref.ref_assign(scores, axis, slack)
+    cap = compute_cap(m, g, slack)
+    assert torch.equal(ids.reshape(-1, g * cap), want_ids)
+    assert torch.equal(group.reshape(-1, m), want_group)
+    rows = scores if axis else scores.transpose(-1, -2)
+    for layer, s in enumerate(rows.reshape(-1, m, g)):
+        assert torch.equal(ids.reshape(-1, g, cap)[layer],
+                           pe_ref.ref_balanced_assign(s, slack))
+
+
+def test_past_the_sort_limit_the_tiled_route_runs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for m, g in ((pe_ops.SORT_MAX_ITEMS + 1, 4),
+                 (3000, pe_ops.SORT_MAX_GROUPS + 1)):
+        assert pe_ops.assign_route(m, g) == "tiled"
+        scores = torch.randn((m, g), generator=gen, device=cuda)
+        before = (pe_ops.ASSIGN.launches, pe_ops.RANK.launches,
+                  pe_ops.PLACE.launches)
+        ids, group = pe_ops.assign(scores, 1, 1.25)
+        torch.cuda.synchronize()
+        assert (pe_ops.ASSIGN.launches, pe_ops.RANK.launches,
+                pe_ops.PLACE.launches) == (before[0], before[1] + 1,
+                                           before[2] + 1)
+        want_ids, want_group = pe_ref.ref_assign(scores, 1, 1.25)
+        assert torch.equal(ids.reshape(1, -1), want_ids)
+        assert torch.equal(group.reshape(1, -1), want_group)
+        assert torch.equal(ids, pe_ref.ref_balanced_assign(scores, 1.25))
+
+
+def test_plan_assign_entry_refuses_what_the_shapes_do_not_allow(cuda):
+    """The C entry never takes a side past its limits (those go to the
+    tiled route), nor a capacity that cannot hold every item; the wrapper
+    takes only f32 scores."""
+    s = torch.randn((pe_ops.SORT_MAX_ITEMS + 1) * 4, device=cuda)
+    ids = torch.empty(pe_ops.SORT_MAX_ITEMS * 8, dtype=torch.int64,
+                      device=cuda)
+    group = torch.empty_like(ids)
+    for m, g, cap in ((pe_ops.SORT_MAX_ITEMS + 1, 4, 4097),
+                      (8, pe_ops.SORT_MAX_GROUPS + 1, 1), (100, 4, 24),
+                      (0, 4, 1)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            pe_ops.ASSIGN(cuda, s.data_ptr(), ids.data_ptr(),
+                          group.data_ptr(), 1, m, g, cap, m * g, g, 1)
+    with pytest.raises(ValueError, match="float32"):
+        pe_ops.assign(torch.randn((30, 4), device=cuda).double(), 1)
 
 
 @pytest.mark.parametrize("g,b,k,n", [(4, 128, 10, 40), (4, 128, 40, 160),

@@ -16,6 +16,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flgw_matmul import ops as fm_ops  # noqa: E402
 from repro_torch.kernels.osel_encode import ops as os_ops  # noqa: E402
 from repro_torch.kernels.plan_encode import ops as pe_ops  # noqa: E402
+from repro_torch.launch import time_encode  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.marl import ic3net, train  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -69,13 +70,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         transformer.init_cache(lm, 1, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.train_lm("gemma2_2b", steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        time_encode.main()
     cache = transformer.init_cache(lm, 1, 4, device="cpu")
     assert cache["pos"].device == torch.device("cpu")
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
-    kernels = (pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM, fm_ops.BMM16,
-               fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ, fa_ops.DKV, os_ops.OSEL)
+    kernels = (pe_ops.RANK, pe_ops.PLACE, pe_ops.ASSIGN, fm_ops.BMM,
+               fm_ops.BMM16, fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ, fa_ops.DKV,
+               os_ops.OSEL)
     before = [k.launches for k in kernels]
     ig = torch.randn(40, 4)
     pe_ops.balanced_assign(ig, 1, 1.25)
