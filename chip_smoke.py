@@ -20,7 +20,9 @@ The port's paths, each at full width with random weights from a seed:
   RMSprop lr 1e-3, a dense warmup of 2 iterations, 10 iterations through
   ``train``; and the Fig. 9 learning check (predator-prey 4 agents on
   4x4, 12 steps, B=16, hidden 128, G=4, 800 iterations) on the masked
-  and the grouped path.
+  and the grouped path;
+* the async actor/learner pipeline (``marl/async_train``): the actor's
+  config and env, B=16, through ``async_train``.
 
 The script
 
@@ -92,7 +94,21 @@ The script
      head's gradient exactly 0 on both); profiles one sparse iteration;
      then runs the Fig. 9 learning check on the masked and the grouped
      path against bands around the JAX package's success rates;
-  8. prints one ``{"kernels": [...]}`` line, the card's name and power
+  8. with every launch count at 0 before each run, drives the async
+     pipeline: depth 1 without correction for 3 updates against 3
+     iterations of ``train`` from the same seed (each loss within 1e-5,
+     every parameter within 1e-4 relative norm); V-trace with 2 windows
+     an update, depth 4, publication every 2 updates, staleness at most
+     4, 20 updates (``grouped_bmm_f32`` exactly 150 a window and a
+     replay, ``plan_assign`` 10 an encode and at least 21 encodes, no
+     other kernel); one actor rollout against a published bundle (no
+     ``plan_assign``, 150 ``grouped_bmm_f32``); the same run with the
+     actor on its own thread and CUDA stream (the staleness bound, the
+     thread joined); and one V-trace update of the card's window replayed
+     on the CPU (loss within 1e-5, each gradient within 1e-4 relative
+     norm, the gate head's exactly 0 on both); prints both drivers'
+     updates/s and env-steps/s beside the card's name and power limit;
+  9. prints one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -108,6 +124,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -127,6 +144,7 @@ from repro_torch.kernels.plan_encode import ops as pe_ops  # noqa: E402
 from repro_torch.kernels.plan_encode import ref as pe_ref  # noqa: E402
 from repro_torch.kernels.tiling import compute_cap  # noqa: E402
 from repro_torch.marl import envs, ic3net, train  # noqa: E402
+from repro_torch.marl import async_train  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import encoder as planenc  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -1602,6 +1620,277 @@ def learning_check(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The async actor/learner pipeline
+# ---------------------------------------------------------------------------
+
+ASYNC_ANCHOR_UPDATES = 3
+ASYNC_UPDATES = 20
+ASYNC_OFF_POLICY = dict(correction="vtrace", capacity=4, actors=2,
+                        publish_every=2, max_staleness=4)
+ASYNC_LOSS_TOL, ASYNC_PARAM_REL = 1e-5, 1e-4
+ASYNC_REPLAY_LOSS_RTOL, ASYNC_REPLAY_GRAD_REL = 1e-5, 1e-4
+ACTOR_THREAD = "async_train-actor"
+
+
+def _counts(kernels) -> dict:
+    torch.cuda.synchronize()
+    return {k.symbol: k.launches for k in kernels}
+
+
+class _CountWindows:
+    """Counts the rollout windows ``async_train`` generates (its calls of
+    ``actor_rollout``, the actor's and any the learner makes when every
+    queued window is over the bound), by wrapping the module's function
+    for the length of a ``with`` block."""
+
+    def __enter__(self):
+        self.windows, real = 0, async_train.actor_rollout
+
+        def counting(*a, **kw):
+            self.windows += 1
+            return real(*a, **kw)
+        self._real = real
+        async_train.actor_rollout = counting
+        return self
+
+    def __exit__(self, *exc):
+        async_train.actor_rollout = self._real
+
+
+def _param_rel(a, b) -> dict:
+    return {k: float((x.float() - y.float()).norm() / y.float().norm())
+            for (k, x), y in zip(a.state_dict().items(),
+                                 b.state_dict().values())}
+
+
+def run_async(kernels, device) -> dict:
+    """The async pipeline at the actor config's full width, every launch
+    count at 0 before each run: the depth-1 anchor against ``train``, the
+    off-policy V-trace run (launches checked exactly), one actor rollout
+    (no encode), the threaded run and the CPU replay of one update."""
+    env, ecfg = envs.make("predator_prey", **ENV)
+    cfg = dataclasses.replace(configs.config(), flgw_groups=4,
+                              flgw_path="grouped")
+    tcfg = train.TrainConfig(batch=BATCH, lr=1e-3)
+    window = 5 * ecfg.max_steps      # grouped_bmm_f32 launches a window
+    out = {}
+
+    # 1. depth 1, no correction: the synchronous learner's updates
+    _zero(kernels)
+    m_async, h_async = async_train.async_train(
+        cfg, ecfg, tcfg, async_train.AsyncConfig(
+            capacity=1, actors=1, correction="none"),
+        updates=ASYNC_ANCHOR_UPDATES, seed=SEED, env=env,
+        check_publication=True, device=device)
+    anchor_launches = _counts(kernels)
+    _zero(kernels)
+    m_sync, h_sync = train.train(cfg, ecfg, tcfg,
+                                 iterations=ASYNC_ANCHOR_UPDATES, seed=SEED,
+                                 env=env, device=device)
+    sync_launches = _counts(kernels)
+    check(anchor_launches["grouped_bmm_f32"]
+          == window * 2 * ASYNC_ANCHOR_UPDATES,
+          f"async anchor: grouped_bmm_f32 launched {window} times a window "
+          f"and a replay ({anchor_launches})")
+    loss_diff = [abs(a["loss"] - b["loss"]) for a, b in zip(h_async, h_sync)]
+    check(all(d <= ASYNC_LOSS_TOL for d in loss_diff),
+          f"async anchor: each loss within {ASYNC_LOSS_TOL} of train's "
+          f"({loss_diff})")
+    rel = _param_rel(m_async, m_sync)
+    check(max(rel.values()) <= ASYNC_PARAM_REL,
+          f"async anchor: every parameter within relative norm "
+          f"{ASYNC_PARAM_REL} of train's (max {max(rel.values())})")
+    out["anchor"] = dict(
+        losses=[h["loss"] for h in h_async],
+        sync_losses=[h["loss"] for h in h_sync], loss_abs_diff=loss_diff,
+        param_rel_max=max(rel.values()), launches=anchor_launches,
+        sync_launches=sync_launches)
+    del m_async, m_sync
+
+    # 2. off-policy: V-trace, 2 windows an update, publication every 2
+    acfg = async_train.AsyncConfig(**ASYNC_OFF_POLICY)
+    _zero(kernels)
+    with _CountWindows() as counted:
+        model, hist = async_train.async_train(
+            cfg, ecfg, tcfg, acfg, updates=ASYNC_UPDATES, seed=SEED,
+            env=env, check_publication=True, device=device)
+    launches = _counts(kernels)
+    stale = [h["staleness"] for h in hist]
+    check(max(stale) <= acfg.max_staleness and max(stale) >= 1,
+          f"async run: staleness within [1, {acfg.max_staleness}] at its "
+          f"most ({stale})")
+    check(all(np.isfinite(h["loss"]) for h in hist),
+          "async run: every loss finite")
+    want_bmm = window * (counted.windows + ASYNC_UPDATES)
+    check(launches["grouped_bmm_f32"] == want_bmm,
+          f"async run: grouped_bmm_f32 launched {want_bmm} times "
+          f"({counted.windows} windows + {ASYNC_UPDATES} replays), got "
+          f"{launches['grouped_bmm_f32']}")
+    layers = len(list(grouped.iter_flgw_layers(model.params)))
+    encodes, rem = divmod(launches["plan_assign"], 2 * layers)
+    check(rem == 0 and encodes >= 1 + ASYNC_UPDATES,
+          f"async run: plan_assign launched {2 * layers} times an encode, "
+          f"at least {1 + ASYNC_UPDATES} encodes ({launches['plan_assign']})")
+    others = {k: v for k, v in launches.items()
+              if k not in ("plan_assign", "grouped_bmm_f32")}
+    check(not any(others.values()), f"async run: no other kernel ({others})")
+    out["off_policy"] = dict(
+        config=ASYNC_OFF_POLICY, updates=ASYNC_UPDATES,
+        windows=counted.windows, encodes=encodes, launches=launches,
+        staleness=stale, losses=[h["loss"] for h in hist],
+        mean_is=[h["mean_is"] for h in hist],
+        queue_depth=[h["queue_depth"] for h in hist],
+        updates_per_s=hist[-1]["updates_per_s"],
+        env_steps_per_s=hist[-1]["env_steps_per_s"])
+
+    # 3. the actor only consumes published plans
+    with torch.no_grad():
+        plans = model.encode_plans()
+    bundle = async_train.publish(model, plans, ASYNC_UPDATES)
+    check(bool(async_train.bundle_consistent(bundle)),
+          "async: the published bundle certifies")
+    _zero(kernels)
+    traj = async_train.actor_rollout(
+        bundle, train.make_generator(SEED + 30, device), ecfg, tcfg, env)
+    rollout_launches = _counts(kernels)
+    check(rollout_launches["plan_assign"] == 0
+          and rollout_launches["grouped_bmm_f32"] == window,
+          f"async actor rollout: 0 plan_assign and {window} "
+          f"grouped_bmm_f32 launches ({rollout_launches})")
+    traj = async_train.Trajectory(*(x.clone() for x in traj))
+    out["actor_rollout"] = dict(launches=rollout_launches)
+
+    # 4. the threaded driver: the actor on its own thread and stream
+    _zero(kernels)
+    with _CountWindows() as counted_t:
+        model_t, hist_t = async_train.async_train(
+            cfg, ecfg, tcfg, acfg, updates=ASYNC_UPDATES, seed=SEED,
+            env=env, threads=True, check_publication=True, device=device)
+    threaded_launches = _counts(kernels)
+    stale_t = [h["staleness"] for h in hist_t]
+    check(max(stale_t) <= acfg.max_staleness,
+          f"threaded async run: staleness <= {acfg.max_staleness} "
+          f"({stale_t})")
+    check(all(np.isfinite(h["loss"]) for h in hist_t),
+          "threaded async run: every loss finite")
+    check(threaded_launches["grouped_bmm_f32"] > 0,
+          "threaded async run: grouped_bmm_f32 launched")
+    check(not any(t.name == ACTOR_THREAD for t in threading.enumerate()),
+          "threaded async run: the actor thread joined")
+    out["threaded"] = dict(
+        launches=threaded_launches, windows=counted_t.windows,
+        staleness=stale_t,
+        losses=[h["loss"] for h in hist_t],
+        queue_depth=[h["queue_depth"] for h in hist_t],
+        updates_per_s=hist_t[-1]["updates_per_s"],
+        env_steps_per_s=hist_t[-1]["env_steps_per_s"])
+    del model_t
+
+    # 5. one V-trace update of the card's window, replayed on the CPU; the
+    # window is one update off-policy for the weights it is replayed at
+    opt = rmsprop_init(model.params)
+    async_train.learner_update(model, opt, traj, tcfg, acfg, plans)
+    out["replay"] = async_replay(model, traj, tcfg, acfg)
+    out["breakdown"] = async_breakdown(model, opt, env, ecfg, tcfg, acfg)
+    return out
+
+
+def async_breakdown(model, opt, env, ecfg, tcfg, acfg) -> dict:
+    """Synchronised wall ms of each piece of a deterministic update
+    (median of 3 after a warm-up), and the profiler over one update cycle
+    (``acfg.actors`` windows, their pushes and a pop, the refresh, the
+    update and a publication)."""
+    dev = model.device
+    with torch.no_grad():
+        plans = model.encode_plans()
+    queue = async_train.QueueDriver(
+        acfg.capacity, async_train.trajectory_spec(
+            model.cfg, tcfg.batch, ecfg.max_steps), acfg.push_policy, dev)
+    bundle = async_train.publish(model, plans, 0)
+    gen = train.make_generator(SEED + 40, dev)
+    steps = dict(
+        window=lambda: async_train.actor_rollout(bundle, gen, ecfg, tcfg,
+                                                 env),
+        push=lambda: queue.push(traj, 0),
+        pop=lambda: queue.pop()[0],
+        refresh=lambda: train.maybe_refresh_plans(model, plans, 0, None),
+        update=lambda: async_train.learner_update(model, opt, window, tcfg,
+                                                  acfg, plans),
+        publish=lambda: async_train.publish(model, plans, 1))
+    times = {k: [] for k in steps}
+    for _ in range(4):
+        for name, fn in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "window":
+                traj = r
+            elif name == "pop":
+                window = r
+    ms = {k: statistics.median(v[1:]) for k, v in times.items()}
+
+    def cycle():
+        b = async_train.publish(model, plans, 2)
+        for _ in range(acfg.actors):
+            queue.push(async_train.actor_rollout(b, gen, ecfg, tcfg, env), 2)
+        w, _ = queue.pop()
+        p = train.maybe_refresh_plans(model, plans, 0, None)
+        _, m = async_train.learner_update(model, opt, w, tcfg, acfg, p)
+        float(m["loss"])
+    prof = profile(cycle, LEARN_KERNELS)
+    return dict(ms=ms, ms_all=times, profile=prof)
+
+
+def async_replay(model, traj, tcfg, acfg) -> dict:
+    """The V-trace learner loss and its gradients of one window on the
+    card and through a CPU copy of the model with the same weights, by
+    ``learner_replay``'s rules."""
+    with torch.no_grad():
+        plans = model.encode_plans()
+    cpu_model = ic3net.IC3Net(model.cfg, seed=SEED, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        cpu_plans = cpu_model.encode_plans()
+    check(same_plans(plans.plans, cpu_plans.plans)
+          and int(plans.sig) == int(cpu_plans.sig),
+          "async replay: plans encoded on the card == on the CPU")
+    res = {}
+    for name, m, p, tr in (
+            ("card", model, plans, traj),
+            ("cpu", cpu_model, cpu_plans,
+             async_train.Trajectory(*(x.cpu() for x in traj)))):
+        t0 = time.perf_counter()
+        loss, metrics = async_train.learner_loss(m, tr, tcfg, acfg, p)
+        grads = dict(_grad_leaves(train.param_grads(m, loss)))
+        res[name] = (float(loss.detach()), float(metrics["mean_is"]), grads,
+                     time.perf_counter() - t0)
+    (loss_card, is_card, g_card, _), (loss_cpu, is_cpu, g_cpu, cpu_s) = \
+        res["card"], res["cpu"]
+    check(is_cpu < 1.0, f"async replay: the window is off-policy (mean "
+                        f"importance weight {is_cpu})")
+    check(abs(loss_card - loss_cpu) <= ASYNC_REPLAY_LOSS_RTOL * abs(loss_cpu),
+          f"async replay loss within rtol {ASYNC_REPLAY_LOSS_RTOL} "
+          f"({loss_card} on the card, {loss_cpu} on the CPU)")
+    rel = {}
+    for name, want in g_cpu.items():
+        got = g_card[name].detach().cpu()
+        if name.startswith("gate."):
+            check(not got.any() and not want.any(),
+                  f"async replay: the gate head's gradient {name} exactly 0 "
+                  "on both")
+            continue
+        rel[name] = float((got - want).norm() / want.norm())
+        check(rel[name] <= ASYNC_REPLAY_GRAD_REL,
+              f"async replay gradient {name} within relative norm "
+              f"{ASYNC_REPLAY_GRAD_REL} ({rel[name]})")
+    return dict(loss=(loss_card, loss_cpu), mean_is=(is_card, is_cpu),
+                grad_rel=rel, cpu_s=cpu_s)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1845,6 +2134,30 @@ def main() -> int:
     del lr
     fig9 = learning_check(dev)
 
+    # -- path 5: the async actor/learner pipeline ---------------------------
+    asy = run_async(all_kernels, dev)
+    an, op, th = asy["anchor"], asy["off_policy"], asy["threaded"]
+    print(f"slice 9: async anchor (depth 1, no correction) losses "
+          f"{[round(x, 6) for x in an['losses']]} against train's "
+          f"{[round(x, 6) for x in an['sync_losses']]}, max parameter "
+          f"relative difference {an['param_rel_max']:.3g}; V-trace run "
+          f"({op['windows']} windows, {ASYNC_UPDATES} updates): launches "
+          f"{op['launches']}, staleness {op['staleness']}; actor rollout "
+          f"launches {asy['actor_rollout']['launches']}; CPU replay loss "
+          f"{asy['replay']['loss']}, max gradient relative difference "
+          f"{max(asy['replay']['grad_rel'].values()):.3g}", flush=True)
+    print(f"async throughput on {card}: deterministic driver "
+          f"{op['updates_per_s']:.3f} updates/s, {op['env_steps_per_s']:.1f} "
+          f"env-steps/s (actor clock); threaded driver "
+          f"{th['updates_per_s']:.3f} updates/s, {th['env_steps_per_s']:.1f} "
+          f"env-steps/s, staleness {th['staleness']}, {th['windows']} "
+          f"windows", flush=True)
+    bd = asy["breakdown"]
+    print("async update pieces (synchronised wall ms, median of 3): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in bd["ms"].items()),
+          flush=True)
+    print_profile("one async update cycle", bd["profile"])
+
     def total(rows, key):
         return sum(r[key] for r in rows)
 
@@ -1854,7 +2167,8 @@ def main() -> int:
                 "gemma2_train_chunked": ca["launches"][sym],
                 "gemma2_train_flash": fl["launches"][sym],
                 "osel": os_["launches"] if sym == "osel_encode" else 0,
-                "ic3net_learner": learner_out["launches"][sym]}
+                "ic3net_learner": learner_out["launches"][sym],
+                "ic3net_async": op["launches"][sym]}
 
     def launches(sym):
         return sum(path_launches(sym).values())
@@ -2107,6 +2421,7 @@ def main() -> int:
         train=train_out, train_replay=tp, train_profile=tprof,
         osel=os_, fpga_model=fpga, learner=learner_out,
         learner_replay=lrep, learner_profile=lprof, learning_check=fig9,
+        async_pipeline=asy,
         **kernels_line), indent=1, default=str))
     print(json.dumps(kernels_line))
     print(card)

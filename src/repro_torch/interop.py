@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.encoder import PlanState
 from repro_torch.core.grouped import GroupPlan
+from repro_torch.marl.async_train import Trajectory
 from repro_torch.marl.ic3net import IC3Net, IC3NetConfig
 from repro_torch.optim.optimizers import AdamWState, rmsprop_init
 from repro_torch.train.state import TrainState
@@ -104,6 +105,19 @@ def ic3net_from_numpy(cfg: IC3NetConfig, params: dict, opt_state=None,
     opt = rmsprop_init(model.params) if opt_state is None else \
         lm_params_from_numpy(opt_state, model.device)
     return model, opt
+
+
+def trajectory_from_numpy(traj, device=None) -> Trajectory:
+    """A JAX ``async_train.Trajectory`` (any object with its fields, as
+    arrays) -> the port's: actions int64 (the port's action dtype), the
+    rest in their own dtypes. ``device=None`` means the CPU."""
+    def conv(a, dtype=None):
+        a = np.asarray(a)
+        return torch.from_numpy(np.array(a if dtype is None
+                                         else a.astype(dtype))).to(device)
+    return Trajectory(obs=conv(traj.obs), act=conv(traj.act, np.int64),
+                      gates=conv(traj.gates), rew=conv(traj.rew),
+                      logp=conv(traj.logp), succ=conv(traj.succ, bool))
 
 
 def tree_to_numpy(tree):

@@ -160,6 +160,17 @@ class TrainConfig:
                 "TrainConfig.parallel"))
 
 
+def discounted_returns(rew: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Returns-to-go of (B, T, ...) rewards, bootstrapped with 0 after
+    the window: ``G_t = r_t + gamma * G_{t+1}``."""
+    carry = torch.zeros_like(rew[:, 0])
+    returns = []
+    for t in range(rew.shape[1] - 1, -1, -1):
+        carry = rew[:, t] + gamma * carry
+        returns.append(carry)
+    return torch.stack(returns[::-1], dim=1)
+
+
 def a2c_terms(rew, logp, val, ent, gate_logp, gates, succ,
               tcfg: TrainConfig):
     """A2C loss + metrics from per-step trajectory tensors, all (B, T, A):
@@ -170,13 +181,7 @@ def a2c_terms(rew, logp, val, ent, gate_logp, gates, succ,
     ``a2c_terms``: the gate head gets no gradient from the loss (ROADMAP
     Queue 3). Returns (loss, {"success", "return", "loss"}), 0-d tensors.
     """
-    carry = torch.zeros_like(rew[:, 0])
-    returns = []
-    for t in range(rew.shape[1] - 1, -1, -1):
-        carry = rew[:, t] + tcfg.gamma * carry
-        returns.append(carry)
-    returns = torch.stack(returns[::-1], dim=1)                # (B, T, A)
-    adv = returns - val
+    adv = discounted_returns(rew, tcfg.gamma) - val
     pg = -(logp * adv.detach()).mean()
     vloss = (adv ** 2).mean()
     eloss = -ent.mean()
@@ -221,6 +226,17 @@ def maybe_refresh_plans(model: IC3Net, plans: encoder.PlanState, it,
                                  schedule)
 
 
+def param_grads(model: IC3Net, loss: torch.Tensor) -> dict:
+    """d loss / d params as a tree shaped as ``model.params``; a
+    parameter the loss does not reach gets zeros, as JAX's gradient
+    does."""
+    params = list(model.parameters())
+    got = torch.autograd.grad(loss, params, allow_unused=True)
+    by_id = {id(p): torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, got)}
+    return tree_map(lambda p: by_id[id(p)], model.params)
+
+
 def _loss_grads(model: IC3Net, env: Env, ecfg, tcfg: TrainConfig, state,
                 sample: Sampler, it: int = 0,
                 schedule: Optional[SparsitySchedule] = None, plans=None):
@@ -238,11 +254,7 @@ def _loss_grads(model: IC3Net, env: Env, ecfg, tcfg: TrainConfig, state,
     sparse = not ramped or schedule.sparse_at(it)
     loss, metrics = a2c_loss(model, env, ecfg, tcfg, state, sample, plans,
                              flgw_path=None if sparse else "dense")
-    params = list(model.parameters())
-    got = torch.autograd.grad(loss, params, allow_unused=True)
-    by_id = {id(p): torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, got)}
-    grads = tree_map(lambda p: by_id[id(p)], model.params)
+    grads = param_grads(model, loss)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["mask_sparsity"] = _mean_mask_sparsity(model) if sparse else \
         torch.zeros((), device=model.device)

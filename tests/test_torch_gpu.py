@@ -583,3 +583,97 @@ def test_a2c_step_on_the_card_replays_on_the_cpu(cuda):
             if want.any():
                 rel = float((got - want).norm() / want.norm())
                 assert rel <= 1e-4, (k, n, rel)
+
+
+def test_queue_push_on_one_stream_pops_the_same_bytes_on_another(cuda):
+    """The async pipeline's handoff: an actor thread on its own stream
+    makes each window with a long chain of kernels and pushes it; the
+    learner pops on its stream. Over 100 interleaved push/pop pairs every
+    popped window holds exactly the bytes that were pushed."""
+    import threading
+
+    from repro_torch.marl import async_train as at
+    b, t, a, d = 16, 30, 8, 30
+    spec = at.trajectory_spec(
+        ic3net.IC3NetConfig(hidden=8, n_agents=a, obs_dim=d), b, t)
+    drv = at.QueueDriver(3, spec, "overwrite", cuda)
+    stream = torch.cuda.Stream(cuda)
+    pairs, failure = 100, []
+
+    def window(i):
+        x = torch.full((b, t, a, d), float(i), device=cuda)
+        for _ in range(50):               # keep the stream busy a while
+            x = (x * 1.000001).sin().asin() / 1.000001
+        x = torch.full_like(x, float(i)) + 0 * x
+        f = torch.full((b, t, a), float(i), device=cuda)
+        return at.Trajectory(obs=x, act=f.long(), gates=f, rew=f, logp=f,
+                             succ=torch.full((b,), i % 2 == 1, device=cuda))
+
+    def actor():
+        try:
+            with torch.cuda.stream(stream):
+                for i in range(pairs):
+                    while len(drv) >= 2:       # never overwrite unread
+                        threading.Event().wait(0.0005)
+                    drv.push(window(i), i)
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            failure.append(e)
+    th = threading.Thread(target=actor)
+    th.start()
+    got = []
+    for i in range(pairs):
+        drv.wait(lambda: bool(failure) or not th.is_alive())
+        assert not failure, failure
+        traj, ver = drv.pop()
+        assert ver == i
+        got.append(traj)
+    th.join(timeout=60)
+    assert not th.is_alive() and not failure
+    torch.cuda.synchronize()
+    for i, traj in enumerate(got):
+        assert bool((traj.obs == i).all()) and bool((traj.act == i).all())
+        assert bool((traj.logp == i).all()) and bool(
+            (traj.succ == (i % 2 == 1)).all())
+
+
+def test_threaded_async_run_never_reads_a_half_written_bundle(cuda,
+                                                              monkeypatch):
+    """A threaded run on the grouped path: every bundle the actor steps
+    on certifies (``bundle_consistent``) and holds exactly the weights
+    the learner published at its version, before and after the rollout."""
+    from repro_torch.marl import async_train as at
+    env, ecfg = envs.make("predator_prey", n_agents=3, size=5,
+                          max_steps=10)
+    cfg = dataclasses.replace(configs.smoke(), flgw_path="grouped")
+    published, checked = {}, []
+    real_publish, real_rollout = at.publish, at.actor_rollout
+
+    def weights(model):
+        return [p.detach().cpu() for p in model.parameters()]
+
+    def publish(model, plans, version):
+        bundle = real_publish(model, plans, version)
+        published[bundle.version] = weights(bundle.params)
+        return bundle
+
+    def rollout(bundle, *a):
+        at._read_on_current_stream(bundle)
+        want = published[bundle.version]
+        before = weights(bundle.params)
+        assert bool(at.bundle_consistent(bundle)), bundle.version
+        traj = real_rollout(bundle, *a)
+        torch.cuda.current_stream().synchronize()
+        after = weights(bundle.params)
+        assert all(torch.equal(x, y) and torch.equal(x, z)
+                   for x, y, z in zip(want, before, after)), bundle.version
+        checked.append(bundle.version)
+        return traj
+    monkeypatch.setattr(at, "publish", publish)
+    monkeypatch.setattr(at, "actor_rollout", rollout)
+    acfg = at.AsyncConfig(capacity=4, actors=1, correction="vtrace",
+                          max_staleness=4, publish_every=1)
+    _, hist = at.async_train(cfg, ecfg, train.TrainConfig(batch=8), acfg,
+                             updates=12, seed=0, env=env, threads=True,
+                             check_publication=True, device=cuda)
+    assert len(hist) == 12 and max(h["staleness"] for h in hist) <= 4
+    assert len(set(checked)) >= 2       # the actor adopted new versions

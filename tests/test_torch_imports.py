@@ -18,7 +18,7 @@ from repro_torch.kernels.osel_encode import ops as os_ops  # noqa: E402
 from repro_torch.kernels.plan_encode import ops as pe_ops  # noqa: E402
 from repro_torch.launch import time_encode  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.marl import ic3net, train  # noqa: E402
+from repro_torch.marl import async_train, ic3net, train  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,6 +35,8 @@ for name in names:
 runpy.run_path(sys.argv[1], run_name="chip_smoke_import_check")
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
+assert {"repro_torch.marl.async_train",
+        "repro_torch.launch.marl_async"} <= set(names)
 print(len(names))
 """
 
@@ -48,8 +50,8 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
     assert out.returncode == 0, out.stderr
     # every module of the IC3Net learner and OSEL slice is among those
     # imported (osel, load_balance, the osel_encode kernel package and the
-    # three environments)
-    assert int(out.stdout.split()[-1]) >= 57
+    # three environments), and the async pipeline's two
+    assert int(out.stdout.split()[-1]) >= 59
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -63,6 +65,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         train.make_generator(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.train(cfg, iterations=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        async_train.async_train(cfg, updates=1)
     assert resolve_device("cpu") == torch.device("cpu")
     assert ic3net.IC3Net(cfg, device="cpu").device == torch.device("cpu")
     lm = registry.get_smoke_config("gemma2_2b")
