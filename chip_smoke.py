@@ -22,7 +22,13 @@ The port's paths, each at full width with random weights from a seed:
   4x4, 12 steps, B=16, hidden 128, G=4, 800 iterations) on the masked
   and the grouped path;
 * the async actor/learner pipeline (``marl/async_train``): the actor's
-  config and env, B=16, through ``async_train``.
+  config and env, B=16, through ``async_train``;
+* checkpoints and the fault-tolerant LM loop: the training config at
+  full width with its depth cut to 2 layers (one local, one global
+  slot; ~7.5 GB a checkpoint), AdamW, B=4 x S=1024, plans refreshed on
+  a change of layout every 2 steps, through ``StepRunner``; and the
+  launcher ``python -m repro_torch.launch.train --ckpt-dir`` at its
+  smoke config.
 
 The script
 
@@ -108,8 +114,25 @@ The script
      on the CPU (loss within 1e-5, each gradient within 1e-4 relative
      norm, the gate head's exactly 0 on both); prints both drivers'
      updates/s and env-steps/s beside the card's name and power limit;
-  9. prints one ``{"kernels": [...]}`` line, the card's name and power
-     limit, and as the last line ``{"ok": true, "device": {...}}``.
+  9. with every launch count at 0 before each run, drives the
+     checkpointed LM loop in a fresh temporary directory (which must
+     hold four checkpoints; removed after): (a) steps 1-4 uninterrupted,
+     saving step 4; (b) the same init, a real SIGTERM inside step 3, the
+     runner saving steps 2 and 3 and stopping; (c) a fresh state from
+     another seed restored through ``restore_state`` (``plan_assign``
+     exactly one encode's 12 sides) and stepped to 4
+     (``grouped_bmm_bf16`` 6 a layer and step throughout); checks that
+     (a)'s and (c)'s step-4 manifests agree leaf for leaf, hash for hash
+     (bitwise resume), times a save, a restore and the hashing of the
+     same bytes, checks that a corrupted leaf raises ``IOError`` and
+     leaves the target's hashes as they were, runs the launcher as a
+     process, SIGTERM once it logs step 2 (it must save step 3 and exit
+     0) and again (it must print ``steps 3->6``), and checks that the
+     SIGTERM handler is the one before the phase; prints checkpoint
+     bytes, save and restore s and GB/s beside the card's name and power
+     limit;
+  10. prints one ``{"kernels": [...]}`` line, the card's name and power
+      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Details go to ``chiprun_out/chip_smoke.json``.
@@ -117,16 +140,22 @@ result line. Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
+import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -162,6 +191,10 @@ from repro_torch.core import flgw, osel  # noqa: E402
 from repro_torch.core.schedule import SparsitySchedule  # noqa: E402
 from repro_torch.kernels.osel_encode import ops as os_ops  # noqa: E402
 from repro_torch.kernels.osel_encode import ref as os_ref  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
+from repro_torch.data.pipeline import make_batch_iterator  # noqa: E402
+from repro_torch.models.config import param_count  # noqa: E402
+from repro_torch.runtime import StepRunner  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -1891,6 +1924,263 @@ def async_replay(model, traj, tcfg, acfg) -> dict:
                 grad_rel=rel, cpu_s=cpu_s)
 
 
+# ---------------------------------------------------------------------------
+# Checkpoints and the fault-tolerant LM loop
+# ---------------------------------------------------------------------------
+
+# gemma2-2b at full width cut to one local-window and one global slot:
+# a checkpoint is ~7.5 GB (bf16 params, two f32 moments); at 26 layers it
+# would be ~26 GB, and the phase holds four at once.
+CKPT_LAYERS = 2
+CKPT_STEPS, CKPT_SIGTERM_STEP = 4, 3
+# refresh every 2 steps on a change of layout: the resume at step 3 lands
+# mid-period, where a restore that trusted stale plans would diverge
+CKPT_SCHEDULE = SparsitySchedule(groups=4, refresh_every=2,
+                                 refresh="on_change")
+CKPT_ON_DISK = 4
+# the launcher leg: its smoke config on the card, grouped
+LAUNCH_ARGS = ("--arch", "gemma2_2b", "--flgw-groups", "4", "--flgw-path",
+               "grouped", "--save-every", "2", "--steps", "6",
+               "--log-every", "1")
+LAUNCH_TIMEOUT_S = 300
+
+
+def _ckpt_run(runner, state, ds, start: int, device) -> tuple:
+    """``runner.run`` from ``start`` up to step CKPT_STEPS on batches from
+    ``start``; each step's loss and synchronised wall s."""
+    batches = make_batch_iterator(ds, start_step=start, device=device)
+    try:
+        state, end, hist = runner.run(state, batches, start_step=start,
+                                      max_steps=CKPT_STEPS)
+    finally:
+        batches.close()
+    return state, dict(end=end, loss=[float(h["loss"]) for h in hist],
+                       step_s=[h["step_s"] for h in hist])
+
+
+def _ckpt_launches(counts: dict, what: str, steps: int,
+                   encodes: Optional[int] = None) -> None:
+    """grouped_bmm_bf16 6 a layer and step; plan_assign whole encodes of
+    12 sides (exactly ``encodes`` where given); nothing of another path."""
+    check(counts["grouped_bmm_bf16"] == 6 * CKPT_LAYERS * steps,
+          f"grouped_bmm_bf16 launched 6 times per layer and step in {what} "
+          f"({counts['grouped_bmm_bf16']} of {6 * CKPT_LAYERS * steps})")
+    sides = 2 * 3 * 2      # slots x MLP projections x grouping sides
+    if encodes is None:
+        check(counts["plan_assign"] % sides == 0,
+              f"plan_assign launched whole encodes in {what} ({counts})")
+    else:
+        check(counts["plan_assign"] == encodes * sides,
+              f"plan_assign launched {encodes} encodes of {sides} sides in "
+              f"{what} ({counts['plan_assign']})")
+    check_sort_route(counts, what)
+    for name in ("fused_bmm", "grouped_bmm_f32", "flash_fwd",
+                 "flash_bwd_dq", "flash_bwd_dkv", "osel_encode"):
+        check(counts[name] == 0, f"{name} not launched in {what}")
+
+
+def _launcher(d: Path, stop_after: Optional[str]) -> dict:
+    """``python -m repro_torch.launch.train`` on the card with
+    ``--ckpt-dir d``; with ``stop_after``, SIGTERM once a line starts with
+    it. Returns its exit code, output and wall s."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_ARGS,
+           "--ckpt-dir", str(d)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        head = []
+        if stop_after is not None:
+            for line in proc.stdout:
+                head.append(line)
+                if line.startswith(stop_after):
+                    proc.send_signal(signal.SIGTERM)
+                    break
+        out, err = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+    finally:
+        proc.kill()
+        proc.wait()
+    return dict(rc=proc.returncode, out="".join(head) + out, err=err[-4000:],
+                wall_s=time.perf_counter() - t0)
+
+
+def run_checkpoint(kernels, device) -> dict:
+    """gemma2-2b at full width, 2 layers, grouped, through StepRunner:
+    (a) steps 1-4 uninterrupted; (b) the same init preempted by a real
+    SIGTERM inside step 3; (c) a fresh state from another seed restored
+    through ``restore_state`` and stepped to 4. Every launch count at 0
+    before each. (a)'s and (c)'s step-4 checkpoints must agree hash for
+    hash. Then a timed save, a corrupted leaf, and the launcher as a
+    process preempted and resumed."""
+    t_phase = time.perf_counter()
+    cfg = registry.get_config("gemma2_2b", **TRAIN_FLGW).with_updates(
+        n_layers=CKPT_LAYERS)
+    step_fn = step_lib.make_train_step(cfg, schedule=CKPT_SCHEDULE)
+    ds = SyntheticTokens(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    sigterm_before = signal.getsignal(signal.SIGTERM)
+    root = Path(tempfile.mkdtemp(prefix="repro-ckpt-"))
+    dir_a, dir_b, dir_x = root / "a", root / "b", root / "x"
+    out = dict(cut=f"n_layers {CKPT_LAYERS} of 26 (one local, one global "
+                   f"slot)", params=param_count(cfg), dir=str(root))
+
+    @functools.wraps(step_fn)                 # keeps ``mutates_state``
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        return state, dict(metrics, step_s=time.perf_counter() - t0)
+
+    @functools.wraps(step_fn)
+    def preempted(state, batch):
+        if int(state.step) == CKPT_SIGTERM_STEP - 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return timed(state, batch)
+
+    try:
+        # (a) uninterrupted
+        _zero(kernels)
+        state = state_lib.init_state(
+            torch.Generator(device=device).manual_seed(SEED), cfg)
+        state_bytes = sum(leaf.numel() * leaf.element_size()
+                          for _, leaf in store.tree_paths(state))
+        disk = shutil.disk_usage(root)
+        out.update(state_bytes=state_bytes, disk_free=disk.free,
+                   disk_total=disk.total)
+        print(f"  checkpoint phase: {out['cut']}, {out['params']:,} params, "
+              f"{state_bytes / 1e9:.3f} GB a state; {root}: "
+              f"{disk.free / 1e9:.1f} of {disk.total / 1e9:.1f} GB free",
+              flush=True)
+        check(disk.free >= CKPT_ON_DISK * state_bytes,
+              f"{root} holds {CKPT_ON_DISK} checkpoints of "
+              f"{state_bytes / 1e9:.2f} GB ({disk.free / 1e9:.1f} GB free)")
+        runner = StepRunner(timed, dir_a, save_every=CKPT_STEPS)
+        try:
+            state, out["a"] = _ckpt_run(runner, state, ds, 0, device)
+        finally:
+            runner.guard.restore()
+        out["a"]["launches"] = _counts(kernels)
+        _ckpt_launches(out["a"]["launches"], "checkpoint run (a)",
+                       CKPT_STEPS)
+        check(out["a"]["end"] == CKPT_STEPS
+              and store.list_steps(dir_a) == [CKPT_STEPS],
+              f"run (a) wrote step {CKPT_STEPS} ({store.list_steps(dir_a)})")
+        del state
+
+        # (b) the same init, SIGTERM inside step 3
+        _zero(kernels)
+        state = state_lib.init_state(
+            torch.Generator(device=device).manual_seed(SEED), cfg)
+        runner = StepRunner(preempted, dir_b, save_every=2)
+        try:
+            state, out["b"] = _ckpt_run(runner, state, ds, 0, device)
+        finally:
+            runner.guard.restore()
+        out["b"]["launches"] = _counts(kernels)
+        _ckpt_launches(out["b"]["launches"], "checkpoint run (b)",
+                       CKPT_SIGTERM_STEP)
+        check(out["b"]["end"] == CKPT_SIGTERM_STEP
+              and store.list_steps(dir_b) == [2, CKPT_SIGTERM_STEP],
+              f"run (b) stopped at the SIGTERM's boundary "
+              f"{CKPT_SIGTERM_STEP} and saved it ({out['b']['end']}, "
+              f"{store.list_steps(dir_b)})")
+        del state
+
+        # (c) a fresh state, restored and stepped to 4
+        state = state_lib.init_state(
+            torch.Generator(device=device).manual_seed(SEED + 9), cfg)
+        runner = StepRunner(timed, dir_b, save_every=2)
+        try:
+            _zero(kernels)
+            t0 = time.perf_counter()
+            state, start = runner.restore_or(
+                state, restore_fn=lambda s: state_lib.restore_state(
+                    dir_b, s, cfg))
+            torch.cuda.synchronize()
+            out["restore_s"] = time.perf_counter() - t0
+            out["restore_launches"] = _counts(kernels)
+            check(start == CKPT_SIGTERM_STEP
+                  and int(state.step) == CKPT_SIGTERM_STEP,
+                  f"restore_or resumed at {CKPT_SIGTERM_STEP} ({start})")
+            _ckpt_launches(out["restore_launches"], "the restore", 0,
+                           encodes=1)
+            _zero(kernels)
+            state, out["c"] = _ckpt_run(runner, state, ds, start, device)
+        finally:
+            runner.guard.restore()
+        out["c"]["launches"] = _counts(kernels)
+        _ckpt_launches(out["c"]["launches"], "checkpoint run (c)",
+                       CKPT_STEPS - CKPT_SIGTERM_STEP)
+        ma = store.read_manifest(dir_a, step=CKPT_STEPS)
+        mc = store.read_manifest(dir_b, step=CKPT_STEPS)
+        differ = [a["path"] for a, c in zip(ma["leaves"], mc["leaves"])
+                  if a != c]
+        out.update(leaves=len(ma["leaves"]), leaves_differing=differ)
+        check(len(ma["leaves"]) == len(mc["leaves"]) and not differ,
+              f"(a)'s and (c)'s step-{CKPT_STEPS} checkpoints agree leaf "
+              f"for leaf, hash for hash ({len(differ)} of "
+              f"{len(ma['leaves'])} differ: {differ[:8]})")
+        out["ckpt_bytes"] = sum(
+            f.stat().st_size
+            for f in (dir_b / f"step_{CKPT_STEPS:08d}").iterdir())
+        shutil.rmtree(dir_a)
+
+        # a timed save of the resumed state, then a corrupted leaf
+        t0 = time.perf_counter()
+        path = Path(store.save_checkpoint(dir_x, CKPT_STEPS, state))
+        out["save_s"] = time.perf_counter() - t0
+        mx = store.read_manifest(dir_x)
+        out["hash_s"] = 0.0
+        for e in mx["leaves"]:
+            arr = np.load(path / e["file"])
+            t0 = time.perf_counter()
+            store.hash_array(arr)
+            out["hash_s"] += time.perf_counter() - t0
+        bad = mx["leaves"][-1]
+        raw = bytearray((path / bad["file"]).read_bytes())
+        raw[-1] ^= 0xFF
+        (path / bad["file"]).write_bytes(bytes(raw))
+        try:
+            store.restore_checkpoint(dir_x, state)
+            raised = None
+        except IOError as e:
+            raised = str(e)
+        check(raised == f"checkpoint corruption at {bad['path']}",
+              f"a corrupted {bad['path']} raises IOError ({raised})")
+        hashes = {p: store.hash_array(store.leaf_to_numpy(leaf)[0])
+                  for p, leaf in store.tree_paths(state)}
+        check(hashes == {e["path"]: e["hash"] for e in mc["leaves"]},
+              "the failed restore left the target untouched")
+        out.update(corrupted=bad["path"], raised=raised)
+        del state
+        torch.cuda.empty_cache()
+
+        # the launcher as a process: SIGTERM inside step 3, then resume
+        launch_dir = root / "launcher"
+        first = _launcher(launch_dir, stop_after="step 2:")
+        check(first["rc"] == 0 and store.list_steps(launch_dir) == [2, 3],
+              f"the launcher saved step 3 at SIGTERM and exited 0 (rc "
+              f"{first['rc']}, steps {store.list_steps(launch_dir)}): "
+              f"{first['err']}")
+        second = _launcher(launch_dir, stop_after=None)
+        check(second["rc"] == 0 and "steps 3->6" in second["out"],
+              f"the relaunched launcher resumed at 3 (rc {second['rc']}): "
+              f"{second['out'][-2000:]} {second['err']}")
+        out["launcher"] = dict(first=first, second=second)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(signal.getsignal(signal.SIGTERM) is sigterm_before,
+          "the SIGTERM handler after the phase is the one before it")
+    out["save_gb_s"] = out["ckpt_bytes"] / out["save_s"] / 1e9
+    out["restore_gb_s"] = out["ckpt_bytes"] / out["restore_s"] / 1e9
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["launches"] = {k: sum(out[leg]["launches"][k] for leg in "abc")
+                       + out["restore_launches"][k]
+                       for k in out["a"]["launches"]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2158,6 +2448,24 @@ def main() -> int:
           flush=True)
     print_profile("one async update cycle", bd["profile"])
 
+    # -- path 6: checkpoints and the fault-tolerant LM loop ----------------
+    ck = run_checkpoint(all_kernels, dev)
+    print(f"slice 10: gemma2-2b at full width, {ck['cut']}, "
+          f"{ck['params']:,} params, {ck['ckpt_bytes']:,} bytes a "
+          f"checkpoint ({ck['leaves']} leaves); (a) losses {ck['a']['loss']}, "
+          f"(b) stopped at {ck['b']['end']} by SIGTERM, (c) resumed at "
+          f"{CKPT_SIGTERM_STEP}, loss {ck['c']['loss']}; step-{CKPT_STEPS} "
+          f"checkpoints of (a) and (c) equal hash for hash; launches (a) "
+          f"{ck['a']['launches']}, restore {ck['restore_launches']}, (c) "
+          f"{ck['c']['launches']}; a corrupted {ck['corrupted']} raised "
+          f"IOError, target untouched; the launcher process stopped at 3 "
+          f"by SIGTERM and resumed 3->6", flush=True)
+    print(f"checkpoint I/O on {card}: {ck['ckpt_bytes'] / 1e9:.3f} GB a "
+          f"checkpoint; save {ck['save_s']:.2f} s ({ck['save_gb_s']:.2f} "
+          f"GB/s); restore {ck['restore_s']:.2f} s ({ck['restore_gb_s']:.2f} "
+          f"GB/s; hashing the same bytes alone {ck['hash_s']:.2f} s); "
+          f"phase {ck['wall_s']:.1f} s", flush=True)
+
     def total(rows, key):
         return sum(r[key] for r in rows)
 
@@ -2168,7 +2476,8 @@ def main() -> int:
                 "gemma2_train_flash": fl["launches"][sym],
                 "osel": os_["launches"] if sym == "osel_encode" else 0,
                 "ic3net_learner": learner_out["launches"][sym],
-                "ic3net_async": op["launches"][sym]}
+                "ic3net_async": op["launches"][sym],
+                "gemma2_ckpt": ck["launches"][sym]}
 
     def launches(sym):
         return sum(path_launches(sym).values())
@@ -2421,7 +2730,7 @@ def main() -> int:
         train=train_out, train_replay=tp, train_profile=tprof,
         osel=os_, fpga_model=fpga, learner=learner_out,
         learner_replay=lrep, learner_profile=lprof, learning_check=fig9,
-        async_pipeline=asy,
+        async_pipeline=asy, checkpoint=ck,
         **kernels_line), indent=1, default=str))
     print(json.dumps(kernels_line))
     print(card)

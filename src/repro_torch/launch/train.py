@@ -7,13 +7,16 @@ Port of ``repro.launch.train`` on one device (the card unless
       --full --flgw-groups 4 --flgw-path grouped --steps 3 --batch 4 \\
       --seq 1024
 
-There is no mesh. The checkpoint and fault runner (``--ckpt-dir`` and
-its ``--save-every``) is a later module of the port (ROADMAP, Queue 1)
-and raises here.
+There is no mesh. With ``--ckpt-dir`` the loop runs under
+``repro_torch.runtime.StepRunner``: it resumes from the directory's
+latest checkpoint (plans re-encoded by ``restore_state``), saves every
+``--save-every`` steps, and on SIGTERM or SIGINT saves at the next step
+boundary and exits 0; run the same command again to resume.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 import torch
@@ -22,12 +25,9 @@ from repro_torch import resolve_device
 from repro_torch.configs import registry
 from repro_torch.core.schedule import SparsitySchedule
 from repro_torch.data.pipeline import SyntheticTokens, make_batch_iterator
+from repro_torch.runtime.fault import StepRunner
 from repro_torch.train import state as state_lib
 from repro_torch.train import step as step_lib
-
-_NO_CKPT = ("checkpointing (--ckpt-dir, --save-every) is not ported to "
-            "repro_torch yet: the checkpoint and fault runner is a later "
-            "module (ROADMAP, Queue 1)")
 
 
 def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
@@ -35,13 +35,12 @@ def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
              flgw_groups: int = 1, flgw_path: str = "masked",
              refresh_every: int = 1, refresh: str = "period",
              optimizer: str = "adamw", ckpt_dir: str = None,
-             log_every: int = 10,
+             save_every: int = 100, log_every: int = 10,
              banded: bool = False, seed: int = 0, device=None):
-    """Train ``arch`` for ``steps`` steps on synthetic tokens. Returns
-    ``(state, history)``: one metrics dict per step (tensors, plus the
-    step's synchronised wall time ``step_s``)."""
-    if ckpt_dir:
-        raise NotImplementedError(_NO_CKPT)
+    """Train ``arch`` up to step ``steps`` on synthetic tokens (from the
+    latest checkpoint in ``ckpt_dir``, when there is one). Returns
+    ``(state, history)``: one metrics dict per step run (tensors, plus
+    the step's synchronised wall time ``step_s``)."""
     if banded:
         raise NotImplementedError(
             "the banded prefill is not ported to repro_torch yet (ROADMAP, "
@@ -61,33 +60,57 @@ def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
 
     state = state_lib.init_state(torch.Generator(device=dev).manual_seed(seed),
                                  cfg, optimizer=optimizer)
-    step_fn = step_lib.make_train_step(cfg, optimizer=optimizer, lr=lr,
-                                       schedule=schedule)
-    ds = SyntheticTokens(cfg.vocab, batch, seq, seed=seed)
-    batches = make_batch_iterator(ds, device=dev)
+    train_step = step_lib.make_train_step(cfg, optimizer=optimizer, lr=lr,
+                                          schedule=schedule)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    history = []
-    t0 = time.perf_counter()
+    @functools.wraps(train_step)            # keeps ``mutates_state``
+    def step_fn(state, batch):
+        sync()
+        ts = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        sync()
+        return state, dict(metrics, step_s=time.perf_counter() - ts)
+
+    ds = SyntheticTokens(cfg.vocab, batch, seq, seed=seed)
+    runner = None
+    start = 0
+    if ckpt_dir:
+        runner = StepRunner(step_fn, ckpt_dir, save_every=save_every)
     try:
-        for end in range(1, steps + 1):
-            sync()
-            ts = time.perf_counter()
-            state, metrics = step_fn(state, next(batches))
-            sync()
-            history.append(dict(metrics, step_s=time.perf_counter() - ts))
-            if log_every and end % log_every == 0:
-                print(f"step {end}: loss={float(metrics['loss']):.4f}",
-                      flush=True)
+        if runner is not None:
+            state, start = runner.restore_or(
+                state, restore_fn=lambda s: state_lib.restore_state(
+                    ckpt_dir, s, cfg))
+        batches = make_batch_iterator(ds, start_step=start, device=dev)
+        t0 = time.perf_counter()
+        try:
+            if runner is not None:
+                state, end, history = runner.run(
+                    state, batches, start_step=start, max_steps=steps,
+                    log_every=log_every)
+            else:
+                history = []
+                for end in range(1, steps + 1):
+                    state, metrics = step_fn(state, next(batches))
+                    history.append(metrics)
+                    if log_every and end % log_every == 0:
+                        print(f"step {end}: "
+                              f"loss={float(metrics['loss']):.4f}",
+                              flush=True)
+                end = len(history)
+        finally:
+            batches.close()
+        dt = time.perf_counter() - t0
     finally:
-        batches.close()
-    dt = time.perf_counter() - t0
+        if runner is not None:    # a later SIGTERM must not be swallowed
+            runner.guard.restore()
 
     losses = [float(h["loss"]) for h in history]
-    print(f"{arch}: steps 0->{len(history)} in {dt:.1f}s  "
+    print(f"{arch}: steps {start}->{end} in {dt:.1f}s  "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}"
           if losses else f"{arch}: no steps run")
     return state, history
@@ -114,8 +137,7 @@ def main(argv=None):
     ap.add_argument("--optimizer", default="adamw",
                     choices=("adamw", "rmsprop"))
     ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--save-every", type=int, default=None,
-                    help="with --ckpt-dir; not ported yet, raises")
+    ap.add_argument("--save-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--banded", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
@@ -123,13 +145,12 @@ def main(argv=None):
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain PyTorch path)")
     a = ap.parse_args(argv)
-    if a.save_every is not None:
-        raise NotImplementedError(_NO_CKPT)
     train_lm(a.arch, smoke=a.smoke, steps=a.steps, batch=a.batch,
              seq=a.seq, lr=a.lr, flgw_groups=a.flgw_groups,
              flgw_path=a.flgw_path, refresh_every=a.refresh,
              refresh=a.refresh_mode, optimizer=a.optimizer,
-             ckpt_dir=a.ckpt_dir, log_every=a.log_every, banded=a.banded, seed=a.seed,
+             ckpt_dir=a.ckpt_dir, save_every=a.save_every,
+             log_every=a.log_every, banded=a.banded, seed=a.seed,
              device=a.device)
 
 

@@ -1,8 +1,8 @@
 """Train state: params, optimizer state, step and cached plans.
 
-Port of ``repro.train.state``'s state and init. The sharding specs,
-``abstract_state`` and the checkpoint restore wait for the sharding and
-checkpoint slices (ROADMAP, Queue 1).
+Port of ``repro.train.state``'s state, init and plans-aware restore.
+``state_specs``, ``abstract_state`` and ``plan_specs`` wait for the
+sharding slice (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import adamw_init, rmsprop_init
@@ -53,3 +54,20 @@ def reencode_plans(state: TrainState, cfg: ModelConfig) -> TrainState:
     with torch.no_grad():
         return state._replace(plans=transformer.encode_plans(state.params,
                                                              cfg))
+
+
+def restore_state(ckpt_dir, state: TrainState, cfg: ModelConfig, *,
+                  step=None) -> tuple[TrainState, int]:
+    """Restore a :class:`TrainState` into ``state``'s tensors (in place,
+    see ``restore_checkpoint``), re-encoding plans from the restored
+    params instead of loading them.
+
+    Dropping the plans from the restore target migrates pre-plans grouped
+    manifests, which have no ``plans`` leaves; and the re-encode never
+    trusts checkpointed plans, which may be stale under the refresh
+    policy, so the first resumed step is bitwise the uninterrupted run's
+    under any refresh mode.
+    """
+    restored, s = ckpt.restore_checkpoint(ckpt_dir, state._replace(plans=()),
+                                          step=step)
+    return reencode_plans(restored, cfg), s

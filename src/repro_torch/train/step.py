@@ -11,7 +11,9 @@ consume one encode.
 The optimizer updates ``state``'s params and moments in place (see
 ``repro_torch.optim``) and the returned state holds the same tensors:
 the state passed in is consumed, and a caller that needs the old values
-copies them first.
+copies them first. The step function carries ``mutates_state = True``,
+so ``repro_torch.runtime.StepRunner`` never retries it from a state a
+failed attempt may have written.
 """
 from __future__ import annotations
 
@@ -122,4 +124,5 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adamw",
                                plans=plans)
         return new_state, dict(metrics, loss=loss, grad_norm=gnorm)
 
+    train_step.mutates_state = True
     return train_step

@@ -25,18 +25,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, runpy, sys
-sys.modules["jax"] = None          # any import of jax or repro now fails
-sys.modules["repro"] = None
+sys.modules["jax"] = None          # any import of jax, repro or
+sys.modules["repro"] = None        # ml_dtypes now fails
+sys.modules["ml_dtypes"] = None
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
 runpy.run_path(sys.argv[1], run_name="chip_smoke_import_check")
-assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+assert not any(m in ("jax", "ml_dtypes")
+               or m.startswith(("jax.", "repro.", "ml_dtypes."))
                for m in sys.modules if sys.modules[m] is not None)
 assert {"repro_torch.marl.async_train",
-        "repro_torch.launch.marl_async"} <= set(names)
+        "repro_torch.launch.marl_async",
+        "repro_torch.checkpoint.store", "repro_torch.runtime.fault",
+        "repro_torch.train.state"} <= set(names)
 print(len(names))
 """
 
@@ -50,8 +54,9 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
     assert out.returncode == 0, out.stderr
     # every module of the IC3Net learner and OSEL slice is among those
     # imported (osel, load_balance, the osel_encode kernel package and the
-    # three environments), and the async pipeline's two
-    assert int(out.stdout.split()[-1]) >= 59
+    # three environments), the async pipeline's two and the checkpoint
+    # slice's four (checkpoint and runtime, each a package and a module)
+    assert int(out.stdout.split()[-1]) >= 64
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
