@@ -28,7 +28,17 @@ The port's paths, each at full width with random weights from a seed:
   slot; ~7.5 GB a checkpoint), AdamW, B=4 x S=1024, plans refreshed on
   a change of layout every 2 steps, through ``StepRunner``; and the
   launcher ``python -m repro_torch.launch.train --ckpt-dir`` at its
-  smoke config.
+  smoke config;
+* serving the rest of the dense family at full width, cut in depth
+  (random bf16 weights, FLGW G=4 grouped on the MLP and attention
+  projections, slack 1.25): gemma2-27b at 4 layers (2 blocks of local +
+  global; its d_ff of 36,864 takes the tiled plan encode), internlm2-20b
+  at 2 (q-per-kv 6, head dim 128, no softcap) and gemma3-12b at 6 (one
+  5:1 period, window 1,024, S=2,048);
+* paligemma-3b's prefix-LM prefill at full depth (18 layers, 256 patch
+  embeddings + 768 text tokens) and gemma3-12b's banded prefill;
+* the sync IC3Net launcher ``python -m repro_torch.launch.marl_ic3net``
+  at the reference's defaults (4 agents on 4x4, hidden 128, B=16).
 
 The script
 
@@ -131,7 +141,36 @@ The script
      SIGTERM handler is the one before the phase; prints checkpoint
      bytes, save and restore s and GB/s beside the card's name and power
      limit;
-  10. prints one ``{"kernels": [...]}`` line, the card's name and power
+  10. for gemma2-27b, internlm2-20b and gemma3-12b in turn: holds
+      ``plan_assign`` bitwise at every FLGW side on the sort route and
+      ``plan_rank``/``plan_place`` at every side past it (gemma2-27b's
+      d_ff sides), ``fused_bmm`` at one block's 7 projections for 4 and
+      B*S rows, ``flash_fwd`` at the prefill's shapes (each window),
+      timing one side or call of each shape against its plain version
+      and, where one computes the same function, a PyTorch call; then,
+      with every launch count at 0, a certify ServeSession, a B=4
+      prefill with ``use_flash`` and a lockstep Engine run (4 requests,
+      prompt 64, gen 32), checking the launches (``plan_rank`` and
+      ``plan_place`` exactly one a side past the sort limit and encode,
+      on gemma2-27b only); a CPU replay of a cut with a local and a
+      global slot (B=1 x S=128, 4 greedy steps); and a profile of one
+      prefill and 8 decode steps (``flash_fwd`` on wgmma only,
+      ``fused_bmm`` on wgmma and the streaming kernel only);
+  11. paligemma-3b at full depth: ``plan_assign`` bitwise at its L = 18
+      sides (the d_ff sides at 16,384 items), ``fused_bmm`` at 4 and
+      4096 rows; with the counts at 0, a certify session and a B=4
+      prefill of 256 patches + 768 tokens (no ``flash_fwd``: a prefix
+      takes the chunked core); a CPU replay of a 2-layer cut (the prefix
+      mask); then gemma3-12b's chunked prefill at S=2,048, q_chunk 512,
+      banded and not, each with the counts at 0: hidden states and last
+      logits within the bf16 gate;
+  12. the sync launcher: ``plan_assign`` bitwise and ``grouped_bmm_f32``
+      timed at its shapes; its ``main`` in this process with the counts
+      at 0 (the launches checked); the same command as a process on the
+      card (exit 0, its success, throughput and sparsity lines, each
+      layer's learned sparsity within 10 points of 75 %), and ``--mesh
+      2,2`` (a non-zero exit naming sharding);
+  13. prints one ``{"kernels": [...]}`` line, the card's name and power
       limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -139,9 +178,11 @@ result line. Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -195,6 +236,8 @@ from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.data.pipeline import make_batch_iterator  # noqa: E402
 from repro_torch.models.config import param_count  # noqa: E402
 from repro_torch.runtime import StepRunner  # noqa: E402
+from repro_torch.launch import marl_ic3net  # noqa: E402
+from repro_torch.models.layers import softcap, unembed  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -397,44 +440,59 @@ def check_assign_kernel(sides, slack: float) -> list[dict]:
 
 
 def check_tiled_route(slack: float, device) -> dict:
-    """plan_rank and plan_place against their plain versions at a side
-    past the sort route's limit, where ``assign`` takes them, and the
-    whole assignment there against the sort oracle; each timed, with its
-    bound by bytes (pref, strength and rank read once, rank, histograms
-    and slots written once)."""
-    l, m, g = TILED_SIDE
-    check(pe_ops.assign_route(m, g) == "tiled",
-          f"{m} items in {g} groups take the tiled route")
+    """The tiled route at TILED_SIDE, a synthetic side past the sort
+    route's limit (see :func:`check_tiled`)."""
     scores = torch.randn(TILED_SIDE, device=device,
                          generator=torch.Generator(device=device)
                          .manual_seed(SEED + 5))
+    return check_tiled(f"L, M, G = {TILED_SIDE}", scores, 1, slack)
+
+
+def check_tiled(what: str, scores, axis: int, slack: float,
+                timed: bool = True) -> dict:
+    """plan_rank and plan_place against their plain versions at a side
+    past the sort route's limit, where ``assign`` takes them (one launch
+    of each), and the whole assignment there against the sort oracle,
+    layer by layer; with ``timed``, each kernel timed, with its bound by
+    bytes (pref, strength and rank read once, rank, histograms and slots
+    written once)."""
+    m, g = scores.shape[-2:] if axis else scores.shape[-2:][::-1]
+    l = scores.numel() // (m * g)
+    check(pe_ops.assign_route(m, g) == "tiled",
+          f"{what}: {m} items in {g} groups take the tiled route")
     cap = compute_cap(m, g, slack)
-    pref, strength, bi = pe_ops.preferences(scores, 1)
+    pref, strength, bi = pe_ops.preferences(scores, axis)
     rk, hist = pe_ops.rank(pref, strength, g, bi)
     rk_ref, hist_ref = pe_ref.ref_rank(pref, strength, g, bi)
     rank_err = max(int((rk - rk_ref).abs().max()),
                    int((hist - hist_ref).abs().max()))
-    check(rank_err == 0, "plan_rank == plain past the sort limit")
+    check(rank_err == 0, f"plan_rank == plain at {what}")
     slot = pe_ops.place(pref, rk, hist, g, cap)
     place_err = int((slot - pe_ref.ref_place(pref, rk_ref, hist_ref, g, cap)
                      ).abs().max())
-    check(place_err == 0, "plan_place == plain past the sort limit")
+    check(place_err == 0, f"plan_place == plain at {what}")
     before = (pe_ops.ASSIGN.launches, pe_ops.RANK.launches,
               pe_ops.PLACE.launches)
-    ids = pe_ops.balanced_assign(scores, 1, slack)
+    ids = pe_ops.balanced_assign(scores, axis, slack)
     check((pe_ops.ASSIGN.launches, pe_ops.RANK.launches,
            pe_ops.PLACE.launches) == (before[0], before[1] + 1,
                                       before[2] + 1),
-          "past the sort limit, assign runs plan_rank and plan_place")
-    check(torch.equal(ids[0], pe_ref.ref_balanced_assign(scores[0], slack)),
-          "balanced_assign == sort oracle past the sort limit")
+          f"{what}: assign runs plan_rank and plan_place once each")
+    rows = (scores if axis else scores.transpose(-1, -2)).reshape(l, m, g)
+    check(all(torch.equal(ids.reshape(l, g, cap)[i],
+                          pe_ref.ref_balanced_assign(rows[i], slack))
+              for i in range(l)),
+          f"balanced_assign == sort oracle at {what}")
     mp = pref.shape[1]
+    out = dict(side=what, layers=l, items=m, groups=g, axis=axis, mp=mp,
+               tile=bi, cap=cap, max_abs_err=max(rank_err, place_err))
+    if not timed:
+        return out
     n_it = mp // bi
     calls = 10
     prof = profile(lambda: [pe_ops.place(pref, *pe_ops.rank(
         pref, strength, g, bi), g, cap) for _ in range(calls)],
         {"plan_rank": "rank_kernel", "plan_place": "place_kernel"})
-    out = dict(layers=l, items=m, groups=g, mp=mp, tile=bi, cap=cap)
     for name, err, fn, plain, nbytes in (
             ("rank", rank_err, lambda: pe_ops.rank(pref, strength, g, bi),
              lambda: pe_ref.ref_rank(pref, strength, g, bi),
@@ -694,10 +752,12 @@ def serve_params(cfg, device) -> dict:
         torch.Generator(device=device).manual_seed(SEED), cfg)
 
 
-def check_fused_kernel(params, cfg) -> list[dict]:
+def check_fused_kernel(params, cfg, rows_bf16=(4, 4096),
+                       rows_f32: Optional[int] = 64) -> list[dict]:
     """fused_bmm against its plain version at each FLGW projection of
-    block 0's local slot (the shapes every layer repeats), for a decode
-    step's 4 rows and a prefill's 4096, in bf16; one f32 case. The 4-row
+    block 0's first slot (the shapes every layer repeats), for a decode
+    step's 4 rows and a prefill's B*S (``rows_bf16``), in bf16; one f32
+    case (``rows_f32``, None for none). The 4-row
     calls are timed twice: on one wc (``ms``, which stays in L2) and over
     a ring of wc copies larger than L2 (``ms_cold``), as a decode step
     finds each layer's weights."""
@@ -711,7 +771,8 @@ def check_fused_kernel(params, cfg) -> list[dict]:
     gen = torch.Generator(device=params["embed"]["embedding"].device)
     gen.manual_seed(SEED + 2)
     rows = []
-    cases = [(r, torch.bfloat16) for r in (4, 4096)] + [(64, torch.float32)]
+    cases = [(r, torch.bfloat16) for r in rows_bf16] + (
+        [] if rows_f32 is None else [(rows_f32, torch.float32)])
     for n_rows, dtype in cases:
         for part, name in projs:
             if dtype == torch.float32 and name != "q":
@@ -772,14 +833,17 @@ def _attn_pairs(s: int, window: int) -> int:
     return sum(min(q + 1, window) if window > 0 else q + 1 for q in range(s))
 
 
-def check_flash_kernel(cfg, device) -> list[dict]:
+def check_flash_kernel(cfg, device,
+                       cases=((PREFILL_SEQ, 4096), (PREFILL_SEQ, 0),
+                              (512, 128))) -> list[dict]:
     """flash_fwd against its plain version (f32 math) at the prefill's
-    shapes, and timed against SDPA with softcap 0 (SDPA has none)."""
+    shapes (``cases``: (S, window) at ``cfg``'s heads, head dim and
+    softcap), and timed against SDPA with softcap 0 (SDPA has none)."""
     import torch.nn.functional as F
     b, hq, hkv, d = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     rows = []
-    for s, window in ((PREFILL_SEQ, 4096), (PREFILL_SEQ, 0), (512, 128)):
+    for s, window in cases:
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device=device)
                    .to(torch.bfloat16) for h in (hq, hkv, hkv))
         kw = dict(causal=True, window=window, softcap=cfg.attn_softcap)
@@ -796,6 +860,7 @@ def check_flash_kernel(cfg, device) -> list[dict]:
         bnd, by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
         kw0 = dict(kw, softcap=0.0)
         row = dict(
+            b=b, hq=hq, hkv=hkv, d=d, softcap=cfg.attn_softcap,
             s=s, window=window, max_abs_err=err, lse_max_abs_err=lerr,
             ms=time_ms(lambda: fa_ops.flash_fwd(q, k, v, **kw), 20, 3),
             plain_ms=time_ms(lambda: fa_ref.ref_flash_fwd(q, k, v, **kw),
@@ -815,10 +880,14 @@ def check_flash_kernel(cfg, device) -> list[dict]:
     return rows
 
 
-def run_serve(cfg, params, kernels) -> dict:
+def run_serve(cfg, params, kernels, seq: int = PREFILL_SEQ,
+              continuous: bool = True, tiled_sides: int = 0) -> dict:
     """The serving path with every launch count at 0 first: a certify
-    session, a B=4 x S=1024 prefill, one lockstep and one continuous
-    Engine run."""
+    session, a B=4 x S=``seq`` prefill, one lockstep and (``continuous``)
+    one continuous Engine run. ``tiled_sides``: how many grouping sides
+    of one encode lie past the sort route's limit (each then takes one
+    plan_rank and one plan_place launch an encode); with none, no side
+    may take them."""
     plan_cache.clear()
     _zero(kernels)
     t0 = time.perf_counter()
@@ -827,10 +896,10 @@ def run_serve(cfg, params, kernels) -> dict:
     session_s = time.perf_counter() - t0
     dev = session.device
     rng = torch.Generator(device=dev).manual_seed(SEED + 4)
-    tok = torch.randint(0, cfg.vocab, (SERVE_BATCH, PREFILL_SEQ),
+    tok = torch.randint(0, cfg.vocab, (SERVE_BATCH, seq),
                         generator=rng, device=dev)
     batch = {"tokens": tok, "positions": torch.arange(
-        PREFILL_SEQ, device=dev).expand(SERVE_BATCH, PREFILL_SEQ)}
+        seq, device=dev).expand(SERVE_BATCH, seq)}
     prefill_s = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -848,19 +917,32 @@ def run_serve(cfg, params, kernels) -> dict:
                  for i in range(SERVE_BATCH)]
     lock = Engine(session, SERVE_BATCH, max_seq_for(lock_reqs),
                   admission="lockstep").run(lock_reqs)
-    cont_reqs = synthetic_requests(1, 16, vocab=cfg.vocab, p_arrive=0.5,
-                                   prompt_len=(PROMPT // 2, PROMPT),
-                                   gen_len=(GEN // 2, GEN))
-    cont = Engine(session, SERVE_BATCH, max_seq_for(cont_reqs),
-                  admission="continuous").run(cont_reqs)
+    runs = [(lock, lock_reqs)]
+    if continuous:
+        cont_reqs = synthetic_requests(1, 16, vocab=cfg.vocab, p_arrive=0.5,
+                                       prompt_len=(PROMPT // 2, PROMPT),
+                                       gen_len=(GEN // 2, GEN))
+        cont = Engine(session, SERVE_BATCH, max_seq_for(cont_reqs),
+                      admission="continuous").run(cont_reqs)
+        runs.append((cont, cont_reqs))
     torch.cuda.synchronize()
     launches = {k.symbol: k.launches for k in kernels}
+    what = f"the {cfg.name} serving path"
     for name in ("plan_assign", "fused_bmm", "flash_fwd"):
-        check(launches[name] > 0, f"{name} launched on the serving path")
-    check_sort_route(launches, "the serving path")
-    check(launches["grouped_bmm_f32"] == 0,
-          "grouped_bmm_f32 not launched on the serving path")
-    for rep, reqs in ((lock, lock_reqs), (cont, cont_reqs)):
+        check(launches[name] > 0, f"{name} launched on {what}")
+    encodes = plan_cache.stats()["encodes"]
+    if tiled_sides:
+        check(encodes >= 1 and launches["plan_rank"] == launches["plan_place"]
+              == tiled_sides * encodes,
+              f"{what}: one plan_rank and one plan_place launch per side "
+              f"past the sort limit ({tiled_sides}) and encode ({encodes}); "
+              f"launches {launches}")
+    else:
+        check_sort_route(launches, what)
+    for name in ("grouped_bmm_f32", "grouped_bmm_bf16", "flash_bwd_dq",
+                 "flash_bwd_dkv", "osel_encode"):
+        check(launches[name] == 0, f"{name} not launched on {what}")
+    for rep, reqs in runs:
         check(rep.generated_tokens == sum(r.max_new_tokens for r in reqs)
               and all(0 <= t < cfg.vocab for r in rep.records
                       for t in r.tokens),
@@ -868,10 +950,11 @@ def run_serve(cfg, params, kernels) -> dict:
     return dict(
         launches=launches, session_s=session_s, prefill_s=prefill_s,
         prefill_ms=statistics.median(prefill_s) * 1e3,
-        prefill_tokens_per_s=SERVE_BATCH * PREFILL_SEQ
+        prefill_tokens_per_s=SERVE_BATCH * seq
         / statistics.median(prefill_s),
-        lockstep=lock.summary(), continuous=cont.summary(),
-        plan_cache=plan_cache.stats(), session=session)
+        lockstep=lock.summary(),
+        continuous=runs[1][0].summary() if continuous else None,
+        encodes=encodes, plan_cache=plan_cache.stats(), session=session)
 
 
 def _blocks_slice(tree, n: int):
@@ -917,23 +1000,26 @@ def _decode_steps(session, cfg, prompt, steps, cache=None, feed=None):
     return torch.stack(logits), fed, snap
 
 
-def cpu_replay(cfg, params) -> dict:
-    """The first 2 blocks (4 layers) of the served weights, full width
-    and vocab, on the card and on the CPU: the same B=1 x S=256 prefill
-    and 8 greedy decode steps (the CPU's from the card's KV cache, fed
-    the card's tokens); logits within REPLAY_BF16_TOL, greedy tokens
-    equal wherever the CPU's top-2 margin exceeds that tolerance."""
-    cfg4 = cfg.with_updates(n_layers=4)
-    card_p = dict(params, blocks=_blocks_slice(params["blocks"], 2))
+def cpu_replay(cfg, params, blocks: int = 2, seq: int = 256,
+               steps: int = 8) -> dict:
+    """The first ``blocks`` blocks (2: 4 layers of gemma2) of the served
+    weights, full width and vocab, on the card and on the CPU: the same
+    B=1 x S=``seq`` prefill and ``steps`` greedy decode steps (the CPU's
+    from the card's KV cache, fed the card's tokens); logits within
+    REPLAY_BF16_TOL, greedy tokens equal wherever the CPU's top-2 margin
+    exceeds that tolerance."""
+    cfg4 = cfg.with_updates(n_layers=blocks * cfg.period)
+    card_p = dict(params, blocks=_blocks_slice(params["blocks"], blocks))
     cpu_p = _to(card_p, "cpu")
     card = ServeSession(cfg4, card_p)
     cpu = ServeSession(cfg4, cpu_p)
     check(same_plans(card.plans.plans, cpu.plans.plans)
           and int(card.plans.sig) == int(cpu.plans.sig),
-          "plans encoded on the card == plans encoded on the CPU (4 layers)")
-    prompt = np.random.default_rng(SEED + 5).integers(0, cfg.vocab, 256)
+          f"plans encoded on the card == plans encoded on the CPU "
+          f"({cfg4.n_layers} layers)")
+    prompt = np.random.default_rng(SEED + 5).integers(0, cfg.vocab, seq)
     batch = {"tokens": torch.as_tensor(prompt[None]),
-             "positions": torch.arange(256)[None]}
+             "positions": torch.arange(seq)[None]}
     t0 = time.perf_counter()
     want = cpu.prefill(batch)[0, 0]
     cpu_prefill_s = time.perf_counter() - t0
@@ -942,10 +1028,11 @@ def cpu_replay(cfg, params) -> dict:
     check(torch.allclose(got, want, **REPLAY_BF16_TOL),
           f"replay prefill logits within {REPLAY_BF16_TOL} (max abs err "
           f"{errs['prefill']})")
-    card_lg, fed, snap = _decode_steps(card, cfg4, prompt, 8)
+    card_lg, fed, snap = _decode_steps(card, cfg4, prompt, steps)
     cache = dict(snap, plans=cpu.new_cache(1, 1)["plans"])
     t0 = time.perf_counter()
-    cpu_lg, _, _ = _decode_steps(cpu, cfg4, prompt, 8, cache=cache, feed=fed)
+    cpu_lg, _, _ = _decode_steps(cpu, cfg4, prompt, steps, cache=cache,
+                                 feed=fed)
     cpu_decode_s = time.perf_counter() - t0
     errs["decode"] = float((card_lg - cpu_lg).abs().max())
     check(torch.allclose(card_lg, cpu_lg, **REPLAY_BF16_TOL),
@@ -958,17 +1045,18 @@ def cpu_replay(cfg, params) -> dict:
     same = card_lg.argmax(-1) == cpu_lg.argmax(-1)
     check(bool(same[clear].all()),
           "greedy tokens equal where the top-2 margin exceeds the tolerance")
-    return dict(max_abs_err=errs, greedy_tokens=fed, clear_steps=int(clear.sum()),
+    return dict(layers=cfg4.n_layers, seq=seq, steps=steps,
+                max_abs_err=errs, greedy_tokens=fed, clear_steps=int(clear.sum()),
                 equal_tokens=int(same.sum()), cpu_prefill_s=cpu_prefill_s,
                 cpu_decode_s=cpu_decode_s, tol=REPLAY_BF16_TOL)
 
 
-def profile_serve(session, cfg) -> dict:
-    """The profiler over one B=4 x S=1024 prefill and 8 decode steps."""
+def profile_serve(session, cfg, seq: int = PREFILL_SEQ) -> dict:
+    """The profiler over one B=4 x S=``seq`` prefill and 8 decode steps."""
     dev = session.device
-    tok = torch.randint(0, cfg.vocab, (SERVE_BATCH, PREFILL_SEQ), device=dev)
+    tok = torch.randint(0, cfg.vocab, (SERVE_BATCH, seq), device=dev)
     batch = {"tokens": tok, "positions": torch.arange(
-        PREFILL_SEQ, device=dev).expand(SERVE_BATCH, PREFILL_SEQ)}
+        seq, device=dev).expand(SERVE_BATCH, seq)}
     cache = session.new_cache(SERVE_BATCH, 16)
 
     def run():
@@ -2181,6 +2269,437 @@ def run_checkpoint(kernels, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The rest of the dense family, prefix-LM and the banded prefill
+# ---------------------------------------------------------------------------
+
+# (arch, layers run, prefill S). The depth is cut: gemma2-27b's 46 layers
+# are 54.5 GB of bf16 weights, which with the compact copies, the
+# activations and the plain versions' checks do not fit one 80 GB card;
+# the other two for the script's time limit. gemma2-27b keeps 2 blocks of
+# local + global, gemma3-12b one 5:1 period; gemma3-12b prefills 2,048
+# tokens so that its 1,024 window bites.
+DENSE_FAMILY = (("gemma2_27b", 4, 1024), ("internlm2_20b", 2, 1024),
+                ("gemma3_12b", 6, 2048))
+# blocks of the card's weights replayed on the CPU: one local and one
+# global slot where the config has both (internlm2-20b has only global)
+DENSE_REPLAY_BLOCKS = {"gemma2_27b": 1, "internlm2_20b": 2, "gemma3_12b": 1}
+REPLAY_SEQ, REPLAY_STEPS = 128, 4
+PREFIX_TEXT = 768             # paligemma: 256 patches + 768 text tokens
+PREFIX_REPLAY_LAYERS, PREFIX_REPLAY_TEXT = 2, 128
+BANDED_SEQ, BANDED_CHUNK = 2048, 512
+LAUNCHER_ITERS = 20           # the sync launcher at the reference defaults
+LAUNCHER_ARGS = ("--path", "grouped", "--groups", "4")
+LAUNCHER_ENV = dict(n_agents=4, size=4, max_steps=12)
+LAUNCHER_TIMEOUT_S = 300
+LM_ONLY = ("grouped_bmm_f32", "grouped_bmm_bf16", "flash_bwd_dq",
+           "flash_bwd_dkv", "osel_encode")
+
+
+def _launches(kernels) -> dict:
+    torch.cuda.synchronize()
+    return {k.symbol: k.launches for k in kernels}
+
+
+def check_assign_sides(params, slack: float) -> dict:
+    """plan_assign bitwise at every FLGW side of ``params`` that takes the
+    sort route, timed once per distinct (L, M, G, axis); plan_rank and
+    plan_place bitwise at every side past it, timed once per distinct
+    shape. ``{"sort": rows, "tiled": rows}``."""
+    out, timed = {"sort": [], "tiled": []}, set()
+    for name, scores, axis in flgw_sides(params):
+        m, g = scores.shape[-2:] if axis else scores.shape[-2:][::-1]
+        key = (scores.numel() // (m * g), m, g, axis)
+        first = key not in timed
+        timed.add(key)
+        if pe_ops.assign_route(m, g) == "sort":
+            row = check_assign_one(name, scores, axis, slack)
+            if first:
+                row.update(time_assign(scores, axis, slack))
+            out["sort"].append(row)
+        else:
+            out["tiled"].append(check_tiled(name, scores, axis, slack,
+                                            timed=first))
+    return out
+
+
+def _print_family_kernels(arch, sides, fused_rows, flash_rows) -> None:
+    for r in sides["sort"]:
+        if "ms" in r:
+            print(f"  plan_assign {arch} L={r['layers']} M={r['items']} "
+                  f"axis {r['axis']}: {r['ms']:.4f} ms, {r['device_us']} "
+                  f"device us, plain {r['plain_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.2e} ({r['bound_by']})")
+    for r in sides["tiled"]:
+        if "rank" in r:
+            print(f"  plan_rank + plan_place {arch} {r['side']} L="
+                  f"{r['layers']} M={r['items']}: rank {r['rank']['ms']:.4f}"
+                  f" ms ({r['rank']['device_us']} device us), place "
+                  f"{r['place']['ms']:.4f} ms ({r['place']['device_us']} "
+                  f"device us), plain {r['rank']['plain_ms']:.3f} + "
+                  f"{r['place']['plain_ms']:.3f}")
+    for r in fused_rows:
+        cold = f", cold {r['ms_cold']:.4f}" if "ms_cold" in r else ""
+        print(f"  fused_bmm {arch} {r['proj']:>4} {r['rows']:>4} rows K="
+              f"{r['cap_m']} N={r['cap_n']}: {r['ms']:.4f} ms{cold} "
+              f"({r['tflops']:.1f} TFLOP/s, {r['bound_share']:.3f} of the "
+              f"bound, {r['route']}), plain {r['plain_ms']:.4f}, bmm "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})")
+    for r in flash_rows:
+        print(f"  flash_fwd {arch} Hq={r['hq']} Hkv={r['hkv']} D={r['d']} "
+              f"S={r['s']} window={r['window']} softcap {r['softcap']}: "
+              f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+              f"{r['bound_share']:.3f} of the bound, {r['route']}), plain "
+              f"{r['plain_ms']:.4f}, sdpa {r['library_ms']}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+
+
+def run_dense_family(kernels, device, card: str) -> tuple[dict, dict]:
+    """Phase 10: each DENSE_FAMILY config at full width, cut in depth:
+    its kernels held against their plain versions at its shapes, then
+    its serving path driven with the launch counts at 0 (a certify
+    session, a B=4 prefill with ``use_flash``, a lockstep Engine run of 4
+    requests, prompt 64, gen 32), a CPU replay and a profile. Returns
+    (per-config results, gemma3-12b's config and params for phase 11)."""
+    out, keep = {}, None
+    for arch, layers, seq in DENSE_FAMILY:
+        cfg = registry.get_config(arch, n_layers=layers, **SERVE_FLGW)
+        params = serve_params(cfg, device)
+        slack = flgw.FLGWConfig().capacity_slack
+        n_params = sum(t.numel() for t in _leaves(params))
+        sides = check_assign_sides(params, slack)
+        # per encode: the sides of every slot past the sort limit
+        tiled_sides = len(sides["tiled"])
+        fused_rows = check_fused_kernel(params, cfg,
+                                        (4, SERVE_BATCH * seq), None)
+        windows = sorted({s.window for s in cfg.pattern}, reverse=True)
+        flash_rows = check_flash_kernel(cfg, device,
+                                        tuple((seq, w) for w in windows))
+        _print_family_kernels(arch, sides, fused_rows, flash_rows)
+        sv = run_serve(cfg, params, kernels, seq=seq, continuous=False,
+                       tiled_sides=tiled_sides)
+        session = sv.pop("session")
+        if arch == "gemma2_27b":
+            check(tiled_sides == 3 * cfg.period and sv["launches"][
+                "plan_rank"] > 0,
+                  "gemma2-27b: plan_rank and plan_place on its d_ff sides")
+        lk = sv["lockstep"]
+        print(f"phase 10 {arch} ({layers} layers, {n_params:,} params) on "
+              f"{card}: launches {sv['launches']}; prefill B={SERVE_BATCH} "
+              f"x S={seq} {sv['prefill_ms']:.1f} ms "
+              f"({sv['prefill_tokens_per_s']:.0f} tokens/s); lockstep "
+              f"{lk['tokens_per_s']:.1f} tokens/s, p50 {lk['p50_s']:.3f} s",
+              flush=True)
+        rp = cpu_replay(cfg, params, blocks=DENSE_REPLAY_BLOCKS[arch],
+                        seq=REPLAY_SEQ, steps=REPLAY_STEPS)
+        print(f"  CPU replay ({rp['layers']} layers): max abs err "
+              f"{rp['max_abs_err']}, {rp['equal_tokens']}/{REPLAY_STEPS} "
+              f"greedy tokens equal", flush=True)
+        prof = profile_serve(session, cfg, seq)
+        print_profile(f"{arch} prefill + 8 decode steps", prof)
+        check_flash_routes(prof, f"the {arch} serve profile", ("flash_fwd",))
+        check_fused_routes(prof)
+        out[arch] = dict(layers=layers, seq=seq, params=n_params,
+                         assign=sides, fused_rows=fused_rows,
+                         flash_rows=flash_rows, serve=sv, replay=rp,
+                         profile=prof)
+        del session
+        plan_cache.clear()
+        if arch == "gemma3_12b":
+            keep = (cfg, params)
+        del params
+        torch.cuda.empty_cache()
+    return out, keep
+
+
+def _prefix_batch(cfg, b: int, text: int, device, seed: int) -> dict:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab, (b, text), generator=gen,
+                                    device=device),
+            "positions": torch.arange(text, device=device).expand(b, text),
+            "patch_embeds": torch.randn((b, cfg.prefix_len, cfg.d_model),
+                                        generator=gen, device=device
+                                        ).to(cfg.dtype)}
+
+
+def run_prefix(kernels, device, card: str) -> dict:
+    """Phase 11, first half: paligemma-3b at full depth. Its kernels at
+    its shapes (plan_assign at L = 18, the d_ff sides at 16,384 items;
+    fused_bmm at 4 and B*S rows), then with the counts at 0 a certify
+    session and a B=4 prefill of 256 patches + 768 text tokens (the
+    prefix takes the chunked core, so flash_fwd is not launched), and a
+    CPU replay of a 2-layer cut (the prefix mask)."""
+    cfg = registry.get_config("paligemma_3b", **SERVE_FLGW)
+    params = serve_params(cfg, device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    sides = check_assign_sides(params, flgw.FLGWConfig().capacity_slack)
+    check(not sides["tiled"] and any(
+        r["items"] == pe_ops.SORT_MAX_ITEMS and r["layers"] == cfg.n_layers
+        for r in sides["sort"]),
+          "paligemma-3b: every side on plan_assign, the d_ff sides at "
+          "16,384 items and L = 18")
+    seq = cfg.prefix_len + PREFIX_TEXT
+    fused_rows = check_fused_kernel(params, cfg, (4, SERVE_BATCH * seq),
+                                    None)
+    _print_family_kernels("paligemma_3b", sides, fused_rows, [])
+    plan_cache.clear()
+    _zero(kernels)
+    session = ServeSession(cfg, params, plan_policy="certify")
+    batch = _prefix_batch(cfg, SERVE_BATCH, PREFIX_TEXT, device, SEED + 7)
+    prefill_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = session.prefill(batch)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    launches = _launches(kernels)
+    check(logits.shape == (SERVE_BATCH, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          "paligemma prefill logits finite, (B, 1, vocab)")
+    check(launches["flash_fwd"] == 0,
+          "a prefix prefill takes the chunked core: no flash_fwd launch")
+    check(launches["plan_assign"] == 2 * 7 * cfg.period
+          * plan_cache.stats()["encodes"] > 0 and launches["fused_bmm"] > 0,
+          f"paligemma: plan_assign (14 sides an encode) and fused_bmm "
+          f"launched ({launches})")
+    check_sort_route(launches, "the paligemma prefix path")
+    for name in LM_ONLY:
+        check(launches[name] == 0, f"{name} not launched on the prefix path")
+    # the CPU replay of a 2-layer cut: the same [patches; text] prefill
+    cut = cfg.with_updates(n_layers=PREFIX_REPLAY_LAYERS)
+    card_p = dict(params, blocks=_blocks_slice(params["blocks"],
+                                               PREFIX_REPLAY_LAYERS))
+    cpu_p = _to(card_p, "cpu")
+    small = _prefix_batch(cfg, 1, PREFIX_REPLAY_TEXT, device, SEED + 8)
+    outs = []
+    for p in (card_p, cpu_p):
+        dev = p["embed"]["embedding"].device
+        b = _to(small, dev)
+        with torch.inference_mode():
+            plans = planenc.attach_compact(transformer.encode_plans(p, cut),
+                                           p)
+            hidden, _, _ = transformer.lm_apply(
+                p, cut, b["tokens"], b["positions"],
+                patch_embeds=b["patch_embeds"], return_hidden=True,
+                plans=plans, q_chunk=step_lib.pick_q_chunk(
+                    cfg.prefix_len + PREFIX_REPLAY_TEXT))
+        outs.append(hidden.float().cpu())
+    err = float((outs[0] - outs[1]).abs().max())
+    check(outs[0].shape == (1, PREFIX_REPLAY_TEXT, cfg.d_model)
+          and torch.allclose(outs[0], outs[1], **REPLAY_BF16_TOL),
+          f"prefix replay: the text positions' hidden states within "
+          f"{REPLAY_BF16_TOL} (max abs err {err})")
+    res = dict(params=n_params, layers=cfg.n_layers, seq=seq,
+               assign=sides, fused_rows=fused_rows, launches=launches,
+               prefill_s=prefill_s,
+               prefill_ms=statistics.median(prefill_s) * 1e3,
+               prefill_tokens_per_s=SERVE_BATCH * seq
+               / statistics.median(prefill_s),
+               encodes=plan_cache.stats()["encodes"],
+               replay=dict(layers=PREFIX_REPLAY_LAYERS,
+                           text=PREFIX_REPLAY_TEXT, max_abs_err=err,
+                           tol=REPLAY_BF16_TOL))
+    print(f"phase 11 paligemma_3b ({cfg.n_layers} layers, {n_params:,} "
+          f"params) on {card}: launches {launches}; prefill B={SERVE_BATCH} "
+          f"x ({cfg.prefix_len} patches + {PREFIX_TEXT} tokens) "
+          f"{res['prefill_ms']:.1f} ms; CPU replay ({PREFIX_REPLAY_LAYERS} "
+          f"layers) max abs err {err:.3g}", flush=True)
+    del session, params, card_p, cpu_p
+    plan_cache.clear()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_banded(cfg, params, kernels, card: str) -> dict:
+    """Phase 11, second half: gemma3-12b's chunked prefill (no flash) at
+    S = 2,048 with q_chunk 512, banded and not, from the same weights and
+    plans, each driven with the counts at 0: every position's hidden
+    state and the last logits within the bf16 gate."""
+    cfg = cfg.with_updates(use_flash=False)
+    dev = params["embed"]["embedding"].device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    tok = torch.randint(0, cfg.vocab, (SERVE_BATCH, BANDED_SEQ),
+                        generator=gen, device=dev)
+    pos = torch.arange(BANDED_SEQ, device=dev).expand(SERVE_BATCH, BANDED_SEQ)
+    with torch.inference_mode():
+        plans = planenc.attach_compact(transformer.encode_plans(params, cfg),
+                                       params)
+    res, hid = {}, {}
+    for banded in (True, False):
+        _zero(kernels)
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                h, _, _ = transformer.lm_apply(
+                    params, cfg, tok, pos, q_chunk=BANDED_CHUNK,
+                    banded=banded, return_hidden=True, plans=plans)
+                last = softcap(unembed(
+                    params["embed"], h[:, -1:]).float(), cfg.logit_softcap)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = _launches(kernels)
+        check(launches["flash_fwd"] == 0 and launches["fused_bmm"] > 0,
+              f"banded={banded}: the chunked core, no flash_fwd; fused_bmm "
+              f"launched ({launches})")
+        for name in ("plan_assign", "plan_rank", "plan_place", *LM_ONLY):
+            check(launches[name] == 0,
+                  f"{name} not launched by a prefill on cached plans")
+        hid[banded] = (h.float(), last)
+        res["banded" if banded else "unbanded"] = dict(
+            ms=ms, launches=launches)
+    err = float((hid[True][0] - hid[False][0]).abs().max())
+    lerr = float((hid[True][1] - hid[False][1]).abs().max())
+    check(torch.allclose(hid[True][0], hid[False][0], **REPLAY_BF16_TOL)
+          and torch.allclose(hid[True][1], hid[False][1], **REPLAY_BF16_TOL),
+          f"banded == unbanded prefill within {REPLAY_BF16_TOL} (hidden "
+          f"{err}, last logits {lerr})")
+    window = max(s.window for s in cfg.pattern)
+    res.update(seq=BANDED_SEQ, q_chunk=BANDED_CHUNK, window=window,
+               band=min(BANDED_SEQ, (-(-window // BANDED_CHUNK) + 1)
+                        * BANDED_CHUNK),
+               hidden_max_abs_err=err, logits_max_abs_err=lerr,
+               tol=REPLAY_BF16_TOL)
+    print(f"phase 11 banded gemma3_12b B={SERVE_BATCH} x S={BANDED_SEQ} "
+          f"q_chunk {BANDED_CHUNK} (band {res['band']} keys of a local "
+          f"slot's chunk) on {card}: banded {min(res['banded']['ms']):.1f} "
+          f"ms, unbanded {min(res['unbanded']['ms']):.1f} ms; max abs err "
+          f"hidden {err:.3g}, last logits {lerr:.3g}", flush=True)
+    return res
+
+
+def _launcher_report(out: str) -> dict:
+    """The sync launcher's printed success, throughput and per-layer
+    sparsity."""
+    succ = re.search(r"success: first-\d+ ([\d.]+)\s+last-\d+ ([\d.]+)", out)
+    thr = re.search(r"throughput: ([\d.]+) iters/s, ([\d.]+) env-steps/s, "
+                    r"est\. sparse ([\d.]+) GFLOPS", out)
+    layers = dict(re.findall(r"^  (\w+)\s+([\d.]+)%$", out, re.M))
+    check(succ is not None and thr is not None and "learned per-layer "
+          "sparsity:" in out and len(layers) == 5,
+          f"the launcher printed its success, throughput and sparsity lines "
+          f"({out[-600:]!r})")
+    for name, pct in layers.items():
+        check(abs(float(pct) - 75.0) < 10.0,
+              f"learned sparsity of {name} near 75 % ({pct} %)")
+    return dict(success_first=float(succ[1]), success_last=float(succ[2]),
+                iters_per_s=float(thr[1]), env_steps_per_s=float(thr[2]),
+                sparse_gflops=float(thr[3]),
+                sparsity_pct={k: float(v) for k, v in layers.items()})
+
+
+def run_sync_launcher(kernels, device, card: str) -> dict:
+    """Phase 12: ``python -m repro_torch.launch.marl_ic3net --path grouped
+    --groups 4`` at the reference's defaults (4 agents on 4x4, hidden
+    128, B=16). Its kernels at its shapes (plan_assign bitwise at every
+    side, grouped_bmm_f32 at every layer, timed); its ``main`` in this
+    process with the counts at 0; then the same command as a process on
+    the card (exit 0, its lines), and ``--mesh 2,2`` (a non-zero exit
+    naming sharding)."""
+    env, ecfg = envs.make("predator_prey", **LAUNCHER_ENV)
+    cfg = ic3net.IC3NetConfig(hidden=128, flgw_groups=4, flgw_path="grouped")
+    model, _ = train._init(cfg, ecfg, env, SEED, device)
+    slack = model.cfg.flgw.capacity_slack
+    assign = [check_assign_one(name, scores, axis, slack)
+              for name, scores, axis in flgw_sides(model.params)]
+    with torch.inference_mode():
+        plans = model.encode_plans()
+    bmm_rows = check_bmm_kernel(model, plans, 16 * LAUNCHER_ENV["n_agents"])
+    for r in bmm_rows:
+        print(f"  grouped_bmm_f32 launcher {r['layer']:>7} {r['b']}x{r['k']}"
+              f"x{r['n']}: {r['ms']:.4f} ms, {r['device_us']:.2f} device us; "
+              f"plain {r['plain_ms']:.4f}, bmm {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.2e} ({r['bound_by']})")
+    del model, plans
+    argv = [*LAUNCHER_ARGS, "--iterations", str(LAUNCHER_ITERS)]
+    _zero(kernels)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        model, hist = marl_ic3net.main(argv)
+    in_proc_s = time.perf_counter() - t0
+    launches = _launches(kernels)
+    check(model.device.type == "cuda" and len(hist) == LAUNCHER_ITERS,
+          "the launcher trained on the card")
+    check(launches["plan_assign"] > 0 and launches["grouped_bmm_f32"] > 0,
+          f"plan_assign and grouped_bmm_f32 launched by the launcher "
+          f"({launches})")
+    check_sort_route(launches, "the sync launcher")
+    for name in ("grouped_bmm_bf16", "fused_bmm", "flash_fwd",
+                 "flash_bwd_dq", "flash_bwd_dkv", "osel_encode"):
+        check(launches[name] == 0, f"{name} not launched by the launcher")
+    in_proc = _launcher_report(buf.getvalue())
+    del model, hist
+    cmd = [sys.executable, "-m", "repro_torch.launch.marl_ic3net"]
+    penv = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    ok = subprocess.run([*cmd, *argv], env=penv, capture_output=True,
+                        text=True, timeout=LAUNCHER_TIMEOUT_S)
+    proc_s = time.perf_counter() - t0
+    check(ok.returncode == 0, f"the launcher process exited 0 "
+          f"({ok.returncode}: {ok.stderr[-2000:]})")
+    check("device cuda" in ok.stdout, "the launcher process ran on the card")
+    proc = _launcher_report(ok.stdout)
+    bad = subprocess.run([*cmd, *argv, "--mesh", "2,2"], env=penv,
+                         capture_output=True, text=True,
+                         timeout=LAUNCHER_TIMEOUT_S)
+    check(bad.returncode != 0 and "is not ported to repro_torch yet" in
+          bad.stderr and "sharding" in bad.stderr,
+          f"--mesh 2,2 exits non-zero naming sharding ({bad.returncode}: "
+          f"{bad.stderr[-400:]!r})")
+    res = dict(argv=argv, launches=launches, assign=assign,
+               bmm_rows=bmm_rows, in_process=in_proc, in_process_s=in_proc_s,
+               process=proc, process_s=proc_s, process_stdout=ok.stdout,
+               mesh_rc=bad.returncode, mesh_stderr=bad.stderr[-400:])
+    print(f"phase 12 sync launcher ({' '.join(argv)}) on {card}: launches "
+          f"{launches}; in process {in_proc['iters_per_s']:.2f} iters/s, "
+          f"{in_proc['env_steps_per_s']:.0f} env-steps/s, "
+          f"{in_proc['sparse_gflops']:.3f} GFLOPS, sparsity "
+          f"{in_proc['sparsity_pct']}; as a process (exit 0, {proc_s:.1f} s) "
+          f"{proc['iters_per_s']:.2f} iters/s; --mesh 2,2 exit "
+          f"{bad.returncode}", flush=True)
+    return res
+
+
+def family_launches(fam, pre, band, sync, sym: str) -> dict:
+    """One kernel's launches on each path of phases 10-12."""
+    return {**{f"{arch}_serve": fam[arch]["serve"]["launches"][sym]
+               for arch in fam},
+            "paligemma_3b_prefix": pre["launches"][sym],
+            "gemma3_12b_banded": band["banded"]["launches"][sym],
+            "gemma3_12b_unbanded": band["unbanded"]["launches"][sym],
+            "ic3net_sync_launcher": sync["launches"][sym]}
+
+
+def family_kernel_rows(fam, pre) -> dict:
+    """The kernels line's rows of phases 10-11: plan_assign at each timed
+    side, plan_rank/plan_place at gemma2-27b's timed d_ff sides,
+    flash_fwd at each config's prefill shapes, fused_bmm at each config's
+    down projection (the largest K)."""
+    keys = ("side", "layers", "items", "axis", "ms", "device_us", "plain_ms",
+            "bound_ms")
+    assign = [(a, f["assign"]) for a, f in fam.items()] + [
+        ("paligemma_3b", pre["assign"])]
+    return dict(
+        sort=[dict(arch=a, **{k: r[k] for k in keys}) for a, sides in assign
+              for r in sides["sort"] if "ms" in r],
+        tiled=[r for r in fam["gemma2_27b"]["assign"]["tiled"]
+               if "rank" in r],
+        flash=[dict(arch=a, **{k: r[k] for k in (
+            "hq", "hkv", "d", "s", "window", "softcap", "max_abs_err", "ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_share",
+            "tflops", "route")}) for a, f in fam.items()
+            for r in f["flash_rows"]],
+        fused_down=[dict(arch=a, **{k: r.get(k) for k in (
+            "proj", "rows", "cap_m", "cap_n", "max_abs_err", "ms", "ms_cold",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_share",
+            "route")}) for a, f in [*fam.items(), ("paligemma_3b", pre)]
+            for r in f["fused_rows"] if r["proj"] == "down"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2465,6 +2984,19 @@ def main() -> int:
           f"GB/s); restore {ck['restore_s']:.2f} s ({ck['restore_gb_s']:.2f} "
           f"GB/s; hashing the same bytes alone {ck['hash_s']:.2f} s); "
           f"phase {ck['wall_s']:.1f} s", flush=True)
+    plan_cache.clear()
+    torch.cuda.empty_cache()
+
+    # -- path 7: the rest of the dense family, served ----------------------
+    fam, (g3_cfg, g3_params) = run_dense_family(all_kernels, dev, card)
+    # -- path 8: paligemma-3b's prefix-LM prefill, gemma3-12b banded -------
+    pre = run_prefix(all_kernels, dev, card)
+    band = run_banded(g3_cfg, g3_params, all_kernels, card)
+    del g3_params
+    plan_cache.clear()
+    torch.cuda.empty_cache()
+    # -- path 9: the sync IC3Net launcher ------------------------------------
+    sync = run_sync_launcher(all_kernels, dev, card)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -2477,7 +3009,8 @@ def main() -> int:
                 "osel": os_["launches"] if sym == "osel_encode" else 0,
                 "ic3net_learner": learner_out["launches"][sym],
                 "ic3net_async": op["launches"][sym],
-                "gemma2_ckpt": ck["launches"][sym]}
+                "gemma2_ckpt": ck["launches"][sym],
+                **family_launches(fam, pre, band, sync, sym)}
 
     def launches(sym):
         return sum(path_launches(sym).values())
@@ -2499,6 +3032,8 @@ def main() -> int:
                  "(SDPA's backward, softcap 0) compute dq, dk and dv "
                  "together")
     per_encode = "one encode: its calls at the path's 10 FLGW layer sides"
+    fk = family_kernel_rows(fam, pre)
+    family_tiled = fk["tiled"]
 
     def per_side(rows):
         return [{k: r[k] for k in (
@@ -2509,6 +3044,10 @@ def main() -> int:
 
     def tiled_entry(name, line):
         t = tiled[name]
+        on_path = [dict(side=r["side"], layers=r["layers"], items=r["items"],
+                        **{k: r[name][k] for k in (
+                            "ms", "plain_ms", "bound_ms", "device_us")})
+                   for r in family_tiled]
         return dict(name=f"plan_{name}", route="cuda",
                     source="src/repro_torch/csrc/plan_encode.cu",
                     replaces=f"src/repro/kernels/plan_encode/plan_encode.py:"
@@ -2521,9 +3060,12 @@ def main() -> int:
                     device_us_per_launch=t["device_us"],
                     profiler_recorded_launches=t[
                         "profiler_recorded_launches"],
+                    gemma2_27b_sides=on_path,
                     timed_over=f"one call at L, M, G = {TILED_SIDE} (past "
                                "the sort route's limit, the tiled route); "
-                               "bound by bytes at 3.35 TB/s")
+                               "bound by bytes at 3.35 TB/s; "
+                               "gemma2_27b_sides: the d_ff sides of the "
+                               "gemma2-27b serving path (L = 2 a slot)")
 
     kernels_line = {"kernels": [
         dict(name="plan_assign", route="cuda",
@@ -2547,6 +3089,7 @@ def main() -> int:
              sort_yardstick_ms=total(assign_rows, "sort_yardstick_ms"),
              ic3net_sides=per_side(assign_rows),
              lm_sides=per_side(lm_assign_rows),
+             dense_family_sides=fk["sort"],
              encode=enc_t,
              ptxas={f"plan_assign_kernel<{tier}>": pe_usage.get(
                  f"plan_assign_kernel<{tier}>") for tier in ASSIGN_TIERS},
@@ -2642,6 +3185,7 @@ def main() -> int:
                          route=FUSED_ROUTES["decode"]),
              ptxas={name: fm_usage.get(name) for name in (
                  "fused_bmm_wgmma_kernel", "fused_bmm_stream_kernel<4>")},
+             dense_family_down=fk["fused_down"],
              timed_over="one prefill layer: its 7 projections at 4096 rows, "
                         "bf16; bound at 989 TFLOP/s (bf16 tensor cores); "
                         "library = torch.bmm on pre-gathered operands, "
@@ -2665,6 +3209,8 @@ def main() -> int:
              bound_share=flash_rows[1]["bound_share"],
              tensor_core_route=flash_rows[1]["route"],
              ptxas=fa_usage.get("flash_fwd_wgmma_kernel<256>"),
+             ptxas_d128=fa_usage.get("flash_fwd_wgmma_kernel<128>"),
+             dense_family=fk["flash"],
              timed_over=f"one call at B={SERVE_BATCH}, Hq=8, Hkv=4, "
                         f"S={PREFILL_SEQ}, D=256, causal, softcap 50; bound "
                         "at 989 TFLOP/s (bf16 tensor cores); library = SDPA "
@@ -2730,7 +3276,8 @@ def main() -> int:
         train=train_out, train_replay=tp, train_profile=tprof,
         osel=os_, fpga_model=fpga, learner=learner_out,
         learner_replay=lrep, learner_profile=lprof, learning_check=fig9,
-        async_pipeline=asy, checkpoint=ck,
+        async_pipeline=asy, checkpoint=ck, dense_family=fam,
+        prefix_lm=pre, banded=band, sync_launcher=sync,
         **kernels_line), indent=1, default=str))
     print(json.dumps(kernels_line))
     print(card)

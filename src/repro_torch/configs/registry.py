@@ -2,8 +2,12 @@
 
 Port of ``repro.configs.registry``'s lookup half. Each architecture
 registers its published config and a reduced smoke config (same family,
-tiny dims). Only ``gemma2_2b`` is registered in the port so far; the
-other architectures wait for their families (ROADMAP, Queue 1).
+tiny dims). The dense family is registered (gemma2-2b, gemma2-27b,
+gemma3-12b, internlm2-20b and paligemma-3b's prefix-LM backbone); the
+other architectures wait for their families (ROADMAP, Queue 1). The
+configs are the JAX package's, with its simplifications (one
+``rope_theta`` a model, the attention scale ``head_dim ** -0.5``, no
+qk-norm), not every detail of the published models.
 """
 from __future__ import annotations
 
@@ -15,7 +19,8 @@ from repro_torch.models.config import ModelConfig
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: Dict[str, Callable[[], ModelConfig]] = {}
 
-ARCH_IDS = ("gemma2_2b",)
+ARCH_IDS = ("gemma2_2b", "gemma2_27b", "gemma3_12b", "internlm2_20b",
+            "paligemma_3b")
 
 
 def register(name: str):

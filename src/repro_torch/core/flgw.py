@@ -38,6 +38,20 @@ class FLGWConfig:
         return 0.0 if self.groups <= 1 else 1.0 - 1.0 / self.groups
 
 
+def init_grouping(generator: torch.Generator, m: int, n: int, groups: int,
+                  *, lead: tuple = ()) -> dict[str, torch.Tensor]:
+    """Random init of the grouping matrices (paper: 'initialized
+    randomly'): IG (*lead, m, G) then OG (*lead, G, n), float32 N(0, 1)
+    draws from ``generator`` on its device. ``lead`` stacks independent
+    layers. Where JAX splits a key, the two draws come one after the
+    other from the one generator."""
+    dev = generator.device
+    return {"ig": torch.randn((*lead, m, groups), generator=generator,
+                              device=dev),
+            "og": torch.randn((*lead, groups, n), generator=generator,
+                              device=dev)}
+
+
 def grouping_indices(ig: torch.Tensor, og: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(ig_idx, og_idx)``: argmax of each IG row / OG column (int64).

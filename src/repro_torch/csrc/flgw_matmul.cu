@@ -81,8 +81,7 @@
 // routes, chosen in the C entry by an explicit shape test:
 //
 //   fused_bmm_wgmma_kernel (prefill: B > 64, B and capN multiples of 8,
-//   16-byte aligned operands, capM up to 8,704, whose ids fit in shared
-//   memory). One block of two warpgroups per (256-row x 128-column output
+//   16-byte aligned operands). One block of two warpgroups per (256-row x 128-column output
 //   tile, g); each warpgroup owns 128 rows and runs two wgmma m64n128k16
 //   a k-step with f32 accumulators in registers (128 a thread), both
 //   operands from shared memory in the 128-byte swizzle. Both are MN-major
@@ -100,7 +99,11 @@
 //   each): k-tile j's wgmmas are issued before k-tile j - 1's are waited
 //   for, so the tensor cores do not idle between k-tiles, while the loads
 //   of k-tiles j + 1 and j + 2 are in flight. The group's ids sit in
-//   shared memory from the start, so no gather waits on an id's load.
+//   shared memory from the start, so no gather waits on an id's load; at
+//   most 8,704 of them fit beside the ring, and the ids of the k-tiles
+//   past those (capM 11,520 of gemma2-27b's down projection) are read
+//   from device memory (L2) when their tile's loads start, the wait
+//   overlapping the k-tile's products that are in flight.
 //   Rows past B, ids past capM and columns past capN are zero-filled by
 //   the copies and masked at the store, so the caller pads nothing. 193 KB
 //   of shared memory and 4 capM bytes of ids (204 KB at capM = 2880), one
@@ -621,8 +624,9 @@ constexpr int kGXTile = kGK * kGM * 2;  // bytes of a stage's x tile
 constexpr int kGWTile = kGK * kGN * 2;  // bytes of a stage's wc tile
 constexpr int kGStage = kGXTile + kGWTile;
 constexpr int kGSmem = kGStages * kGStage + 1024;  // + atom alignment
-// the group's ids follow the stages in shared memory, up to 227 KB
-constexpr int kGMaxK = (232448 - kGSmem) / 4;
+// the group's first ids follow the stages in shared memory, up to 227 KB
+// (8,704 ids, 136 whole k-tiles)
+constexpr int kGMaxK = (232448 - kGSmem) / 4 / kGK * kGK;
 
 // A stage's operand tile: 64 k-rows x 256 (x: rows of B) or 128 (wc:
 // columns of capN) MN-columns of bf16, MN-major, in wgmma's 128-byte
@@ -693,9 +697,12 @@ fused_bmm_wgmma_kernel(const bf16* __restrict__ xt,
   const bf16* wg_ = w + static_cast<size_t>(g) * k * n;
   const int nk = (k + kGK - 1) / kGK;
 
-  // the group's ids, read once, so no gather waits on an id load
+  // the group's ids, read once, so no gather waits on an id load; those
+  // past kGMaxK (whole k-tiles) are read from device memory by the
+  // tile's loads below
   int* ids_s = reinterpret_cast<int*>(base + kGStages * kGStage);
-  for (int e = tid; e < k; e += kGThreads) ids_s[e] = idg[e];
+  const int ks = k < kGMaxK ? k : kGMaxK;
+  for (int e = tid; e < ks; e += kGThreads) ids_s[e] = idg[e];
   __syncthreads();
 
   // k-tile i into stage st, 16-byte chunks of 8 rows of x or 8 columns
@@ -710,7 +717,7 @@ fused_bmm_wgmma_kernel(const bf16* __restrict__ xt,
       const int kr = e >> 5, ch = e & 31;
       const int kk = i * kGK + kr;
       const bool in = kk < k && row0 + ch * 8 < b;
-      const int id = in ? ids_s[kk] : 0;
+      const int id = !in ? 0 : kk < kGMaxK ? ids_s[kk] : __ldg(idg + kk);
       cp_async16(xs + sw_offset(kr, ch),
                  in ? xt + static_cast<size_t>(id) * b + row0 + ch * 8 : xt,
                  in);
@@ -1160,7 +1167,7 @@ void launch_bf16(const void* xt, const void* wc, const void* ids, void* y,
 
 int launch_wgmma(const void* xt, const void* wc, const void* ids, void* y,
                  int g, int b, int k, int n, cudaStream_t stream) {
-  const int smem = kGSmem + 4 * k;
+  const int smem = kGSmem + 4 * (k < kGMaxK ? k : kGMaxK);
   const cudaError_t err = cudaFuncSetAttribute(
       fused_bmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -1331,8 +1338,8 @@ int grouped_bmm_bf16(const void* x, const void* w, void* y, int g, int b,
 // k-rows [s * k_split, (s + 1) * k_split), with splits * k_split >= K, a
 // multiple of 32 and at most 512 when B <= 64, and then part is f32
 // scratch of (splits, G, B, N); B > 64 takes no split. bf16 routes: B >
-// 64 with B and N multiples of 8, 16-byte aligned xt and wc and K at most
-// 8,704 on wgmma; B <= 64 with N a multiple of 8 and wc 16-byte aligned
+// 64 with B and N multiples of 8, 16-byte aligned xt and wc on wgmma;
+// B <= 64 with N a multiple of 8 and wc 16-byte aligned
 // on the streaming FP32 FMA kernel; anything else on wmma.
 int fused_bmm(const void* xt, const void* wc, const void* ids, void* y,
               void* part, int g, int b, int k, int n, int is_bf16, int splits,
@@ -1342,7 +1349,7 @@ int fused_bmm(const void* xt, const void* wc, const void* ids, void* y,
     if (splits < 1 || (splits > 1 && (k_split % kWK || k_split > kSMaxSplit)))
       return static_cast<int>(cudaErrorInvalidValue);
     const bool wide = n % 8 == 0 && aligned16(wc);
-    if (b > kWM && wide && b % 8 == 0 && aligned16(xt) && k <= kGMaxK) {
+    if (b > kWM && wide && b % 8 == 0 && aligned16(xt)) {
       if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
       return launch_wgmma(xt, wc, ids, y, g, b, k, n, st);
     }

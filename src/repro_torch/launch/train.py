@@ -41,10 +41,6 @@ def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
     latest checkpoint in ``ckpt_dir``, when there is one). Returns
     ``(state, history)``: one metrics dict per step run (tensors, plus
     the step's synchronised wall time ``step_s``)."""
-    if banded:
-        raise NotImplementedError(
-            "the banded prefill is not ported to repro_torch yet (ROADMAP, "
-            "Queue 1)")
     dev = resolve_device(device)
     get = registry.get_smoke_config if smoke else registry.get_config
     overrides = {}
@@ -61,7 +57,7 @@ def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
     state = state_lib.init_state(torch.Generator(device=dev).manual_seed(seed),
                                  cfg, optimizer=optimizer)
     train_step = step_lib.make_train_step(cfg, optimizer=optimizer, lr=lr,
-                                          schedule=schedule)
+                                          banded=banded, schedule=schedule)
 
     def sync():
         if dev.type == "cuda":

@@ -32,7 +32,9 @@ class EnvState(NamedTuple):
     t: torch.Tensor          # (B,) int64
 
 
-# actions: 0=stay, 1=up, 2=down, 3=left, 4=right
+# actions: 0=stay, 1=up, 2=down, 3=left, 4=right; (drow, dcol) of each,
+# the JAX module's table (``step`` computes the same moves by compares)
+_MOVES = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
 N_ACTIONS = 5
 
 

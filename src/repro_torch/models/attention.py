@@ -6,15 +6,17 @@ regimes, as in the JAX package:
 * prefill with ``flash=True``: the flash-attention kernel
   (``repro_torch.kernels.flash_attention``), which never stores the
   (S, T) logits;
-* prefill without it: the plain core, query-chunked so the logit tile is
-  (B, Hkv, q_per_kv, Cq, T) (a Python loop where JAX scans);
+* prefill without it, or with a bidirectional prefix (``prefix_len``,
+  the VLM's patches, as in JAX): the plain core, query-chunked so the
+  logit tile is (B, Hkv, q_per_kv, Cq, T) (a Python loop where JAX
+  scans); ``banded=True`` gives each chunk of a sliding-window layer only
+  its reachable KV band, which is exact;
 * decode: one token per step written into a ring buffer of length
   ``min(max_seq, window)`` and attended with the plain core (plain
   ``einsum`` in JAX too). The KV buffers are updated in place: the
   returned cache shares them with the one passed in.
 
-Cross-attention, prefix-LM masking and the banded prefill are not ported
-(ROADMAP, Queue 1) and raise.
+Cross-attention is not ported (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -40,13 +42,16 @@ def attn_init(generator: torch.Generator, cfg, *,
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
-          window: int, k_valid: Optional[torch.Tensor] = None
-          ) -> torch.Tensor:
-    """(..., Sq, Sk) bool allowed-attention mask from position vectors."""
+          window: int, prefix_len: int = 0,
+          k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(..., Sq, Sk) bool allowed-attention mask from position vectors;
+    the first ``prefix_len`` positions see each other both ways."""
     q = q_pos[..., :, None]
     k = k_pos[..., None, :]
     if causal:
         allowed = k <= q
+        if prefix_len > 0:
+            allowed = allowed | ((k < prefix_len) & (q < prefix_len))
     else:
         allowed = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
                              dtype=torch.bool, device=q.device)
@@ -73,7 +78,7 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bgqst,btgd->bsgqd", probs, v)
 
 
-def _decode(k, v, cache, positions, b, s, window, causal):
+def _decode(k, v, cache, positions, b, s, window, causal, prefix_len):
     """Write this step's k/v into the ring buffers (in place) and return
     (k buffer, v buffer, mask, new pos)."""
     pos = cache["pos"]
@@ -103,7 +108,7 @@ def _decode(k, v, cache, positions, b, s, window, causal):
         cv[rows, write] = v[:, 0].to(cv.dtype)
         k_pos = pos[:, None] - torch.remainder(pos[:, None] - idx[None], t)
     mask = _mask(positions, k_pos, causal=causal, window=window,
-                 k_valid=k_pos >= 0)
+                 prefix_len=prefix_len, k_valid=k_pos >= 0)
     return ck, cv, mask, pos + s
 
 
@@ -122,10 +127,6 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     q/k/v/o projection on the FLGW grouped path (None re-encodes per
     call inside ``proj``).
     """
-    if prefix_len or banded:
-        raise NotImplementedError(
-            "prefix-LM masking and the banded prefill are not ported yet "
-            "(ROADMAP, Queue 1)")
     b, s, _ = x.shape
     hd, n_kv, qpk = cfg.head_dim, cfg.n_kv_heads, cfg.q_per_kv
     q = proj(p["q"], x, flgw, plan=plan_of(plans, "q"))
@@ -140,13 +141,14 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
 
     if cache is not None:
         ck, cv, mask, new_pos = _decode(k, v, cache, positions, b, s, window,
-                                        causal)
+                                        causal, prefix_len)
         out = _attend(q, ck, cv, mask, cfg)
         return out_proj(out), {"k": ck, "v": cv, "pos": new_pos}
 
-    if flash and causal:
+    if flash and prefix_len == 0 and causal:
         # the kernel masks by absolute position 0..S-1, so positions must
-        # be that plain ramp, as in the JAX package's flash branch
+        # be that plain ramp, as in the JAX package's flash branch; a
+        # bidirectional prefix takes the chunked core below, as in JAX
         qf = q.reshape(b, s, n_kv * qpk, hd).transpose(1, 2)
         of = flash_attention(qf, k.transpose(1, 2), v.transpose(1, 2),
                              causal=True, window=window,
@@ -154,14 +156,21 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
         return out_proj(of.transpose(1, 2)), None
 
     if s <= q_chunk:
-        mask = _mask(positions, positions, causal=causal, window=window)
+        mask = _mask(positions, positions, causal=causal, window=window,
+                     prefix_len=prefix_len)
         return out_proj(_attend(q, k, v, mask, cfg)), None
 
-    if s % q_chunk:
+    if s % q_chunk:     # e.g. a VLM prefix extends S: a clean divisor
         q_chunk = next(c for c in range(q_chunk, 0, -1) if s % c == 0)
+    # banded: the KV band one query chunk can reach, window + chunk rounded
+    # to the chunk (exact: outside it everything is masked)
+    band = (min(s, (-(-window // q_chunk) + 1) * q_chunk)
+            if banded and window > 0 else s)
     outs = []
     for c0 in range(0, s, q_chunk):
-        m = _mask(positions[:, c0:c0 + q_chunk], positions, causal=causal,
-                  window=window)
-        outs.append(_attend(q[:, c0:c0 + q_chunk], k, v, m, cfg))
+        k0 = max(c0 + q_chunk - band, 0)
+        m = _mask(positions[:, c0:c0 + q_chunk], positions[:, k0:k0 + band],
+                  causal=causal, window=window, prefix_len=prefix_len)
+        outs.append(_attend(q[:, c0:c0 + q_chunk], k[:, k0:k0 + band],
+                            v[:, k0:k0 + band], m, cfg))
     return out_proj(torch.cat(outs, dim=1)), None

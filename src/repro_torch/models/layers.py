@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.encoder import PlanState
-from repro_torch.core.flgw import FLGWConfig, flgw_linear
+from repro_torch.core.flgw import FLGWConfig, flgw_linear, init_grouping
 from repro_torch.core.grouped import GroupPlan
 
 
@@ -32,10 +32,7 @@ def dense_init(generator: torch.Generator, m: int, n: int, *,
     w = torch.randn((*lead, m, n), generator=generator, device=dev) / m ** 0.5
     params = {"w": w.to(dtype)}
     if flgw is not None and flgw.groups > 1:
-        params["ig"] = torch.randn((*lead, m, flgw.groups),
-                                   generator=generator, device=dev)
-        params["og"] = torch.randn((*lead, flgw.groups, n),
-                                   generator=generator, device=dev)
+        params.update(init_grouping(generator, m, n, flgw.groups, lead=lead))
     return params
 
 

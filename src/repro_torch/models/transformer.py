@@ -6,12 +6,16 @@ KV caches are stacked on axis 0 as in the JAX package (so a param tree
 converts one to one), and a Python loop over the blocks takes the place
 of ``lax.scan``, slicing every stacked leaf.
 
-Ported: the dense family (attention mixers, MLP FFNs) and ``remat``
-(each layer slot under a non-reentrant ``torch.utils.checkpoint``, so
-the backward recomputes one layer at a time from its input, as
-``jax.checkpoint`` around the JAX package's block body). SSM mixers, MoE
-FFNs, cross-attention, encoder stacks, ``banded``, ``unroll_blocks`` and
-``attn_identity`` raise ``NotImplementedError`` (ROADMAP, Queue 1).
+Ported: the dense family (attention mixers, MLP FFNs), the VLM's
+prefix-LM backbone (``patch_embeds`` ahead of the tokens, attended both
+ways), the banded prefill (``banded``) and ``remat`` (each layer slot
+under a non-reentrant ``torch.utils.checkpoint``, so the backward
+recomputes one layer at a time from its input, as ``jax.checkpoint``
+around the JAX package's block body). SSM mixers, MoE FFNs,
+cross-attention and encoder stacks (``frames``) raise
+``NotImplementedError`` (ROADMAP, Queue 1); so do ``unroll_blocks`` and
+``attn_identity``, the JAX package's dry-run cost variants, which eager
+PyTorch has no use for.
 """
 from __future__ import annotations
 
@@ -123,15 +127,17 @@ def _unstack(tree, n: int) -> list:
 
 
 def _slot_apply(p, x, positions, cfg: ModelConfig, slot: SlotSpec, *,
-                cache=None, pos=None, q_chunk=512, plans=None):
+                cache=None, pos=None, prefix_len=0, q_chunk=512,
+                banded=False, plans=None):
     """One layer; a decode step writes ``cache``'s KV buffers in place."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     c = None if cache is None else {"k": cache["k"], "v": cache["v"],
                                     "pos": pos}
     h, _ = attn_mod.attention(
         p["mixer"], h, positions, cfg, window=slot.window,
-        causal=slot.causal, cache=c, q_chunk=q_chunk, flash=cfg.use_flash,
-        flgw=_flgw_cfg(cfg, "attn"), plans=plan_of(plans, "mixer"))
+        causal=slot.causal, prefix_len=prefix_len, cache=c, q_chunk=q_chunk,
+        banded=banded, flash=cfg.use_flash, flgw=_flgw_cfg(cfg, "attn"),
+        plans=plan_of(plans, "mixer"))
     x = x + h
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     h = mlp(p["ffn"], h, _flgw_cfg(cfg, "mlp"), plans=plan_of(plans, "ffn"))
@@ -145,8 +151,12 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
              patch_embeds=None, frames=None):
     """Forward pass. Returns (logits, aux_loss, new_cache).
 
-    tokens, positions: (B, S) integer. ``cache``: decode caches from
-    :func:`init_cache`. ``plans``: cached FLGW metadata (PlanState or its
+    tokens, positions: (B, S) integer. ``patch_embeds``: (B, P, d) VLM
+    prefix embeddings (prefill only), placed before the tokens and
+    attended both ways; the positions become the plain ramp over the P + S
+    stream, and ``return_hidden`` drops the prefix. ``banded``: each
+    query chunk of a sliding-window layer attends only its reachable KV
+    band (exact). ``cache``: decode caches from :func:`init_cache`. ``plans``: cached FLGW metadata (PlanState or its
     raw dict); when None, a ``plans`` entry riding the decode cache is
     consumed, and with neither the grouped path re-encodes per
     projection. ``return_hidden`` skips the unembedding. ``remat``
@@ -155,10 +165,10 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
     family).
     """
     _check_supported(cfg)
-    if banded or unroll_blocks or attn_identity:
-        raise _unported("banded, unroll_blocks and attn_identity")
-    if patch_embeds is not None or frames is not None:
-        raise _unported("the VLM prefix and the audio encoder")
+    if unroll_blocks or attn_identity:
+        raise _unported("unroll_blocks and attn_identity")
+    if frames is not None:
+        raise _unported("the audio encoder (frames)")
     if plans is None and cache is not None:
         plans = cache.get("plans")
     if isinstance(plans, planenc.PlanState):
@@ -170,6 +180,12 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
     remat = (cfg.remat if remat is None else remat) and cache is None \
         and torch.is_grad_enabled()
     x = embed(params["embed"], tokens, cfg.d_model).to(cfg.dtype)
+    prefix_len = 0
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(cfg.dtype), x], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[:2])
+        prefix_len = patch_embeds.shape[1]
     pos = None if cache is None else cache["pos"]
     blocks = _unstack(params["blocks"], cfg.n_blocks)
     for i in range(cfg.n_blocks):
@@ -177,7 +193,8 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
         for j, slot in enumerate(cfg.pattern):
             name = f"slot{j}"
             c = None if cache is None else _index(cache["blocks"][name], i)
-            kw = dict(cache=c, pos=pos, q_chunk=q_chunk,
+            kw = dict(cache=c, pos=pos, prefix_len=prefix_len,
+                      q_chunk=q_chunk, banded=banded,
                       plans=plan_of(block_pl, name))
             if remat:
                 # the plans are inputs: the recompute consumes them as the
@@ -189,7 +206,7 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
                                 **kw)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
-        out = x
+        out = x[:, prefix_len:]
     else:
         out = softcap(unembed(params["embed"], x).float(), cfg.logit_softcap)
 

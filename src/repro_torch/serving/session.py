@@ -32,17 +32,21 @@ class ServeSession:
     here and at :meth:`update_params` only; ``"off"`` caches none, so
     every grouped projection re-encodes per call (and, in bf16, reaches
     the float32-only ``grouped_bmm`` kernel on the card, which raises).
+    ``banded``: the prefill's chunked attention core attends each chunk's
+    KV band only (decode is unchanged).
     """
 
-    def __init__(self, cfg, params, *, plan_policy: str = "certify"):
+    def __init__(self, cfg, params, *, plan_policy: str = "certify",
+                 banded: bool = False):
         self.cfg = cfg
         self.params = params
         self.plan_policy = check_plan_policy(plan_policy)
         self._grouped = cfg.flgw_groups > 1 and cfg.flgw_path == "grouped"
         self._slack = FLGWConfig(groups=cfg.flgw_groups,
                                  path=cfg.flgw_path).capacity_slack
-        self._decode = make_decode_step(cfg)
-        self._prefill = make_prefill_step(cfg, plan_policy=plan_policy)
+        self._decode = make_decode_step(cfg, banded=banded)
+        self._prefill = make_prefill_step(cfg, plan_policy=plan_policy,
+                                          banded=banded)
         self._wc_memo = None
         self.plans = self._resolve_plans()
 

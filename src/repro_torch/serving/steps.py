@@ -41,24 +41,29 @@ def pick_q_chunk(s: int, pref: int = 512) -> int:
     return s
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, *, banded: bool = False):
     """Returns ``decode_step(params, cache, tokens, positions) ->
     (next_tok (B, 1) int32, cache)``: one greedy token against the KV
-    caches, lockstep or per-slot."""
+    caches, lockstep or per-slot. ``banded`` is accepted and changes
+    nothing: a decode step attends its ring buffer, as in JAX."""
 
     @torch.inference_mode()
     def decode_step(params, cache, tokens, positions):
         logits, _, cache = transformer.lm_apply(
-            params, cfg, tokens, positions, cache=cache)
+            params, cfg, tokens, positions, cache=cache, banded=banded)
         next_tok = logits[:, -1:].argmax(-1).to(torch.int32)
         return next_tok, cache
 
     return decode_step
 
 
-def make_prefill_step(cfg, *, plan_policy: str = "certify"):
+def make_prefill_step(cfg, *, plan_policy: str = "certify",
+                      banded: bool = False, q_chunk: int | None = None):
     """Returns ``prefill(params, batch, plans=None) -> last logits``
-    (B, 1, vocab) float32: the full-sequence forward.
+    (B, 1, vocab) float32: the full-sequence forward. ``batch`` holds
+    ``tokens`` and ``positions`` and, for a VLM, ``patch_embeds``.
+    ``banded`` and ``q_chunk`` (default :func:`pick_q_chunk` of the token
+    count) go to the chunked attention core.
 
     ``certify`` checks caller-supplied plans against the params (one
     signature pass, a re-encode iff the layout moved), ``trust`` takes
@@ -69,7 +74,7 @@ def make_prefill_step(cfg, *, plan_policy: str = "certify"):
 
     @torch.inference_mode()
     def prefill_step(params, batch, plans=None):
-        qc = pick_q_chunk(batch["tokens"].shape[1])
+        qc = q_chunk or pick_q_chunk(batch["tokens"].shape[1])
         if plan_policy == "off":
             plans = None
         elif plans is None:
@@ -79,8 +84,9 @@ def make_prefill_step(cfg, *, plan_policy: str = "certify"):
             plans = planenc.refresh_if_stale(
                 params, plans, lambda: transformer.encode_plans(params, cfg))
         hidden, _, _ = transformer.lm_apply(
-            params, cfg, batch["tokens"], batch["positions"], q_chunk=qc,
-            return_hidden=True, plans=plans)
+            params, cfg, batch["tokens"], batch["positions"],
+            patch_embeds=batch.get("patch_embeds"), q_chunk=qc,
+            banded=banded, return_hidden=True, plans=plans)
         # only the last position's logits are needed to start decoding
         logits = unembed(params["embed"], hidden[:, -1:])
         return softcap(logits.float(), cfg.logit_softcap)

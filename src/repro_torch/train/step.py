@@ -46,10 +46,11 @@ def pick_q_chunk(s: int, pref: int = 512) -> int:
 
 
 def _loss_fn(params, batch, cfg: ModelConfig, q_chunk: int,
-             ce_chunk: int = 512, plans=None):
+             banded: bool = False, ce_chunk: int = 512, plans=None):
     hidden, aux, _ = transformer.lm_apply(
-        params, cfg, batch["tokens"], batch["positions"], q_chunk=q_chunk,
-        return_hidden=True, plans=plans)
+        params, cfg, batch["tokens"], batch["positions"],
+        patch_embeds=batch.get("patch_embeds"), q_chunk=q_chunk,
+        banded=banded, return_hidden=True, plans=plans)
     ce = chunked_cross_entropy(
         hidden, params["embed"]["embedding"], batch["targets"],
         logit_softcap=cfg.logit_softcap, chunk=ce_chunk)
@@ -57,13 +58,13 @@ def _loss_fn(params, batch, cfg: ModelConfig, q_chunk: int,
 
 
 def loss_and_grads(params, batch, cfg: ModelConfig, *, q_chunk: int,
-                   ce_chunk: int = 512, plans=None):
+                   banded: bool = False, ce_chunk: int = 512, plans=None):
     """``(loss, metrics, grads)`` of :func:`_loss_fn`, the grads a tree
     like ``params`` (leaves no graph reaches get zeros)."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
-        loss, metrics = _loss_fn(leaves, batch, cfg, q_chunk, ce_chunk,
-                                 plans)
+        loss, metrics = _loss_fn(leaves, batch, cfg, q_chunk, banded,
+                                 ce_chunk, plans)
         loss.backward()
     grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
                      else p.grad, leaves)
@@ -72,12 +73,15 @@ def loss_and_grads(params, batch, cfg: ModelConfig, *, q_chunk: int,
 
 def make_train_step(cfg: ModelConfig, *, optimizer: str = "adamw",
                     lr: float = 3e-4, clip: float = 1.0,
-                    microbatches: int = 1, q_chunk: Optional[int] = None,
-                    ce_chunk: int = 512, schedule=None):
+                    microbatches: int = 1, banded: bool = False,
+                    q_chunk: Optional[int] = None, ce_chunk: int = 512,
+                    schedule=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch``: ``tokens``, ``targets``, ``positions`` (B, S) integer
-    tensors on the state's device. ``schedule``: the plan-refresh
+    tensors on the state's device, and for a VLM ``patch_embeds`` (B, P,
+    d), whose positions the loss skips. ``banded``: the chunked attention
+    core attends each chunk's KV band only. ``schedule``: the plan-refresh
     ``SparsitySchedule`` (None: re-encode every step). ``microbatches``
     splits the batch and averages float32-accumulated grads. The step
     consumes ``state``: its params and optimizer tensors are updated in
@@ -95,7 +99,7 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adamw",
         if uses_plans and isinstance(plans, planenc.PlanState):
             plans = planenc.maybe_refresh(state.params, plans, state.step,
                                           fl_cfg, schedule)
-        kw = dict(q_chunk=qc, ce_chunk=ce_chunk,
+        kw = dict(q_chunk=qc, banded=banded, ce_chunk=ce_chunk,
                   plans=plans if uses_plans else None)
 
         if microbatches == 1:

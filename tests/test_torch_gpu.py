@@ -88,7 +88,12 @@ ASSIGN_CASES = [
     ("rows", (2,), 4097, pe_ops.SORT_MAX_GROUPS), ("rows", (3,), 700, 3),
     ("ties", (2,), 3000, 4), ("ties", (), 100, 8), ("zeros", (2,), 600, 4),
     ("zeros", (), 9216, 2), ("strided", (), 512, 4),
-    ("strided", (26,), 2304, 4)]
+    ("strided", (26,), 2304, 4),
+    # the dense family's d_ff sides in the largest tier (10,241-16,384
+    # items): gemma3-12b's 15,360 and internlm2-20b's and paligemma-3b's
+    # 16,384 (which fills it), at L = 2 and at paligemma's 18 layers
+    *[(kind, (l,), m, 4) for kind in ("rows", "cols")
+      for l in (2, 18) for m in (15360, 16384)]]
 
 
 @pytest.mark.parametrize("slack", [1.0, 1.25])
@@ -366,7 +371,12 @@ def test_rollout_on_the_card_replays_on_the_cpu(cuda):
                                        (256, 700, 3, 200, 200),
                                        # widths not multiples of 8: wmma
                                        (200, 300, 2, 50, 100),
-                                       (100, 400, 2, 90, 96)])
+                                       (100, 400, 2, 90, 96),
+                                       # gemma2-27b's compact down
+                                       # projection (K 11,520): decode's
+                                       # split-K stream, prefill's wgmma
+                                       (4, 36864, 4, 11520, 1448),
+                                       (4096, 36864, 4, 11520, 1448)])
 def test_fused_bmm_matches_its_plain_version(cuda, dtype, tol, b, m, g, k, n):
     gen = torch.Generator(device=cuda).manual_seed(b + m + k)
     x = torch.randn((m + 1, b), generator=gen, device=cuda).to(dtype)
@@ -399,7 +409,13 @@ def test_fused_bmm_matches_its_plain_version(cuda, dtype, tol, b, m, g, k, n):
     (1, 4, 1, 300, 100, 64, 0, 0.0, True),       # T < S under causal
     (1, 2, 2, 100, 40, 64, 8, 0.0, False),       # rows with no key
     (1, 4, 2, 90, 90, 20, 0, 50.0, True),        # D % 16 != 0: FP32 FMA
-    (1, 2, 1, 150, 150, 40, 20, 0.0, True)])     # D % 16 != 0: FP32 FMA
+    (1, 2, 1, 150, 150, 40, 20, 0.0, True),      # D % 16 != 0: FP32 FMA
+    # the dense family's prefills: gemma2-27b (qpk 2, D 128, softcap 50),
+    # internlm2-20b (qpk 6, D 128, softcap 0), gemma3-12b (window 1,024
+    # inside S 2,048, D 256)
+    (1, 32, 16, 1024, 1024, 128, 4096, 50.0, True),
+    (1, 48, 8, 1024, 1024, 128, 0, 0.0, True),
+    (1, 16, 8, 2048, 2048, 256, 1024, 0.0, True)])
 def test_flash_fwd_matches_its_plain_version(cuda, dtype, b, hq, hkv, s, t,
                                              d, window, softcap, causal):
     from repro_torch.kernels.flash_attention import ops as fa_ops
