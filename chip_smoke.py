@@ -38,7 +38,13 @@ The port's paths, each at full width with random weights from a seed:
 * paligemma-3b's prefix-LM prefill at full depth (18 layers, 256 patch
   embeddings + 768 text tokens) and gemma3-12b's banded prefill;
 * the sync IC3Net launcher ``python -m repro_torch.launch.marl_ic3net``
-  at the reference's defaults (4 agents on 4x4, hidden 128, B=16).
+  at the reference's defaults (4 agents on 4x4, hidden 128, B=16);
+* serving the MoE family at full width, cut in depth (random bf16
+  weights, FLGW G=4 grouped, slack 1.25, each expert projection one
+  kernel launch for all experts): mixtral-8x22b at 4 of 56 layers (8
+  experts, top-2, window 4,096; G=4 on the experts and attention) and
+  arctic-480b at 1 of 35 (128 experts, top-2, and the dense residual
+  MLP; G=4 on the experts, the residual and attention).
 
 The script
 
@@ -170,7 +176,27 @@ The script
       card (exit 0, its success, throughput and sparsity lines, each
       layer's learned sparsity within 10 points of 75 %), and ``--mesh
       2,2`` (a non-zero exit naming sharding);
-  13. prints one ``{"kernels": [...]}`` line, the card's name and power
+  13. for mixtral-8x22b and arctic-480b in turn: ``plan_assign`` bitwise
+      at every FLGW side (the experts' sides at L = layers x experts);
+      ``fused_bmm`` at one MoE layer's batched expert shapes (E·G tiles
+      in one launch) for a dropless prefill's rows (B·S·top-k) and a
+      decode step's 8, and for mixtral ``grouped_bmm_bf16`` at the same
+      prefill shapes, each against its plain version and timed against
+      it and ``torch.bmm``; an oracle of the MoE layer (64 tokens) against
+      plain masked products on the card (routing re-derived, each
+      expert's mask from its balanced groups); ``flash_fwd`` at the
+      prefill's shapes; then, with every launch count at 0, a certify
+      session, the prefill (mixtral B=4 x S=1,024, arctic B=1 x S=512)
+      and a lockstep Engine run (4 requests, prompt 64, gen 32), checking
+      ``plan_assign`` exactly 2 a projection and encode (14 mixtral, 20
+      arctic) and ``fused_bmm`` exactly one a projection, layer and
+      forward (7 and 10); for mixtral also an ``off``-policy prefill
+      (``grouped_bmm_bf16`` exactly 7 a layer, no ``fused_bmm``, logits
+      within the bf16 gate of the certify prefill's), a CPU replay of a
+      1-layer cut (B=1 x S=64, 4 greedy steps) and a profile of one
+      prefill and 8 decode steps (``fused_bmm`` on wgmma and the
+      streaming kernel only, ``flash_fwd`` on wgmma only);
+  14. prints one ``{"kernels": [...]}`` line, the card's name and power
       limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -520,9 +546,10 @@ def check_bmm_kernel(model, plans, rows_b: int) -> list[dict]:
         plan = plans.plans[path[-1]]
         x = torch.randn((rows_b, p["w"].shape[0]), generator=gen,
                         device=model.device)
-        xg, wc = fm_ops.gather_operands(x, p["w"].detach(), plan.row_ids,
-                                        plan.col_ids, plan.row_valid,
-                                        plan.col_valid)
+        xg = fm_ops.gather_x(x, plan.row_ids, plan.row_valid)
+        wc = fm_ops.compact_weights(p["w"].detach(), plan.row_ids,
+                                    plan.col_ids, plan.row_valid,
+                                    plan.col_valid)
         y = fm_ops.grouped_bmm(xg, wc)
         y_ref = fm_ref.ref_grouped_bmm(xg, wc)
         err = float((y - y_ref).abs().max())
@@ -781,8 +808,7 @@ def check_fused_kernel(params, cfg, rows_bf16=(4, 4096),
             m, n = blkp[part][name]["w"].shape
             dev = plan.wc.device
             x = torch.randn((n_rows, m), generator=gen, device=dev).to(dtype)
-            ids = torch.where(plan.row_valid, plan.row_ids, m).to(torch.int32)
-            xp = fm_ops.sink_transposed(x)
+            xp, ids = fm_ops.fused_operands(x, plan.row_ids, plan.row_valid)
             wc = plan.wc.to(dtype).contiguous()
             y = fm_ops.fused_bmm(xp, wc, ids)
             y_ref = fm_ref.ref_fused_bmm(xp, wc, ids)
@@ -792,7 +818,7 @@ def check_fused_kernel(params, cfg, rows_bf16=(4, 4096),
                   f"fused_bmm == plain at {name}, {n_rows} rows, {dtype} "
                   f"(max abs err {err})")
             g, k, nc = wc.shape
-            xg = xp[ids.long()].transpose(1, 2).contiguous()
+            xg = fm_ops.gather_x(x, plan.row_ids, plan.row_valid)
             es = x.element_size()
             nbytes = es * (n_rows * (m + 1) + g * k * nc + g * n_rows * nc) \
                 + 4 * g * k
@@ -835,12 +861,14 @@ def _attn_pairs(s: int, window: int) -> int:
 
 def check_flash_kernel(cfg, device,
                        cases=((PREFILL_SEQ, 4096), (PREFILL_SEQ, 0),
-                              (512, 128))) -> list[dict]:
+                              (512, 128)),
+                       batch: int = SERVE_BATCH) -> list[dict]:
     """flash_fwd against its plain version (f32 math) at the prefill's
     shapes (``cases``: (S, window) at ``cfg``'s heads, head dim and
-    softcap), and timed against SDPA with softcap 0 (SDPA has none)."""
+    softcap, ``batch`` sequences), and timed against SDPA with softcap 0
+    (SDPA has none)."""
     import torch.nn.functional as F
-    b, hq, hkv, d = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, hq, hkv, d = batch, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     rows = []
     for s, window in cases:
@@ -881,13 +909,14 @@ def check_flash_kernel(cfg, device,
 
 
 def run_serve(cfg, params, kernels, seq: int = PREFILL_SEQ,
-              continuous: bool = True, tiled_sides: int = 0) -> dict:
+              continuous: bool = True, tiled_sides: int = 0,
+              batch: int = SERVE_BATCH) -> dict:
     """The serving path with every launch count at 0 first: a certify
-    session, a B=4 x S=``seq`` prefill, one lockstep and (``continuous``)
-    one continuous Engine run. ``tiled_sides``: how many grouping sides
-    of one encode lie past the sort route's limit (each then takes one
-    plan_rank and one plan_place launch an encode); with none, no side
-    may take them."""
+    session, a B=``batch`` x S=``seq`` prefill, one lockstep and
+    (``continuous``) one continuous Engine run. ``tiled_sides``: how many
+    grouping sides of one encode lie past the sort route's limit (each
+    then takes one plan_rank and one plan_place launch an encode); with
+    none, no side may take them."""
     plan_cache.clear()
     _zero(kernels)
     t0 = time.perf_counter()
@@ -896,18 +925,18 @@ def run_serve(cfg, params, kernels, seq: int = PREFILL_SEQ,
     session_s = time.perf_counter() - t0
     dev = session.device
     rng = torch.Generator(device=dev).manual_seed(SEED + 4)
-    tok = torch.randint(0, cfg.vocab, (SERVE_BATCH, seq),
-                        generator=rng, device=dev)
-    batch = {"tokens": tok, "positions": torch.arange(
-        seq, device=dev).expand(SERVE_BATCH, seq)}
+    tok = torch.randint(0, cfg.vocab, (batch, seq), generator=rng,
+                        device=dev)
+    inputs = {"tokens": tok, "positions": torch.arange(
+        seq, device=dev).expand(batch, seq)}
     prefill_s = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = session.prefill(batch)
+        logits = session.prefill(inputs)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
-    check(logits.shape == (SERVE_BATCH, 1, cfg.vocab)
+    check(logits.shape == (batch, 1, cfg.vocab)
           and bool(torch.isfinite(logits).all()),
           "prefill logits finite, (B, 1, vocab)")
 
@@ -950,11 +979,11 @@ def run_serve(cfg, params, kernels, seq: int = PREFILL_SEQ,
     return dict(
         launches=launches, session_s=session_s, prefill_s=prefill_s,
         prefill_ms=statistics.median(prefill_s) * 1e3,
-        prefill_tokens_per_s=SERVE_BATCH * seq
-        / statistics.median(prefill_s),
+        prefill_tokens_per_s=batch * seq / statistics.median(prefill_s),
         lockstep=lock.summary(),
         continuous=runs[1][0].summary() if continuous else None,
-        encodes=encodes, plan_cache=plan_cache.stats(), session=session)
+        encodes=encodes, plan_cache=plan_cache.stats(), session=session,
+        inputs=inputs, logits=logits)
 
 
 def _blocks_slice(tree, n: int):
@@ -1051,8 +1080,10 @@ def cpu_replay(cfg, params, blocks: int = 2, seq: int = 256,
                 cpu_decode_s=cpu_decode_s, tol=REPLAY_BF16_TOL)
 
 
-def profile_serve(session, cfg, seq: int = PREFILL_SEQ) -> dict:
-    """The profiler over one B=4 x S=``seq`` prefill and 8 decode steps."""
+def profile_serve(session, cfg, seq: int = PREFILL_SEQ,
+                  names=None) -> dict:
+    """The profiler over one B=4 x S=``seq`` prefill and 8 decode steps
+    (``names``: the kernels to count, SERVE_KERNELS by default)."""
     dev = session.device
     tok = torch.randint(0, cfg.vocab, (SERVE_BATCH, seq), device=dev)
     batch = {"tokens": tok, "positions": torch.arange(
@@ -1066,7 +1097,7 @@ def profile_serve(session, cfg, seq: int = PREFILL_SEQ) -> dict:
         for t in range(8):
             nxt, cache = session.decode(cache, nxt, session.greedy_positions(
                 SERVE_BATCH, t))
-    return profile(run, SERVE_KERNELS)
+    return profile(run, names or SERVE_KERNELS)
 
 
 # ---------------------------------------------------------------------------
@@ -2380,6 +2411,7 @@ def run_dense_family(kernels, device, card: str) -> tuple[dict, dict]:
         sv = run_serve(cfg, params, kernels, seq=seq, continuous=False,
                        tiled_sides=tiled_sides)
         session = sv.pop("session")
+        del sv["inputs"], sv["logits"]
         if arch == "gemma2_27b":
             check(tiled_sides == 3 * cfg.period and sv["launches"][
                 "plan_rank"] > 0,
@@ -2664,6 +2696,339 @@ def run_sync_launcher(kernels, device, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the MoE family served
+# ---------------------------------------------------------------------------
+
+# (arch, layers, FLGW targets, prefill B, prefill S), full width, cut in
+# depth: mixtral-8x22b at 4 of 56 layers (4.83 GB of bf16 experts a
+# layer, ~1.9 GB of compact copies), arctic-480b at 1 of 35 (26.8 GB of
+# experts, ~10.5 GB of compact copies, the dense residual beside them)
+MOE_FAMILY = (("mixtral_8x22b", 4, ("moe", "attn"), 4, 1024),
+              ("arctic_480b", 1, ("moe", "mlp", "attn"), 1, 512))
+MOE_REPLAY_SEQ, MOE_REPLAY_STEPS = 64, 4      # mixtral's 1-layer CPU replay
+MOE_ORACLE_TOKENS = 64
+DECODE_ROWS = 8          # a lockstep decode step's dropless rows: B=4, top-2
+# compact projections a layer: q, k, v, o and the experts' up, gate, down
+# (each one launch for all experts), plus moe_dense's residual MLP
+MOE_PROJECTIONS = {"moe": 7, "moe_dense": 10}
+MOE_KERNELS = dict(SERVE_KERNELS, **{
+    "grouped_bmm_bf16": "grouped_bmm_tma_kernel",
+    "grouped_bmm_bf16 on wmma": "grouped_bmm_bf16_kernel"})
+
+
+def _moe_layer(params, cfg):
+    """Block 0's MoE params and their freshly encoded plans (stacked over
+    the experts), with compact weights attached."""
+    p = transformer._index(params["blocks"], 0)["slot0"]["moe"]
+    fl = flgw.FLGWConfig(groups=cfg.flgw_groups, path="grouped")
+    with torch.inference_mode():
+        plans = grouped.attach_compact(grouped.encode_plans(p, fl), p)
+    return p, plans
+
+
+# the plain versions of the batched expert products run this many tiles
+# at a time (they are independent): arctic's 512 tiles at 1,024 rows in
+# one f32 einsum would hold ~25 GB beside the layer's 38 GB
+PLAIN_TILES = 128
+
+
+def _plain_tiles(fn, *args):
+    """``fn(*args)`` with its last two arguments (tiled on their leading
+    axis) split into chunks of PLAIN_TILES tiles, the outputs
+    concatenated: the same values as one call."""
+    *head, a, b = args
+    return torch.cat([fn(*head, a[i:i + PLAIN_TILES], b[i:i + PLAIN_TILES])
+                      for i in range(0, a.shape[0], PLAIN_TILES)])
+
+
+def check_moe_kernels(p, plans, cfg, rows_list, bmm: bool) -> list[dict]:
+    """fused_bmm against its plain version at the batched expert shapes
+    of one MoE layer (E·G tiles in one launch, on the operands
+    grouped_matmul_fused builds), for each of ``rows_list`` rows an
+    expert; with ``bmm``,
+    grouped_bmm_bf16 on the gathered operands of the same calls (its TMA
+    route, rows > 64 only). Each timed against its plain version and
+    torch.bmm on pre-gathered operands."""
+    gen = torch.Generator(device=p["router"].device).manual_seed(SEED + 11)
+    rows = []
+    for n_rows in rows_list:
+        for name in ("up", "gate", "down"):
+            plan, w = plans[name], p[name]["w"]
+            e, m, n = w.shape
+            _, g, k, nc = plan.wc.shape
+            x = torch.randn((e, n_rows, m), generator=gen,
+                            device=w.device).to(w.dtype)
+            xt, ids = fm_ops.fused_operands(x, plan.row_ids, plan.row_valid)
+            wc = plan.wc.view(e * g, k, nc)
+            y = fm_ops.fused_bmm(xt, wc, ids)
+            y_ref = _plain_tiles(fm_ref.ref_fused_bmm, xt, wc, ids)
+            err = float((y.float() - y_ref.float()).abs().max())
+            check(torch.allclose(y.float(), y_ref.float(), **FUSED_BF16_TOL),
+                  f"fused_bmm == plain at {cfg.name} {name}, {e * g} tiles, "
+                  f"{n_rows} rows (max abs err {err})")
+            xg = fm_ops.gather_x(x, plan.row_ids, plan.row_valid)
+            del y_ref
+            nbytes = 2 * (e * (m + 1) * n_rows + e * g * k * nc
+                          + e * g * n_rows * nc) + 4 * e * g * k
+            ops = 2 * e * g * n_rows * k * nc
+            bnd, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+            it, wu = (10, 2) if n_rows > 64 else (50, 5)
+            row = dict(
+                arch=cfg.name, proj=name, experts=e, tiles=e * g,
+                rows=n_rows, m=m, n=n, cap_m=k, cap_n=nc, max_abs_err=err,
+                ms=time_ms(lambda: fm_ops.fused_bmm(xt, wc, ids), it, wu),
+                plain_ms=time_ms(lambda: _plain_tiles(
+                    fm_ref.ref_fused_bmm, xt, wc, ids), 3, 1),
+                library_ms=time_ms(lambda: torch.bmm(xg, wc), it, wu),
+                library="torch.bmm on pre-gathered operands (gather not "
+                        "counted)",
+                bound_ms=bnd, bound_by=by,
+                route=FUSED_ROUTES["prefill" if n_rows > 64 else "decode"])
+            row["tflops"] = ops / row["ms"] / 1e9
+            row["bound_share"] = bnd / row["ms"]
+            if bmm and n_rows > 64:
+                route = fm_ops.bmm_bf16_route(n_rows, k, nc, True)
+                check(route == fm_ops.TMA,
+                      f"grouped_bmm_bf16 at {cfg.name} {name} takes the TMA "
+                      f"route ({BMM16_ROUTES[route]})")
+                yb = fm_ops.grouped_bmm(xg, wc)
+                yb_ref = _plain_tiles(fm_ref.ref_grouped_bmm, xg, wc)
+                berr = float((yb.float() - yb_ref.float()).abs().max())
+                check(torch.allclose(yb.float(), yb_ref.float(),
+                                     **BMM_BF16_TOL),
+                      f"grouped_bmm_bf16 == plain at {cfg.name} {name}, "
+                      f"{n_rows} rows (max abs err {berr})")
+                del yb, yb_ref
+                bb, bby = bound_ms(2 * (e * g * n_rows * k + e * g * k * nc
+                                        + e * g * n_rows * nc), ops,
+                                   BF16_OPS_PER_S)
+                row["grouped_bmm_bf16"] = dict(
+                    max_abs_err=berr, route=BMM16_ROUTES[route],
+                    ms=time_ms(lambda: fm_ops.grouped_bmm(xg, wc), it, wu),
+                    plain_ms=time_ms(lambda: _plain_tiles(
+                        fm_ref.ref_grouped_bmm, xg, wc), 3, 1),
+                    library_ms=row["library_ms"], bound_ms=bb, bound_by=bby)
+                row["grouped_bmm_bf16"]["bound_share"] = \
+                    bb / row["grouped_bmm_bf16"]["ms"]
+            rows.append(row)
+            del x, xt, xg, y
+            torch.cuda.empty_cache()
+    return rows
+
+
+def moe_oracle(p, plans, cfg, device) -> dict:
+    """One MoE layer's output for MOE_ORACLE_TOKENS tokens through
+    ``moe`` (dropless, the plans' compact weights: one fused_bmm launch a
+    projection) against plain torch products on the card: routing
+    re-derived by ``torch.topk``, and for each token and each of its
+    experts the gated FFN on x @ (W_e * [row_group_e[r] ==
+    col_group_e[c]]), the mask from that expert's balanced groups, one
+    expert at a time."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe as moe_mod
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    t = MOE_ORACLE_TOKENS
+    x = torch.randn((1, t, cfg.d_model), generator=gen,
+                    device=device).to(cfg.dtype)
+    fl = flgw.FLGWConfig(groups=cfg.flgw_groups, path="grouped")
+    before = fm_ops.FUSED.launches
+    with torch.inference_mode():
+        got, _ = moe_mod.moe(p, x, cfg, flgw=fl, dropless=True, plans=plans)
+    torch.cuda.synchronize()
+    check(fm_ops.FUSED.launches == before + 3,
+          f"{cfg.name}: the MoE layer is 3 fused_bmm launches "
+          f"({fm_ops.FUSED.launches - before})")
+    xf = x[0]
+    with torch.inference_mode():
+        probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+        top_w, top_e = probs.topk(cfg.top_k, dim=-1)
+        top_w = top_w / top_w.sum(-1, keepdim=True)
+        want = torch.zeros((t, cfg.d_model), dtype=torch.float32,
+                           device=device)
+        for e in top_e.unique().tolist():
+            tok, slot = (top_e == e).nonzero(as_tuple=True)
+
+            def masked(name):
+                pl = plans[name]
+                keep = pl.row_group[e][:, None] == pl.col_group[e][None, :]
+                return p[name]["w"][e] * keep.to(cfg.dtype)
+            xe = xf[tok]
+            h = F.gelu(xe @ masked("gate"), approximate="tanh") * (
+                xe @ masked("up"))
+            ye = h @ masked("down")
+            want[tok] += (ye * top_w[tok, slot, None].to(ye.dtype)).float()
+    got = got[0].float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(torch.allclose(got, want, **REPLAY_BF16_TOL)
+          and err <= REPLAY_BF16_TOL["rtol"] * scale,
+          f"{cfg.name}: the MoE layer == plain masked products on the card "
+          f"within {REPLAY_BF16_TOL} and {REPLAY_BF16_TOL['rtol']} of its "
+          f"largest value (max abs err {err}, largest {scale})")
+    return dict(tokens=t, experts_used=int(top_e.unique().numel()),
+                max_abs_err=err, max_abs_value=scale, tol=REPLAY_BF16_TOL)
+
+
+def _count_forwards():
+    """Patch ``transformer.lm_apply`` to count its calls (the serving
+    steps reach it through the module); returns (counter, restore)."""
+    calls = [0]
+    orig = transformer.lm_apply
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return orig(*a, **kw)
+    transformer.lm_apply = counted
+
+    def restore():
+        transformer.lm_apply = orig
+    return calls, restore
+
+
+def run_moe(kernels, device, card: str) -> dict:
+    """Phase 13: each MOE_FAMILY config at full width, cut in depth, FLGW
+    G=4 grouped, slack 1.25, bf16, ``use_flash``: plan_assign bitwise at
+    every side; fused_bmm (and for mixtral grouped_bmm_bf16) at the
+    batched expert shapes and flash_fwd at the prefill's, against their
+    plain versions; with the counts at 0, a certify session, the prefill
+    and a lockstep Engine run (4 requests, prompt 64, gen 32), with exact
+    launch counts; mixtral also an ``off``-policy prefill (the gather
+    path, grouped_bmm_bf16), a 1-layer CPU replay and a profile; each
+    an oracle of its MoE layer against plain products on the card."""
+    out = {}
+    slack = flgw.FLGWConfig().capacity_slack
+    for arch, layers, targets, b, seq in MOE_FAMILY:
+        cfg = registry.get_config(arch, n_layers=layers,
+                                  flgw_targets=targets, **{
+                                      k: v for k, v in SERVE_FLGW.items()
+                                      if k != "flgw_targets"})
+        t0 = time.perf_counter()
+        params = serve_params(cfg, device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(params))
+        per_layer = MOE_PROJECTIONS[cfg.pattern[0].ffn]
+        sides = check_assign_sides(params, slack)
+        check(not sides["tiled"] and len(sides["sort"]) == 2 * per_layer,
+              f"{arch}: every side on plan_assign ({len(sides['sort'])})")
+        p_moe, moe_plans = _moe_layer(params, cfg)
+        kern_rows = check_moe_kernels(p_moe, moe_plans, cfg,
+                                      (b * seq * cfg.top_k, DECODE_ROWS),
+                                      bmm=arch == "mixtral_8x22b")
+        oracle = moe_oracle(p_moe, moe_plans, cfg, device)
+        del moe_plans
+        torch.cuda.empty_cache()
+        windows = sorted({s.window for s in cfg.pattern}, reverse=True)
+        flash_rows = check_flash_kernel(cfg, device,
+                                        tuple((seq, w) for w in windows), b)
+        _print_family_kernels(arch, sides, [], flash_rows)
+        for r in kern_rows:
+            bm = r.get("grouped_bmm_bf16")
+            bm = (f"; grouped_bmm_bf16 {bm['ms']:.4f} ms ({bm['route']}, "
+                  f"{bm['bound_share']:.3f} of its bound), plain "
+                  f"{bm['plain_ms']:.3f}") if bm else ""
+            print(f"  fused_bmm {arch} {r['proj']:>4} {r['tiles']} tiles x "
+                  f"{r['rows']} rows K={r['cap_m']} N={r['cap_n']}: "
+                  f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+                  f"{r['bound_share']:.3f} of the bound, {r['route']}), "
+                  f"plain {r['plain_ms']:.3f}, bmm {r['library_ms']:.4f}, "
+                  f"bound {r['bound_ms']:.4f} ({r['bound_by']}){bm}",
+                  flush=True)
+        print(f"  oracle {arch}: the MoE layer on {oracle['tokens']} tokens "
+              f"({oracle['experts_used']} experts) == plain masked products "
+              f"on the card, max abs err {oracle['max_abs_err']:.3g} (largest "
+              f"{oracle['max_abs_value']:.3g})", flush=True)
+
+        calls, restore = _count_forwards()
+        try:
+            sv = run_serve(cfg, params, kernels, seq=seq, continuous=False,
+                           batch=b)
+        finally:
+            restore()
+        session = sv.pop("session")
+        inputs, certify_logits = sv.pop("inputs"), sv.pop("logits")
+        lc, enc = sv["launches"], sv["encodes"]
+        check(lc["plan_assign"] == 2 * per_layer * enc and enc >= 1,
+              f"{arch}: plan_assign exactly {2 * per_layer} an encode "
+              f"({enc} encodes; {lc})")
+        check(lc["fused_bmm"] == per_layer * layers * calls[0],
+              f"{arch}: fused_bmm exactly {per_layer} a layer and forward "
+              f"({layers} layers, {calls[0]} forwards; {lc})")
+        res = dict(layers=layers, targets=targets, batch=b, seq=seq,
+                   params=n_params, init_s=init_s, assign=sides,
+                   kernel_rows=kern_rows, flash_rows=flash_rows,
+                   oracle=oracle, serve=sv, forwards=calls[0],
+                   dropless_rows_per_expert=b * seq * cfg.top_k,
+                   mean_rows_per_expert=b * seq * cfg.top_k / cfg.n_experts)
+        lk = sv["lockstep"]
+        print(f"phase 13 {arch} ({layers} layers, {n_params:,} params) on "
+              f"{card}: launches {lc} over {calls[0]} forwards; prefill "
+              f"B={b} x S={seq} {sv['prefill_ms']:.1f} ms "
+              f"({sv['prefill_tokens_per_s']:.0f} tokens/s; dropless "
+              f"{res['dropless_rows_per_expert']} rows an expert against a "
+              f"mean load of {res['mean_rows_per_expert']:.0f}); lockstep "
+              f"{lk['tokens_per_s']:.1f} tokens/s, p50 {lk['p50_s']:.3f} s",
+              flush=True)
+        if arch == "mixtral_8x22b":
+            plan_cache.clear()
+            _zero(kernels)
+            off = ServeSession(cfg, params, plan_policy="off")
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                off_logits = off.prefill(inputs)
+                torch.cuda.synchronize()
+            off_ms = (time.perf_counter() - t0) * 1e3
+            lo = _launches(kernels)
+            check(lo["grouped_bmm_bf16"] == per_layer * layers
+                  and lo["fused_bmm"] == 0
+                  and lo["plan_assign"] == 2 * per_layer * layers,
+                  f"{arch} off-policy prefill: grouped_bmm_bf16 exactly "
+                  f"{per_layer} a layer, an encode a projection, no "
+                  f"fused_bmm ({lo})")
+            oerr = float((off_logits - certify_logits).abs().max())
+            check(torch.allclose(off_logits, certify_logits,
+                                 **REPLAY_BF16_TOL),
+                  f"{arch}: the off-policy prefill's logits within "
+                  f"{REPLAY_BF16_TOL} of the certify prefill's (max abs err "
+                  f"{oerr})")
+            res["off_policy"] = dict(launches=lo, ms=off_ms,
+                                     max_abs_err=oerr)
+            del off
+            rp = cpu_replay(cfg, params, blocks=1, seq=MOE_REPLAY_SEQ,
+                            steps=MOE_REPLAY_STEPS)
+            res["replay"] = rp
+            prof = profile_serve(session, cfg, seq, MOE_KERNELS)
+            print_profile(f"{arch} prefill + 8 decode steps", prof)
+            check_flash_routes(prof, f"the {arch} serve profile",
+                               ("flash_fwd",))
+            check_fused_routes(prof)
+            res["profile"] = prof
+            print(f"  {arch} off-policy prefill {off_ms:.1f} ms, launches "
+                  f"{lo}, logits max abs err {oerr:.3g}; CPU replay (1 "
+                  f"layer): max abs err {rp['max_abs_err']}, "
+                  f"{rp['equal_tokens']}/{MOE_REPLAY_STEPS} greedy tokens "
+                  f"equal", flush=True)
+        out[arch] = res
+        del session, params, p_moe, inputs, certify_logits
+        plan_cache.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_launches(moe, sym: str) -> dict:
+    """One kernel's launches on each path of phase 13."""
+    out = {}
+    for arch, r in moe.items():
+        out[f"{arch}_serve"] = r["serve"]["launches"][sym]
+        if "off_policy" in r:
+            out[f"{arch}_off_policy_prefill"] = \
+                r["off_policy"]["launches"][sym]
+    return out
+
+
 def family_launches(fam, pre, band, sync, sym: str) -> dict:
     """One kernel's launches on each path of phases 10-12."""
     return {**{f"{arch}_serve": fam[arch]["serve"]["launches"][sym]
@@ -2706,6 +3071,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_script = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
     gc.callbacks.append(_time_full_gcs)
@@ -2823,6 +3189,7 @@ def main() -> int:
           f"{max(r['max_abs_err'] for r in flash_rows):.3g})", flush=True)
     sv = run_serve(scfg, params, all_kernels)
     session = sv.pop("session")
+    del sv["inputs"], sv["logits"]
     lk, ct = sv["lockstep"], sv["continuous"]
     print(f"slice 2: launches {sv['launches']}; prefill B={SERVE_BATCH} x "
           f"S={PREFILL_SEQ} {sv['prefill_ms']:.1f} ms "
@@ -2997,6 +3364,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     # -- path 9: the sync IC3Net launcher ------------------------------------
     sync = run_sync_launcher(all_kernels, dev, card)
+    # -- path 10: the MoE family served -------------------------------------
+    t_moe = time.perf_counter()
+    moe = run_moe(all_kernels, dev, card)
+    moe_s = time.perf_counter() - t_moe
+    print(f"phase 13 (MoE family) took {moe_s:.1f} s; the script so far "
+          f"{time.perf_counter() - t_script:.1f} s", flush=True)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -3010,7 +3383,8 @@ def main() -> int:
                 "ic3net_learner": learner_out["launches"][sym],
                 "ic3net_async": op["launches"][sym],
                 "gemma2_ckpt": ck["launches"][sym],
-                **family_launches(fam, pre, band, sync, sym)}
+                **family_launches(fam, pre, band, sync, sym),
+                **moe_launches(moe, sym)}
 
     def launches(sym):
         return sum(path_launches(sym).values())
@@ -3090,6 +3464,10 @@ def main() -> int:
              ic3net_sides=per_side(assign_rows),
              lm_sides=per_side(lm_assign_rows),
              dense_family_sides=fk["sort"],
+             moe_sides=[dict(arch=a, **{k: r[k] for k in (
+                 "side", "layers", "items", "axis", "ms", "device_us",
+                 "plain_ms", "bound_ms")}) for a, f in moe.items()
+                 for r in f["assign"]["sort"] if "ms" in r],
              encode=enc_t,
              ptxas={f"plan_assign_kernel<{tier}>": pe_usage.get(
                  f"plan_assign_kernel<{tier}>") for tier in ASSIGN_TIERS},
@@ -3153,6 +3531,11 @@ def main() -> int:
                        / len(train_layer)),
              ptxas={name: fm_usage.get(name) for name in (
                  "grouped_bmm_tma_kernel", "grouped_bmm_bf16_kernel<128>")},
+             moe=[dict(proj=r["proj"], tiles=r["tiles"], rows=r["rows"],
+                       cap_m=r["cap_m"], cap_n=r["cap_n"],
+                       **r["grouped_bmm_bf16"])
+                  for f in moe.values() for r in f["kernel_rows"]
+                  if "grouped_bmm_bf16" in r],
              timed_over="one training layer's forward: its 3 MLP products "
                         "(up, gate, down) at 4096 rows, bf16; bound at 989 "
                         "TFLOP/s (bf16 tensor cores); device us a launch: "
@@ -3164,7 +3547,8 @@ def main() -> int:
              replaces="src/repro/kernels/flgw_matmul/flgw_matmul.py:93",
              launches=launches("fused_bmm"),
              launches_by_path=path_launches("fused_bmm"),
-             max_abs_err=max(r["max_abs_err"] for r in fused_rows),
+             max_abs_err=max(r["max_abs_err"] for r in fused_rows + [
+                 r for f in moe.values() for r in f["kernel_rows"]]),
              ms=total(prefill_layer, "ms"),
              plain_ms=total(prefill_layer, "plain_ms"),
              bound_ms=total(prefill_layer, "bound_ms"),
@@ -3186,6 +3570,8 @@ def main() -> int:
              ptxas={name: fm_usage.get(name) for name in (
                  "fused_bmm_wgmma_kernel", "fused_bmm_stream_kernel<4>")},
              dense_family_down=fk["fused_down"],
+             moe=[{k: v for k, v in r.items() if k != "grouped_bmm_bf16"}
+                  for f in moe.values() for r in f["kernel_rows"]],
              timed_over="one prefill layer: its 7 projections at 4096 rows, "
                         "bf16; bound at 989 TFLOP/s (bf16 tensor cores); "
                         "library = torch.bmm on pre-gathered operands, "
@@ -3211,6 +3597,11 @@ def main() -> int:
              ptxas=fa_usage.get("flash_fwd_wgmma_kernel<256>"),
              ptxas_d128=fa_usage.get("flash_fwd_wgmma_kernel<128>"),
              dense_family=fk["flash"],
+             moe=[dict(arch=a, **{k: r[k] for k in (
+                 "hq", "hkv", "d", "s", "window", "softcap", "max_abs_err",
+                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "bound_share", "tflops", "route")})
+                  for a, f in moe.items() for r in f["flash_rows"]],
              timed_over=f"one call at B={SERVE_BATCH}, Hq=8, Hkv=4, "
                         f"S={PREFILL_SEQ}, D=256, causal, softcap 50; bound "
                         "at 989 TFLOP/s (bf16 tensor cores); library = SDPA "
@@ -3277,7 +3668,8 @@ def main() -> int:
         osel=os_, fpga_model=fpga, learner=learner_out,
         learner_replay=lrep, learner_profile=lprof, learning_check=fig9,
         async_pipeline=asy, checkpoint=ck, dense_family=fam,
-        prefix_lm=pre, banded=band, sync_launcher=sync,
+        prefix_lm=pre, banded=band, sync_launcher=sync, moe_family=moe,
+        moe_phase_s=moe_s, script_s=time.perf_counter() - t_script,
         **kernels_line), indent=1, default=str))
     print(json.dumps(kernels_line))
     print(card)

@@ -56,7 +56,7 @@ def grouping_indices(ig: torch.Tensor, og: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(ig_idx, og_idx)``: argmax of each IG row / OG column (int64).
     Ties go to the first index, as in ``jnp.argmax``."""
-    return ig.argmax(1), og.argmax(0)
+    return ig.argmax(-1), og.argmax(-2)
 
 
 def mask_from_indices(ig_idx: torch.Tensor, og_idx: torch.Tensor,
@@ -68,15 +68,16 @@ def mask_from_indices(ig_idx: torch.Tensor, og_idx: torch.Tensor,
 def selection_matrices(ig: torch.Tensor, og: torch.Tensor,
                        temperature: float = 1.0
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Straight-through IS (M, G) and OS (G, N): the hard one-hot argmax
-    selection forward, the gradient of the temperature softmax backward
-    (``soft + (hard - soft).detach()``)."""
-    g = ig.shape[1]
-    is_soft = torch.softmax(ig / temperature, dim=1)
-    is_hard = F.one_hot(ig.argmax(1), g).to(ig.dtype)
+    """Straight-through IS (..., M, G) and OS (..., G, N): the hard
+    one-hot argmax selection forward, the gradient of the temperature
+    softmax backward (``soft + (hard - soft).detach()``). Leading dims
+    (stacked experts) batch, as JAX's vmap does."""
+    g = ig.shape[-1]
+    is_soft = torch.softmax(ig / temperature, dim=-1)
+    is_hard = F.one_hot(ig.argmax(-1), g).to(ig.dtype)
     is_mat = is_soft + (is_hard - is_soft).detach()
-    os_soft = torch.softmax(og / temperature, dim=0)
-    os_hard = F.one_hot(og.argmax(0), g).T.to(og.dtype)
+    os_soft = torch.softmax(og / temperature, dim=-2)
+    os_hard = F.one_hot(og.argmax(-2), g).transpose(-1, -2).to(og.dtype)
     os_mat = os_soft + (os_hard - os_soft).detach()
     return is_mat, os_mat
 
@@ -93,16 +94,17 @@ def flgw_linear(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,
                 og: torch.Tensor, cfg: FLGWConfig, *, transpose: bool = False,
                 plan=None) -> torch.Tensor:
     """``y = x @ (W * Mask)`` (or ``x @ (W * Mask)^T`` when transposed),
-    differentiable in x, W, IG and OG.
+    differentiable in x, W, IG and OG. Stacked experts (W (E, M, N),
+    IG (E, M, G), OG (E, G, N), x (E, ..., M)) give (E, ..., N).
 
     ``plan`` is the layer's cached ``GroupPlan`` for the grouped path;
     ``None`` re-derives it per call.
     """
     if not cfg.enabled:
-        return x @ (w.T if transpose else w)
+        return x @ (w.mT if transpose else w)
     if cfg.path == "masked":
         wm = w * mask_ste(ig, og, cfg.ste_temperature).to(w.dtype)
-        return x @ (wm.T if transpose else wm)
+        return x @ (wm.mT if transpose else wm)
     if cfg.path == "grouped":
         from repro_torch.core.grouped import grouped_apply  # avoids a cycle
         return grouped_apply(x, w, ig, og, cfg, transpose=transpose,

@@ -13,7 +13,9 @@ attached once per params version by serving) takes the fused path
 (``grouped_matmul_fused`` on ``fused_bmm``). :class:`_GroupedCore` makes
 either differentiable: dx and dW exactly, through the transposed compact
 products, and dIG/dOG through the sparse-restricted straight-through
-estimator, with the plan an input that the backward reuses.
+estimator, with the plan an input that the backward reuses. Stacked
+experts (a leading expert axis on W, IG, OG, x and the plan) run every
+expert's tiles in one launch, forward only.
 """
 from __future__ import annotations
 
@@ -147,11 +149,13 @@ def has_compact(plans) -> bool:
 def _core_matmul(x: torch.Tensor, w: torch.Tensor,
                  plan: GroupPlan) -> torch.Tensor:
     """One compact product: the fused path on attached compact weights,
-    else the gather path."""
+    else the gather path. x (B, M) and w (M, N), or with a leading
+    expert axis x (E, B, M), w (E, M, N) and the plan's leaves (E, G,
+    cap): one kernel launch either way."""
     if plan.wc is not None:
         return kops.grouped_matmul_fused(x, plan.wc, plan.row_ids,
                                          plan.row_valid, plan.col_ids,
-                                         plan.col_valid, n=w.shape[1])
+                                         plan.col_valid, n=w.shape[-1])
     return kops.grouped_matmul(x, w, plan.row_ids, plan.col_ids,
                                plan.row_valid, plan.col_valid)
 
@@ -169,7 +173,7 @@ def _grouped_bwd(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,
     n = og.shape[1]
     cap_n = plan.col_ids.shape[1]
     xg = kops.gather_x(x, plan.row_ids, plan.row_valid)
-    wc = plan.wc if plan.wc is not None else kops.gather_w(
+    wc = plan.wc if plan.wc is not None else kops.compact_weights(
         w, plan.row_ids, plan.col_ids, plan.row_valid, plan.col_valid)
     gc = gy[:, plan.col_ids.reshape(-1)].reshape(b, g, cap_n).permute(1, 0, 2)
     gc = torch.where(plan.col_valid[:, None, :], gc, 0)
@@ -228,18 +232,37 @@ class _GroupedCore(torch.autograd.Function):
                 None, None)
 
 
+_MOE_TRAINING = (
+    "training a grouped MoE (the compact product's backward over a "
+    "leading expert axis) is not ported to repro_torch yet (ROADMAP, "
+    "Queue 1: MoE training); serve it under torch.inference_mode, or "
+    "train on the masked or dense path")
+
+
 def grouped_apply(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,
                   og: torch.Tensor, cfg, *, transpose: bool = False,
                   plan: Optional[GroupPlan] = None) -> torch.Tensor:
     """Compact FLGW linear, differentiable in x, W, IG and OG. ``x``:
     (..., M) (or (..., N) when transposed). ``plan`` is the cached
-    metadata of the untransposed layer; ``None`` encodes one here."""
+    metadata of the untransposed layer; ``None`` encodes one here.
+
+    Stacked experts: w (E, M, N), ig (E, M, G), og (E, G, N), x (E, ...,
+    M) and plan leaves (E, G, cap) run every expert's tiles in one kernel
+    launch, forward only: when autograd records, this raises
+    ``NotImplementedError`` (ROADMAP, Queue 1: MoE training)."""
+    experts = w.dim() == 3
+    if experts and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w, ig, og)):
+        raise NotImplementedError(_MOE_TRAINING)
     if transpose:
-        w, ig, og = w.T, og.T, ig.T
+        w, ig, og = w.mT, og.mT, ig.mT
         plan = transpose_plan(plan) if plan is not None else None
     if plan is None:
         plan = make_plan(ig.detach(), og.detach(), cfg.capacity_slack)
     lead = x.shape[:-1]
-    y = _GroupedCore.apply(x.reshape(-1, x.shape[-1]), w, ig, og, plan,
-                           cfg.ste_temperature)
+    if experts:
+        y = _core_matmul(x.reshape(w.shape[0], -1, x.shape[-1]), w, plan)
+    else:
+        y = _GroupedCore.apply(x.reshape(-1, x.shape[-1]), w, ig, og, plan,
+                               cfg.ste_temperature)
     return y.reshape(*lead, -1)

@@ -42,6 +42,8 @@ _F32_ROWS = 32
 # off; 8 of them keep y's rows 16-byte aligned (for n a multiple of 8),
 # which the flash kernels' tensor-core route needs of the v it is handed.
 SINK_COLS = 8
+# compact_weights gathers this many bytes of int64 indices at a time
+_INDEX_BYTES = 1 << 30
 
 
 def grouped_bmm(xg: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
@@ -96,65 +98,88 @@ def bmm_f32_cols(g: int, b: int, n: int, sms: int) -> int:
 
 def gather_x(x: torch.Tensor, row_ids: torch.Tensor,
              row_valid: torch.Tensor) -> torch.Tensor:
-    """Step 1: x (B, M) -> x_c (G, B, capM), padding slots zeroed."""
-    b = x.shape[0]
-    g, cap_m = row_ids.shape
-    xg = x[:, row_ids.reshape(-1)].reshape(b, g, cap_m).permute(1, 0, 2)
-    return torch.where(row_valid[:, None, :], xg, 0).contiguous()
-
-
-def gather_w(w: torch.Tensor, row_ids: torch.Tensor, col_ids: torch.Tensor,
-             row_valid: torch.Tensor, col_valid: torch.Tensor
-             ) -> torch.Tensor:
-    """Step 2: W (M, N) -> W_c (G, capM, capN), padding slots zeroed."""
-    wc = w[row_ids[:, :, None], col_ids[:, None, :]]
-    wc = torch.where(row_valid[:, :, None] & col_valid[:, None, :], wc, 0)
-    return wc.contiguous()
-
-
-def gather_operands(x: torch.Tensor, w: torch.Tensor, row_ids: torch.Tensor,
-                    col_ids: torch.Tensor, row_valid: torch.Tensor,
-                    col_valid: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Steps 1-2: the compact operands ``(x_c, W_c)`` of one layer, with
-    the padding slots zeroed."""
-    return (gather_x(x, row_ids, row_valid),
-            gather_w(w, row_ids, col_ids, row_valid, col_valid))
+    """Step 1: x (B, M) -> x_c (G, B, capM), padding slots zeroed. With
+    a leading expert axis, x (E, B, M) and plan leaves (E, G, capM) give
+    the E·G tiles (E·G, B, capM) from one gather: the experts'
+    activations side by side as (B, E·M), expert e's ids offset by
+    e·M."""
+    b, m = x.shape[-2:]
+    cap_m = row_ids.shape[-1]
+    if x.dim() == 3:
+        e = x.shape[0]
+        if e > 1:
+            row_ids = row_ids + torch.arange(
+                e, device=x.device)[:, None, None] * m
+            x = x.transpose(0, 1)
+        x = x.reshape(b, e * m)
+    xg = x[:, row_ids.reshape(-1)].reshape(b, -1, cap_m).permute(1, 0, 2)
+    return torch.where(row_valid.reshape(-1, 1, cap_m), xg, 0).contiguous()
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, row_ids: torch.Tensor,
                    col_ids: torch.Tensor, row_valid: torch.Tensor,
                    col_valid: torch.Tensor) -> torch.Tensor:
     """Compact FLGW matmul. x (B, M), w (M, N), row_ids (G, capM),
-    col_ids (G, capN) -> y (B, N); columns no group holds stay zero."""
-    b = x.shape[0]
-    n = w.shape[1]
-    yc = grouped_bmm(*gather_operands(x, w, row_ids, col_ids, row_valid,
-                                      col_valid))
-    # Padding slots write to the sink column n, which is sliced off.
-    flat_cols = torch.where(col_valid, col_ids, n).reshape(-1)
-    y = x.new_zeros((b, n + SINK_COLS))
-    y[:, flat_cols] = yc.permute(1, 0, 2).reshape(b, -1)
-    return y[:, :n]
+    col_ids (G, capN) -> y (B, N); columns no group holds stay zero.
+
+    With a leading expert axis, x (E, B, M), w (E, M, N) and plan
+    leaves (E, G, cap) give y (E, B, N): the gathers and the scatter are
+    batched and the E·G compact tiles go through one ``grouped_bmm``
+    launch (the counterpart of JAX's vmap over the Pallas call)."""
+    wc = compact_weights(w, row_ids, col_ids, row_valid, col_valid)
+    yc = grouped_bmm(gather_x(x, row_ids, row_valid), wc.flatten(0, -3))
+    return _scatter_cols(yc, col_ids, col_valid, w.shape[-1])
+
+
+def _scatter_cols(yc: torch.Tensor, col_ids: torch.Tensor,
+                  col_valid: torch.Tensor, n: int) -> torch.Tensor:
+    """Step 4: compact outputs (G, B, capN) -> y (B, n), or with a
+    leading expert axis (E·G, B, capN) and plan leaves (E, G, capN) -> y
+    (E, B, n). One scatter into a (B, E·(n+SINK_COLS)) buffer, expert
+    e's columns offset by e·(n+SINK_COLS); padding slots write to their
+    expert's sink column n, which is sliced off."""
+    b = yc.shape[1]
+    width = n + SINK_COLS
+    e = col_ids.shape[0] if col_ids.dim() == 3 else 1
+    cols = torch.where(col_valid, col_ids, n)
+    if e > 1:
+        cols = cols + torch.arange(e, device=yc.device)[:, None, None] * width
+    y = yc.new_zeros((b, e * width))
+    y[:, cols.reshape(-1)] = yc.permute(1, 0, 2).reshape(b, -1)
+    if col_ids.dim() == 2:
+        return y[:, :n]
+    return y.view(b, e, width)[:, :, :n].transpose(0, 1)
 
 
 def compact_weights(w: torch.Tensor, row_ids: torch.Tensor,
                     col_ids: torch.Tensor, row_valid: torch.Tensor,
                     col_valid: torch.Tensor) -> torch.Tensor:
-    """``W -> W_c`` (..., G, capM, capN): the weight half of the encode
-    output, invalid slots zeroed. Leading dims (stacked layers) go
-    through one batched gather."""
+    """Step 2, ``W -> W_c`` (..., G, capM, capN): the weight half of the
+    encode output, invalid slots zeroed. Leading dims (stacked layers or
+    experts) go through batched gathers, as many layers at a time as
+    keep the gather's index tensors near ``_INDEX_BYTES``: indexing
+    broadcasts its three int64 index tensors to the output's shape, 42
+    GB for arctic-480b's 128 experts at once."""
+    rows, cols = row_ids[..., None], col_ids[..., None, :]
+    keep = row_valid[..., None] & col_valid[..., None, :]
+    if w.dim() == 2:            # one layer: no layer index
+        return torch.where(keep, w[rows, cols], 0)
     lead = w.shape[:-2]
     m, n = w.shape[-2:]
-    g, cap_m = row_ids.shape[-2:]
-    cap_n = col_ids.shape[-1]
+    g, cap_m, cap_n = keep.shape[-3:]
     wf = w.reshape(-1, m, n)
-    layer = torch.arange(wf.shape[0], device=w.device)[:, None, None, None]
-    wc = wf[layer, row_ids.reshape(-1, g, cap_m, 1),
-            col_ids.reshape(-1, g, 1, cap_n)]
-    keep = (row_valid.reshape(-1, g, cap_m, 1)
-            & col_valid.reshape(-1, g, 1, cap_n))
-    return torch.where(keep, wc, 0).reshape(*lead, g, cap_m, cap_n)
+    rows, cols = rows.reshape(-1, g, cap_m, 1), cols.reshape(-1, g, 1, cap_n)
+    keep = keep.reshape(-1, g, cap_m, cap_n)
+    count = wf.shape[0]
+    step = max(1, _INDEX_BYTES // (24 * g * cap_m * cap_n))
+    parts = []
+    for i in range(0, count, step):
+        j = min(i + step, count)
+        layer = torch.arange(i, j, device=w.device)[:, None, None, None]
+        parts.append(torch.where(keep[i:j], wf[layer, rows[i:j], cols[i:j]],
+                                 0))
+    wc = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return wc.reshape(*lead, g, cap_m, cap_n)
 
 
 def fused_bmm(xt: torch.Tensor, wc: torch.Tensor,
@@ -209,13 +234,34 @@ def _sm_count(index: int) -> int:
 
 
 def sink_transposed(x: torch.Tensor) -> torch.Tensor:
-    """x (B, M) -> (M+1, B): transposed, with the zero sink row M that
-    invalid slots gather."""
-    b, m = x.shape
-    xt = x.new_empty((m + 1, b))
-    xt[:m].copy_(x.T)
-    xt[m].zero_()
+    """x (..., B, M) -> (..., M+1, B): transposed, with the zero sink row
+    M that invalid slots gather."""
+    b, m = x.shape[-2:]
+    xt = x.new_empty((*x.shape[:-2], m + 1, b))
+    xt.narrow(-2, 0, m).copy_(x.mT)
+    xt.select(-2, m).zero_()
     return xt
+
+
+def fused_operands(x: torch.Tensor, row_ids: torch.Tensor,
+                   row_valid: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fused_bmm``'s activation operands: x (B, M) and plan leaves (G,
+    capM) give xt (M+1, B) (:func:`sink_transposed`) and int32 ids (G,
+    capM). With a leading expert axis, x (E, B, M) and leaves (E, G,
+    capM) give xt (E·(M+1), B) and ids (E·G, capM): the experts'
+    sink-transposed activations stacked, expert e's ids offset by
+    e·(M+1), so each keeps its own zero sink row."""
+    m = x.shape[-1]
+    xt = sink_transposed(x)
+    ids = torch.where(row_valid, row_ids, m)
+    if x.dim() == 3:
+        e = x.shape[0]
+        if e > 1:
+            ids = ids + torch.arange(e, device=x.device)[:, None, None] * (
+                m + 1)
+        xt, ids = xt.flatten(0, 1), ids.flatten(0, 1)
+    return xt, ids.to(torch.int32)
 
 
 def grouped_matmul_fused(x: torch.Tensor, wc: torch.Tensor,
@@ -229,11 +275,11 @@ def grouped_matmul_fused(x: torch.Tensor, wc: torch.Tensor,
     the kernel's gather reads runs of consecutive rows); invalid column
     slots scatter into a sink column that is sliced off (torch has no
     ``mode="drop"``).
+
+    With a leading expert axis, x (E, B, M), wc (E, G, capM, capN) and
+    plan leaves (E, G, cap) give y (E, B, n) from one ``fused_bmm``
+    launch over the E·G tiles (:func:`fused_operands`).
     """
-    b, m = x.shape
-    ids = torch.where(row_valid, row_ids, m).to(torch.int32)
-    yc = fused_bmm(sink_transposed(x), wc, ids)              # (G, B, capN)
-    flat_cols = torch.where(col_valid, col_ids, n).reshape(-1)
-    y = x.new_zeros((b, n + SINK_COLS))
-    y[:, flat_cols] = yc.permute(1, 0, 2).reshape(b, -1)
-    return y[:, :n]
+    xt, ids = fused_operands(x, row_ids, row_valid)
+    yc = fused_bmm(xt, wc.flatten(0, -3), ids)
+    return _scatter_cols(yc, col_ids, col_valid, n)

@@ -4,7 +4,7 @@ Layer heterogeneity (local/global attention, MoE cadence, Mamba/attention
 interleave) is a repeating *pattern* of ``period`` slots; the stack runs
 ``n_layers // period`` blocks of it. The fields are the JAX package's, so
 a config converts one to one; ``dtype`` is a ``torch.dtype``. The port's
-transformer runs the dense family only and raises on the rest
+transformer runs the dense and MoE families and raises on the rest
 (``repro_torch.models.transformer``).
 """
 from __future__ import annotations
@@ -100,9 +100,9 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-def param_count(cfg: ModelConfig) -> int:
-    """Total parameters of the dense and MoE families (all experts
-    counted), as ``repro.models.config.param_count``."""
+def _count(cfg: ModelConfig, experts_per_moe: int) -> int:
+    """Parameter count with MoE slots counted as ``experts_per_moe``
+    FFNs, as ``repro.models.config._count``."""
     d, h = cfg.d_model, cfg.head_dim
     total = cfg.vocab * d
     if not cfg.tie_embeddings:
@@ -124,13 +124,23 @@ def param_count(cfg: ModelConfig) -> int:
             per_block += attn
         if slot.ffn == "mlp":
             per_block += mlp(cfg.d_ff)
-        elif slot.ffn != "none":
-            per_block += cfg.n_experts * mlp(cfg.moe_d_ff or cfg.d_ff)
-            per_block += d * cfg.n_experts
+        elif slot.ffn != "none":                     # moe | moe_dense
+            per_block += experts_per_moe * mlp(cfg.moe_d_ff or cfg.d_ff)
+            per_block += d * cfg.n_experts           # router
             if slot.ffn == "moe_dense":
-                per_block += mlp(cfg.d_ff)
+                per_block += mlp(cfg.d_ff)           # dense residual branch
         per_block += 4 * d
     total += cfg.n_blocks * per_block
     if cfg.encoder_layers:
         total += cfg.encoder_layers * (attn + mlp(cfg.d_ff) + 4 * d)
     return int(total)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Total parameters (every expert counted)."""
+    return _count(cfg, cfg.n_experts)
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active parameters a token (MoE: only ``top_k`` experts fire)."""
+    return _count(cfg, cfg.top_k if cfg.n_experts else 0)

@@ -40,13 +40,15 @@ def proj(p: dict, x: torch.Tensor, flgw: Optional[FLGWConfig] = None, *,
          transpose: bool = False,
          plan: Optional[GroupPlan] = None) -> torch.Tensor:
     """y = x @ W (or x @ W^T), FLGW-masked when grouping params exist.
+    Stacked expert params (W (E, M, N)) pass straight through: x (E, C,
+    M) gives (E, C, N).
 
     ``plan`` is this layer's cached GroupPlan for the grouped path;
     ``None`` re-encodes inside the projection.
     """
     w = p["w"]
     if flgw is None or "ig" not in p:
-        return x @ (w.T if transpose else w)
+        return x @ (w.mT if transpose else w)
     return flgw_linear(x, w, p["ig"], p["og"], flgw, transpose=transpose,
                        plan=plan)
 

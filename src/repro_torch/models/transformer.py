@@ -1,4 +1,4 @@
-"""Pattern-stacked transformer assembly, dense family.
+"""Pattern-stacked transformer assembly, dense and MoE families.
 
 Port of ``repro.models.transformer``. The stack is ``n_blocks`` blocks of
 the ``period`` slots of ``cfg.pattern``; per-slot parameters, plans and
@@ -6,16 +6,17 @@ KV caches are stacked on axis 0 as in the JAX package (so a param tree
 converts one to one), and a Python loop over the blocks takes the place
 of ``lax.scan``, slicing every stacked leaf.
 
-Ported: the dense family (attention mixers, MLP FFNs), the VLM's
-prefix-LM backbone (``patch_embeds`` ahead of the tokens, attended both
-ways), the banded prefill (``banded``) and ``remat`` (each layer slot
-under a non-reentrant ``torch.utils.checkpoint``, so the backward
-recomputes one layer at a time from its input, as ``jax.checkpoint``
-around the JAX package's block body). SSM mixers, MoE FFNs,
-cross-attention and encoder stacks (``frames``) raise
-``NotImplementedError`` (ROADMAP, Queue 1); so do ``unroll_blocks`` and
-``attn_identity``, the JAX package's dry-run cost variants, which eager
-PyTorch has no use for.
+Ported: the dense family (attention mixers, MLP FFNs), the MoE family
+(``moe`` FFNs and ``moe_dense``, a MoE beside a parallel dense MLP
+residual; ``models.moe``), the VLM's prefix-LM backbone
+(``patch_embeds`` ahead of the tokens, attended both ways), the banded
+prefill (``banded``) and ``remat`` (each layer slot under a
+non-reentrant ``torch.utils.checkpoint``, so the backward recomputes one
+layer at a time from its input, as ``jax.checkpoint`` around the JAX
+package's block body). SSM mixers, cross-attention and encoder stacks
+(``frames``) raise ``NotImplementedError`` (ROADMAP, Queue 1); so do
+``unroll_blocks`` and ``attn_identity``, the JAX package's dry-run cost
+variants, which eager PyTorch has no use for.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from repro_torch.core import encoder as planenc
 from repro_torch.core.flgw import FLGWConfig
 from repro_torch.core.grouped import GroupPlan
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig, SlotSpec
 from repro_torch.models.layers import (embed, embed_init, mlp, mlp_init,
                                        plan_of, rmsnorm, rmsnorm_init,
@@ -47,7 +49,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     for slot in cfg.pattern:
         if slot.mixer != "attn":
             raise _unported(f"the {slot.mixer!r} mixer")
-        if slot.ffn != "mlp":
+        if slot.ffn not in ("mlp", "moe", "moe_dense"):
             raise _unported(f"the {slot.ffn!r} FFN")
         if slot.cross:
             raise _unported("cross-attention")
@@ -73,18 +75,21 @@ def encode_plans(params: dict, cfg: ModelConfig) -> planenc.PlanState:
 # Init
 # ---------------------------------------------------------------------------
 
-def _slot_init(generator, cfg: ModelConfig, n: int) -> dict:
+def _slot_init(generator, cfg: ModelConfig, slot: SlotSpec, n: int) -> dict:
     lead = (n,)
     dev = generator.device
-    return {
-        "norm1": rmsnorm_init(cfg.d_model, device=dev, lead=lead),
-        "mixer": attn_mod.attn_init(generator, cfg,
-                                    flgw=_flgw_cfg(cfg, "attn"), lead=lead),
-        "norm2": rmsnorm_init(cfg.d_model, device=dev, lead=lead),
-        "ffn": mlp_init(generator, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
-                        flgw=_flgw_cfg(cfg, "mlp"), dtype=cfg.dtype,
-                        lead=lead),
-    }
+    p = {"norm1": rmsnorm_init(cfg.d_model, device=dev, lead=lead),
+         "mixer": attn_mod.attn_init(generator, cfg,
+                                     flgw=_flgw_cfg(cfg, "attn"), lead=lead),
+         "norm2": rmsnorm_init(cfg.d_model, device=dev, lead=lead)}
+    if slot.ffn != "mlp":
+        p["moe"] = moe_mod.moe_init(generator, cfg,
+                                    flgw=_flgw_cfg(cfg, "moe"), lead=lead)
+    if slot.ffn != "moe":     # mlp, or moe_dense's parallel dense residual
+        p["ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff,
+                            gated=cfg.gated_mlp, flgw=_flgw_cfg(cfg, "mlp"),
+                            dtype=cfg.dtype, lead=lead)
+    return p
 
 
 def lm_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
@@ -94,8 +99,8 @@ def lm_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
     _check_supported(cfg)
     return {
         "embed": embed_init(generator, cfg.vocab, cfg.d_model, cfg.dtype),
-        "blocks": {f"slot{i}": _slot_init(generator, cfg, cfg.n_blocks)
-                   for i in range(cfg.period)},
+        "blocks": {f"slot{i}": _slot_init(generator, cfg, slot, cfg.n_blocks)
+                   for i, slot in enumerate(cfg.pattern)},
         "final_norm": rmsnorm_init(cfg.d_model, device=generator.device),
     }
 
@@ -128,8 +133,10 @@ def _unstack(tree, n: int) -> list:
 
 def _slot_apply(p, x, positions, cfg: ModelConfig, slot: SlotSpec, *,
                 cache=None, pos=None, prefix_len=0, q_chunk=512,
-                banded=False, plans=None):
-    """One layer; a decode step writes ``cache``'s KV buffers in place."""
+                banded=False, moe_dropless=False, plans=None):
+    """One layer -> (x, aux), aux the MoE's load-balancing loss (None
+    for an MLP slot); a decode step writes ``cache``'s KV buffers in
+    place. A MoE slot is dropless whenever a cache is given."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     c = None if cache is None else {"k": cache["k"], "v": cache["v"],
                                     "pos": pos}
@@ -140,15 +147,23 @@ def _slot_apply(p, x, positions, cfg: ModelConfig, slot: SlotSpec, *,
         plans=plan_of(plans, "mixer"))
     x = x + h
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    h = mlp(p["ffn"], h, _flgw_cfg(cfg, "mlp"), plans=plan_of(plans, "ffn"))
-    return x + h
+    if slot.ffn == "mlp":
+        return x + mlp(p["ffn"], h, _flgw_cfg(cfg, "mlp"),
+                       plans=plan_of(plans, "ffn")), None
+    out, aux = moe_mod.moe(p["moe"], h, cfg, flgw=_flgw_cfg(cfg, "moe"),
+                           dropless=moe_dropless or cache is not None,
+                           plans=plan_of(plans, "moe"))
+    if slot.ffn == "moe_dense":       # the parallel dense residual branch
+        out = out + mlp(p["ffn"], h, _flgw_cfg(cfg, "mlp"),
+                        plans=plan_of(plans, "ffn"))
+    return x + out, aux
 
 
 def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
              q_chunk: int = 512, banded: bool = False, remat=None,
              return_hidden: bool = False, unroll_blocks: bool = False,
              attn_identity: bool = False, plans=None,
-             patch_embeds=None, frames=None):
+             patch_embeds=None, frames=None, moe_dropless: bool = False):
     """Forward pass. Returns (logits, aux_loss, new_cache).
 
     tokens, positions: (B, S) integer. ``patch_embeds``: (B, P, d) VLM
@@ -161,8 +176,10 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
     consumed, and with neither the grouped path re-encodes per
     projection. ``return_hidden`` skips the unembedding. ``remat``
     (default ``cfg.remat``) checkpoints every layer slot when autograd
-    records and there is no cache. ``aux_loss`` is 0 (no MoE in the dense
-    family).
+    records and there is no cache. ``aux_loss`` is the MoE slots'
+    load-balancing losses summed over the stack (0 without MoE).
+    ``moe_dropless``: every expert takes t·k rows, so no token is dropped
+    (the serving prefill); a decode step (a cache) is dropless always.
     """
     _check_supported(cfg)
     if unroll_blocks or attn_identity:
@@ -187,6 +204,7 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
             x.shape[:2])
         prefix_len = patch_embeds.shape[1]
     pos = None if cache is None else cache["pos"]
+    aux = torch.zeros((), device=x.device)
     blocks = _unstack(params["blocks"], cfg.n_blocks)
     for i in range(cfg.n_blocks):
         block_pl = _index(block_plans, i)
@@ -195,15 +213,18 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
             c = None if cache is None else _index(cache["blocks"][name], i)
             kw = dict(cache=c, pos=pos, prefix_len=prefix_len,
                       q_chunk=q_chunk, banded=banded,
+                      moe_dropless=moe_dropless,
                       plans=plan_of(block_pl, name))
             if remat:
                 # the plans are inputs: the recompute consumes them as the
                 # forward did, never re-encoding
-                x = checkpoint(_slot_apply, blocks[i][name], x, positions,
-                               cfg, slot, use_reentrant=False, **kw)
+                x, a = checkpoint(_slot_apply, blocks[i][name], x, positions,
+                                  cfg, slot, use_reentrant=False, **kw)
             else:
-                x = _slot_apply(blocks[i][name], x, positions, cfg, slot,
-                                **kw)
+                x, a = _slot_apply(blocks[i][name], x, positions, cfg, slot,
+                                   **kw)
+            if a is not None:
+                aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
         out = x[:, prefix_len:]
@@ -215,7 +236,7 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
         # the KV buffers were written in place (models.attention); plans
         # ride the cache unchanged
         new_cache = dict(cache, pos=pos + tokens.shape[1])
-    return out, torch.zeros((), device=x.device), new_cache
+    return out, aux, new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,8 @@ class ServeSession:
     the process-wide cache at every request boundary (a signature pass,
     an encode only when the layout moved); ``"trust"`` resolves them
     here and at :meth:`update_params` only; ``"off"`` caches none, so
-    every grouped projection re-encodes per call (and, in bf16, reaches
-    the float32-only ``grouped_bmm`` kernel on the card, which raises).
+    every grouped projection re-encodes per call and takes the gather
+    path (``grouped_bmm``).
     ``banded``: the prefill's chunked attention core attends each chunk's
     KV band only (decode is unchanged).
     """

@@ -60,7 +60,8 @@ def make_decode_step(cfg, *, banded: bool = False):
 def make_prefill_step(cfg, *, plan_policy: str = "certify",
                       banded: bool = False, q_chunk: int | None = None):
     """Returns ``prefill(params, batch, plans=None) -> last logits``
-    (B, 1, vocab) float32: the full-sequence forward. ``batch`` holds
+    (B, 1, vocab) float32: the full-sequence forward, its MoE slots
+    dropless (every expert takes t·k rows, as in JAX). ``batch`` holds
     ``tokens`` and ``positions`` and, for a VLM, ``patch_embeds``.
     ``banded`` and ``q_chunk`` (default :func:`pick_q_chunk` of the token
     count) go to the chunked attention core.
@@ -86,7 +87,8 @@ def make_prefill_step(cfg, *, plan_policy: str = "certify",
         hidden, _, _ = transformer.lm_apply(
             params, cfg, batch["tokens"], batch["positions"],
             patch_embeds=batch.get("patch_embeds"), q_chunk=qc,
-            banded=banded, return_hidden=True, plans=plans)
+            banded=banded, return_hidden=True, moe_dropless=True,
+            plans=plans)
         # only the last position's logits are needed to start decoding
         logits = unembed(params["embed"], hidden[:, -1:])
         return softcap(logits.float(), cfg.logit_softcap)

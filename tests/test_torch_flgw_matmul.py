@@ -180,18 +180,27 @@ def test_grouping_indices_mask_and_sparsity_match_jax():
 
 
 def test_unported_paths_raise():
-    """The compact-weight path is ported now (tests/test_torch_fused_bmm.py);
-    what is still unported raises instead of running something else."""
+    """The compact-weight path is ported now (tests/test_torch_fused_bmm.py),
+    and MoE FFNs are served (tests/test_torch_moe.py); what is still
+    unported raises instead of running something else: SSM mixers,
+    cross-attention, encoder stacks, and the grouped product of stacked
+    experts under autograd (MoE training)."""
     from repro_torch.configs import registry
     from repro_torch.models import transformer
     from repro_torch.models.config import SlotSpec
     p, x = _layer(8, 16, 16, 2)
     cfg = registry.get_smoke_config("gemma2_2b", dtype=torch.float32)
-    for slot in (SlotSpec(mixer="ssm"), SlotSpec(ffn="moe"),
-                 SlotSpec(cross=True)):
+    for bad in (dict(pattern=(SlotSpec(mixer="ssm"),)),
+                dict(pattern=(SlotSpec(cross=True),)),
+                dict(encoder_layers=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             transformer.lm_init(torch.Generator(),
-                                cfg.with_updates(pattern=(slot,), n_layers=2))
+                                cfg.with_updates(n_layers=2, **bad))
+    experts = [torch.from_numpy(np.stack([a] * 3)) for a in
+               (x, p["w"], p["ig"], p["og"])]
+    experts[1].requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flgw.flgw_linear(*experts, flgw.FLGWConfig(groups=2, path="grouped"))
     with pytest.raises(ValueError, match="unknown FLGW path"):
         flgw.flgw_linear(torch.from_numpy(x), torch.from_numpy(p["w"]),
                          torch.from_numpy(p["ig"]), torch.from_numpy(p["og"]),

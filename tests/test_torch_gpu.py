@@ -395,6 +395,55 @@ def test_fused_bmm_matches_its_plain_version(cuda, dtype, tol, b, m, g, k, n):
                                .float(), rtol=tol, atol=tol * k ** 0.5)
 
 
+# stacked experts (E, M, N) at the MoE configs' expert projections, G = 4,
+# slack 1.25: mixtral-8x22b's up/gate and down at a prefill's dropless
+# rows (B=4 x S=1,024, top-2) and a decode step's; arctic-480b's at
+# B=1 x S=512 and a decode step
+@pytest.mark.parametrize("e,m,n,rows", [
+    (8, 6144, 16384, 8192), (8, 16384, 6144, 8192), (8, 6144, 16384, 8),
+    (8, 16384, 6144, 8), (128, 7168, 4864, 1024), (128, 4864, 7168, 1024),
+    (128, 7168, 4864, 8), (128, 4864, 7168, 8)])
+def test_batched_expert_products_match_the_masked_product(cuda, e, m, n,
+                                                          rows):
+    """One ``fused_bmm`` (compact weights attached) and one
+    ``grouped_bmm_bf16`` (the gather path) launch for all E experts,
+    each held against the masked product of every expert in f32."""
+    from repro_torch.core import grouped
+    gen = torch.Generator(device=cuda).manual_seed(e + m + rows)
+    x = torch.randn((e, rows, m), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((e, m, n), generator=gen, device=cuda)
+         / m ** 0.5).bfloat16()
+    plan = grouped.make_plan(
+        torch.randn((e, m, 4), generator=gen, device=cuda),
+        torch.randn((e, 4, n), generator=gen, device=cuda), 1.25)
+    wc = fm_ops.compact_weights(w, plan.row_ids, plan.col_ids,
+                                plan.row_valid, plan.col_valid)
+    before = (fm_ops.FUSED.launches, fm_ops.BMM16.launches)
+    fused = fm_ops.grouped_matmul_fused(x, wc, plan.row_ids, plan.row_valid,
+                                        plan.col_ids, plan.col_valid, n=n)
+    gather = fm_ops.grouped_matmul(x, w, plan.row_ids, plan.col_ids,
+                                   plan.row_valid, plan.col_valid)
+    torch.cuda.synchronize()
+    assert (fm_ops.FUSED.launches, fm_ops.BMM16.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert fused.shape == gather.shape == (e, rows, n)
+    for i in range(e):
+        # the mask the plan keeps: row r and column c in one group's slots
+        rows_in = torch.zeros((m + 1, 4), device=cuda)
+        cols_in = torch.zeros((4, n + 1), device=cuda)
+        g_of = torch.arange(4, device=cuda)[:, None]
+        rows_in[torch.where(plan.row_valid[i], plan.row_ids[i], m),
+                g_of.expand_as(plan.row_ids[i])] = 1
+        cols_in[g_of.expand_as(plan.col_ids[i]),
+                torch.where(plan.col_valid[i], plan.col_ids[i], n)] = 1
+        mask = rows_in[:m] @ cols_in[:, :n]
+        want = x[i].float() @ (w[i].float() * mask)
+        # f32 sums in another order, then one bf16 rounding (2**-8)
+        for got in (fused[i], gather[i]):
+            torch.testing.assert_close(got.float(), want, rtol=2e-2,
+                                       atol=2e-2)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,hq,hkv,s,t,d,window,softcap,causal", [
     (2, 8, 4, 200, 200, 256, 0, 50.0, True),

@@ -48,7 +48,9 @@ assert {"repro_torch.marl.async_train",
         "repro_torch.launch.marl_async",
         "repro_torch.checkpoint.store", "repro_torch.runtime.fault",
         "repro_torch.train.state", SHIM, "repro_torch.launch.marl_ic3net",
-        "repro_torch.launch.quickstart"} <= set(names)
+        "repro_torch.launch.quickstart", "repro_torch.models.moe",
+        "repro_torch.configs.mixtral_8x22b",
+        "repro_torch.configs.arctic_480b"} <= set(names)
 print(len(names))
 """
 

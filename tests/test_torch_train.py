@@ -290,10 +290,11 @@ def test_train_lm_runs_on_the_cpu_and_logs(capsys):
 
 
 def test_train_lm_refuses_what_is_not_ported():
-    """The banded prefill is ported (tests/test_torch_dense_family.py);
-    an architecture whose family is not refuses."""
+    """The banded prefill is ported (tests/test_torch_dense_family.py)
+    and so is the MoE family (tests/test_torch_moe.py); an architecture
+    whose family is not (the SSM's) refuses."""
     with pytest.raises(KeyError, match="not ported"):
-        launch.train_lm("mixtral_8x22b", steps=1, device="cpu")
-    for arch in ("mixtral_8x22b", "llama3_8b"):
+        launch.train_lm("mamba2_1_3b", steps=1, device="cpu")
+    for arch in ("mamba2_1_3b", "llama3_8b"):
         with pytest.raises(SystemExit):
             launch.main(["--arch", arch, "--device", "cpu"])
