@@ -44,7 +44,13 @@ The port's paths, each at full width with random weights from a seed:
   kernel launch for all experts): mixtral-8x22b at 4 of 56 layers (8
   experts, top-2, window 4,096; G=4 on the experts and attention) and
   arctic-480b at 1 of 35 (128 experts, top-2, and the dense residual
-  MLP; G=4 on the experts, the residual and attention).
+  MLP; G=4 on the experts, the residual and attention);
+* the SSM and hybrid families and grouped MoE training at full width:
+  mamba2-1.3b at all 48 layers served and trained (G=4 on its in and
+  out projections), jamba-1.5-large cut to slots 0-1 of its 8-slot
+  period served (G=4 on its SSM, MoE, MLP and attention projections),
+  mixtral-8x22b at 1 layer trained on the grouped path (the backward
+  over the expert axis).
 
 The script
 
@@ -196,7 +202,32 @@ The script
       1-layer cut (B=1 x S=64, 4 greedy steps) and a profile of one
       prefill and 8 decode steps (``fused_bmm`` on wgmma and the
       streaming kernel only, ``flash_fwd`` on wgmma only);
-  14. prints one ``{"kernels": [...]}`` line, the card's name and power
+  14. mamba2-1.3b at full width and depth (48 layers, G=4 on its in and
+      out projections): ``plan_assign`` bitwise at every side,
+      ``fused_bmm`` at a layer's two projections for 4,096 and 4 rows,
+      ``grouped_bmm_bf16`` at their training products, each timed; with
+      the counts at 0, a certify session, a B=4 x S=1,024 prefill, a
+      lockstep and a continuous Engine run (``plan_assign`` exactly 4 an
+      encode, ``fused_bmm`` exactly 2 a layer and forward, no flash), a
+      2-layer CPU replay (every greedy token equal), the SSD scan timed
+      and its share of a profiled prefill's device time; 3 training steps
+      through ``train_lm`` (B=4 x S=1,024, ``grouped_bmm_bf16`` exactly 4
+      a layer and step). jamba-1.5-large cut to slots 0-1 of its period
+      (attention + MLP, SSM + MoE; G=4 on all four targets):
+      ``plan_assign`` bitwise at its 17 sort-route sides and
+      ``plan_rank``/``plan_place`` at its 7 wide sides, ``fused_bmm`` at
+      its 12 projections (the experts' dropless 4,096 rows) and
+      ``flash_fwd`` at the prefill's shapes; with the counts at 0, a
+      certify session, a B=2 x S=1,024 prefill and a lockstep run
+      (exactly 17 ``plan_assign`` and 7 each ``plan_rank`` and
+      ``plan_place`` an encode, 12 ``fused_bmm`` a forward, 1
+      ``flash_fwd`` a prefill); each of its 2 layers on 64 tokens against
+      plain masked products on the card. mixtral-8x22b at 1 layer,
+      G=4 on the experts: ``grouped_bmm_bf16`` at the training dispatch's
+      shapes; 3 grouped training steps (B=2 x S=1,024; exactly 6
+      ``plan_assign`` an encode and 6 ``grouped_bmm_bf16`` a step); the
+      expert-axis backward against the 2-D backward expert by expert;
+  15. prints one ``{"kernels": [...]}`` line, the card's name and power
       limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -644,11 +675,14 @@ def run_slice(model, cpu_model, env, ecfg, kernels) -> dict:
         success_rate=float(r.success.float().mean()))
 
 
-def check_sort_route(launches: dict, what: str) -> None:
-    """Every side of the path took the sort route: no plan_rank or
-    plan_place launch."""
+def check_sort_route(launches: dict, what: str, tiled: int = 0) -> None:
+    """Every side of the path took the sort route but the ``tiled`` side
+    encodes past its limit (gemma2-27b's d_ff sides, jamba-1.5-large's
+    wide sides): exactly that many plan_rank and plan_place launches,
+    none on any other path."""
     for name in ("plan_rank", "plan_place"):
-        check(launches[name] == 0, f"{name} not launched on {what}")
+        check(launches[name] == tiled,
+              f"{name} launched {tiled} times on {what} ({launches[name]})")
 
 
 def profile(fn, names) -> dict:
@@ -910,13 +944,15 @@ def check_flash_kernel(cfg, device,
 
 def run_serve(cfg, params, kernels, seq: int = PREFILL_SEQ,
               continuous: bool = True, tiled_sides: int = 0,
-              batch: int = SERVE_BATCH) -> dict:
+              batch: int = SERVE_BATCH,
+              need=("plan_assign", "fused_bmm", "flash_fwd")) -> dict:
     """The serving path with every launch count at 0 first: a certify
     session, a B=``batch`` x S=``seq`` prefill, one lockstep and
     (``continuous``) one continuous Engine run. ``tiled_sides``: how many
     grouping sides of one encode lie past the sort route's limit (each
     then takes one plan_rank and one plan_place launch an encode); with
-    none, no side may take them."""
+    none, no side may take them. ``need``: the kernels the path must
+    launch (an attention-free model has no flash_fwd)."""
     plan_cache.clear()
     _zero(kernels)
     t0 = time.perf_counter()
@@ -957,17 +993,13 @@ def run_serve(cfg, params, kernels, seq: int = PREFILL_SEQ,
     torch.cuda.synchronize()
     launches = {k.symbol: k.launches for k in kernels}
     what = f"the {cfg.name} serving path"
-    for name in ("plan_assign", "fused_bmm", "flash_fwd"):
+    for name in need:
         check(launches[name] > 0, f"{name} launched on {what}")
     encodes = plan_cache.stats()["encodes"]
-    if tiled_sides:
-        check(encodes >= 1 and launches["plan_rank"] == launches["plan_place"]
-              == tiled_sides * encodes,
-              f"{what}: one plan_rank and one plan_place launch per side "
-              f"past the sort limit ({tiled_sides}) and encode ({encodes}); "
-              f"launches {launches}")
-    else:
-        check_sort_route(launches, what)
+    check(encodes >= 1, f"{what}: at least one encode ({encodes})")
+    # one plan_rank and one plan_place launch a side past the sort limit
+    # and encode
+    check_sort_route(launches, what, tiled_sides * encodes)
     for name in ("grouped_bmm_f32", "grouped_bmm_bf16", "flash_bwd_dq",
                  "flash_bwd_dkv", "osel_encode"):
         check(launches[name] == 0, f"{name} not launched on {what}")
@@ -2729,8 +2761,9 @@ def _moe_layer(params, cfg):
 
 # the plain versions of the batched expert products run this many tiles
 # at a time (they are independent): arctic's 512 tiles at 1,024 rows in
-# one f32 einsum would hold ~25 GB beside the layer's 38 GB
-PLAIN_TILES = 128
+# one f32 einsum would hold ~25 GB beside the layer's 38 GB, and 32 of
+# jamba-1.5-large's 64 expert tiles at 4,096 rows ~10 GB
+PLAIN_TILES = 32
 
 
 def _plain_tiles(fn, *args):
@@ -2742,64 +2775,99 @@ def _plain_tiles(fn, *args):
                       for i in range(0, a.shape[0], PLAIN_TILES)])
 
 
-def check_moe_kernels(p, plans, cfg, rows_list, bmm: bool) -> list[dict]:
-    """fused_bmm against its plain version at the batched expert shapes
-    of one MoE layer (E·G tiles in one launch, on the operands
-    grouped_matmul_fused builds), for each of ``rows_list`` rows an
-    expert; with ``bmm``,
-    grouped_bmm_bf16 on the gathered operands of the same calls (its TMA
-    route, rows > 64 only). Each timed against its plain version and
+def _close_tiles(fn, y, tol, *args) -> tuple[bool, float]:
+    """``y`` against ``fn(*args)`` (tiled as :func:`_plain_tiles`), chunk
+    by chunk: (allclose within ``tol``, max abs err), without holding the
+    whole plain output."""
+    *head, a, b = args
+    ok, err = True, 0.0
+    for i in range(0, a.shape[0], PLAIN_TILES):
+        got = y[i:i + PLAIN_TILES].float()
+        want = fn(*head, a[i:i + PLAIN_TILES], b[i:i + PLAIN_TILES]).float()
+        err = max(err, float((got - want).abs().max()))
+        ok &= bool(torch.allclose(got, want, **tol))
+        del got, want
+    return ok, err
+
+
+def fused_route(rows: int, cols: int) -> str:
+    """What computes a bf16 fused_bmm call (the C entry's shape test, on
+    aligned operands): wgmma above 64 rows, the streaming kernel at 64 or
+    fewer, both for rows and columns multiples of 8; else the first wmma
+    kernel."""
+    if cols % 8 == 0 and rows <= 64:
+        return FUSED_ROUTES["decode"]
+    if cols % 8 == 0 and rows % 8 == 0:
+        return FUSED_ROUTES["prefill"]
+    return "wmma"
+
+
+def _expert_projs(p, plans) -> list:
+    """``(name, w (E, M, N), plan)`` of one MoE layer's expert
+    projections."""
+    return [(name, p[name]["w"], plans[name])
+            for name in ("up", "gate", "down")]
+
+
+def check_compact_kernels(projs, cfg, rows_list, bmm: bool,
+                          fused: bool = True) -> list[dict]:
+    """fused_bmm against its plain version at each of ``projs`` (``(name,
+    w (E, M, N), plan with leaves (E, G, cap) and wc attached)``; a
+    single projection has E = 1), E·G tiles in one launch on the
+    operands grouped_matmul_fused builds, for each of ``rows_list`` rows
+    an expert; with ``bmm``, grouped_bmm_bf16 on the gathered operands of
+    the same calls (its TMA route, rows > 64 only); ``fused=False``
+    leaves fused_bmm out. Each timed against its plain version and
     torch.bmm on pre-gathered operands."""
-    gen = torch.Generator(device=p["router"].device).manual_seed(SEED + 11)
+    gen = torch.Generator(device=projs[0][1].device).manual_seed(SEED + 11)
     rows = []
     for n_rows in rows_list:
-        for name in ("up", "gate", "down"):
-            plan, w = plans[name], p[name]["w"]
+        for name, w, plan in projs:
             e, m, n = w.shape
             _, g, k, nc = plan.wc.shape
             x = torch.randn((e, n_rows, m), generator=gen,
                             device=w.device).to(w.dtype)
             xt, ids = fm_ops.fused_operands(x, plan.row_ids, plan.row_valid)
             wc = plan.wc.view(e * g, k, nc)
-            y = fm_ops.fused_bmm(xt, wc, ids)
-            y_ref = _plain_tiles(fm_ref.ref_fused_bmm, xt, wc, ids)
-            err = float((y.float() - y_ref.float()).abs().max())
-            check(torch.allclose(y.float(), y_ref.float(), **FUSED_BF16_TOL),
-                  f"fused_bmm == plain at {cfg.name} {name}, {e * g} tiles, "
-                  f"{n_rows} rows (max abs err {err})")
             xg = fm_ops.gather_x(x, plan.row_ids, plan.row_valid)
-            del y_ref
-            nbytes = 2 * (e * (m + 1) * n_rows + e * g * k * nc
-                          + e * g * n_rows * nc) + 4 * e * g * k
             ops = 2 * e * g * n_rows * k * nc
-            bnd, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
             it, wu = (10, 2) if n_rows > 64 else (50, 5)
-            row = dict(
-                arch=cfg.name, proj=name, experts=e, tiles=e * g,
-                rows=n_rows, m=m, n=n, cap_m=k, cap_n=nc, max_abs_err=err,
-                ms=time_ms(lambda: fm_ops.fused_bmm(xt, wc, ids), it, wu),
-                plain_ms=time_ms(lambda: _plain_tiles(
-                    fm_ref.ref_fused_bmm, xt, wc, ids), 3, 1),
-                library_ms=time_ms(lambda: torch.bmm(xg, wc), it, wu),
-                library="torch.bmm on pre-gathered operands (gather not "
-                        "counted)",
-                bound_ms=bnd, bound_by=by,
-                route=FUSED_ROUTES["prefill" if n_rows > 64 else "decode"])
-            row["tflops"] = ops / row["ms"] / 1e9
-            row["bound_share"] = bnd / row["ms"]
+            row = dict(arch=cfg.name, proj=name, experts=e, tiles=e * g,
+                       rows=n_rows, m=m, n=n, cap_m=k, cap_n=nc)
+            if fused:
+                ok, err = _close_tiles(fm_ref.ref_fused_bmm,
+                                       fm_ops.fused_bmm(xt, wc, ids),
+                                       FUSED_BF16_TOL, xt, wc, ids)
+                check(ok, f"fused_bmm == plain at {cfg.name} {name}, {e * g} "
+                          f"tiles, {n_rows} rows (max abs err {err})")
+                nbytes = 2 * (e * (m + 1) * n_rows + e * g * k * nc
+                              + e * g * n_rows * nc) + 4 * e * g * k
+                bnd, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+                row.update(
+                    max_abs_err=err,
+                    ms=time_ms(lambda: fm_ops.fused_bmm(xt, wc, ids), it, wu),
+                    plain_ms=time_ms(lambda: _plain_tiles(
+                        fm_ref.ref_fused_bmm, xt, wc, ids), 3, 1),
+                    library_ms=time_ms(lambda: torch.bmm(xg, wc), it, wu),
+                    library="torch.bmm on pre-gathered operands (gather "
+                            "not counted)",
+                    bound_ms=bnd, bound_by=by, route=fused_route(n_rows, nc))
+                row["tflops"] = ops / row["ms"] / 1e9
+                row["bound_share"] = bnd / row["ms"]
             if bmm and n_rows > 64:
+                # TMA needs K and N multiples of 8 (mamba2-1.3b's in
+                # projection has 2,660 compact columns: wmma)
                 route = fm_ops.bmm_bf16_route(n_rows, k, nc, True)
-                check(route == fm_ops.TMA,
-                      f"grouped_bmm_bf16 at {cfg.name} {name} takes the TMA "
-                      f"route ({BMM16_ROUTES[route]})")
-                yb = fm_ops.grouped_bmm(xg, wc)
-                yb_ref = _plain_tiles(fm_ref.ref_grouped_bmm, xg, wc)
-                berr = float((yb.float() - yb_ref.float()).abs().max())
-                check(torch.allclose(yb.float(), yb_ref.float(),
-                                     **BMM_BF16_TOL),
-                      f"grouped_bmm_bf16 == plain at {cfg.name} {name}, "
-                      f"{n_rows} rows (max abs err {berr})")
-                del yb, yb_ref
+                want = fm_ops.TMA if k % 8 == 0 and nc % 8 == 0 \
+                    else fm_ops.WMMA
+                check(route == want,
+                      f"grouped_bmm_bf16 at {cfg.name} {name} takes the "
+                      f"{BMM16_ROUTES[want]} route ({BMM16_ROUTES[route]})")
+                ok, berr = _close_tiles(fm_ref.ref_grouped_bmm,
+                                        fm_ops.grouped_bmm(xg, wc),
+                                        BMM_BF16_TOL, xg, wc)
+                check(ok, f"grouped_bmm_bf16 == plain at {cfg.name} {name}, "
+                          f"{n_rows} rows (max abs err {berr})")
                 bb, bby = bound_ms(2 * (e * g * n_rows * k + e * g * k * nc
                                         + e * g * n_rows * nc), ops,
                                    BF16_OPS_PER_S)
@@ -2808,11 +2876,13 @@ def check_moe_kernels(p, plans, cfg, rows_list, bmm: bool) -> list[dict]:
                     ms=time_ms(lambda: fm_ops.grouped_bmm(xg, wc), it, wu),
                     plain_ms=time_ms(lambda: _plain_tiles(
                         fm_ref.ref_grouped_bmm, xg, wc), 3, 1),
-                    library_ms=row["library_ms"], bound_ms=bb, bound_by=bby)
+                    library_ms=row.get("library_ms") or time_ms(
+                        lambda: torch.bmm(xg, wc), it, wu),
+                    bound_ms=bb, bound_by=bby)
                 row["grouped_bmm_bf16"]["bound_share"] = \
                     bb / row["grouped_bmm_bf16"]["ms"]
             rows.append(row)
-            del x, xt, xg, y
+            del x, xt, xg
             torch.cuda.empty_cache()
     return rows
 
@@ -2913,9 +2983,9 @@ def run_moe(kernels, device, card: str) -> dict:
         check(not sides["tiled"] and len(sides["sort"]) == 2 * per_layer,
               f"{arch}: every side on plan_assign ({len(sides['sort'])})")
         p_moe, moe_plans = _moe_layer(params, cfg)
-        kern_rows = check_moe_kernels(p_moe, moe_plans, cfg,
-                                      (b * seq * cfg.top_k, DECODE_ROWS),
-                                      bmm=arch == "mixtral_8x22b")
+        kern_rows = check_compact_kernels(
+            _expert_projs(p_moe, moe_plans), cfg,
+            (b * seq * cfg.top_k, DECODE_ROWS), bmm=arch == "mixtral_8x22b")
         oracle = moe_oracle(p_moe, moe_plans, cfg, device)
         del moe_plans
         torch.cuda.empty_cache()
@@ -3016,6 +3086,546 @@ def run_moe(kernels, device, card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the SSM and hybrid families, and the grouped MoE trained
+# ---------------------------------------------------------------------------
+
+SSM_SEQ = 1024
+MAMBA_TARGETS = ("ssm",)
+MAMBA_PROJECTIONS = 2         # a Mamba2 layer's compact products: in, out
+MAMBA_REPLAY_BLOCKS = 2       # 2 layers replayed on the CPU
+SSM_TRAIN_BATCH = 4
+# jamba-1.5-large cut in depth to slots 0-1 of its 8-slot period (attention
+# + MLP, SSM + MoE: every kind of slot it has); one period is ~44 B params
+JAMBA_SLOTS = 2
+JAMBA_TARGETS = ("ssm", "moe", "mlp", "attn")
+JAMBA_BATCH = 2
+# compact projections of the cut (q, k, v, o, the MLP's 3; ssm in, out,
+# the experts' 3, one launch each) and its grouping sides past the sort
+# route's limit: the MLP's up/gate columns and down rows (24,576), the
+# experts' the same (L = 16), ssm in's columns (33,152)
+JAMBA_PROJECTIONS = 12
+JAMBA_TILED_SIDES = 7
+JAMBA_ORACLE_TOKENS = 64
+MOE_TRAIN = ("mixtral_8x22b", 1, ("moe",), 2)   # arch, layers, targets, B
+SSD_SPAN = "ssd_scan"
+MAMBA_KERNELS = {"fused_bmm": "fused_bmm", "plan_assign": "plan_assign_kernel"}
+
+
+def _ssm_cfg(arch: str, targets, **kw):
+    return registry.get_config(arch, flgw_targets=targets, **{
+        k: v for k, v in SERVE_FLGW.items() if k != "flgw_targets"}, **kw)
+
+
+def _block_projs(params, plans, names):
+    """``(label, w (1, M, N) or (E, M, N), plan)`` of block 0's FLGW
+    projections at ``names`` (paths of (slot, part, name)); a single
+    projection gets a leading axis of 1."""
+    blk = transformer._index(params["blocks"], 0)
+    bpl = transformer._index(plans["blocks"], 0)
+    out = []
+    for path in names:
+        p, pl = blk, bpl
+        for key in path:
+            p, pl = p[key], pl[key]
+        w = p["w"]
+        if w.dim() == 2:
+            w, pl = w[None], grouped.GroupPlan(*(t[None] for t in pl))
+        out.append(("/".join(path), w, pl))
+    return out
+
+
+def time_ssd_scan(cfg, b: int, s: int, device) -> dict:
+    """One layer's SSD scan (``models.ssm._ssd_chunked``) at a B x S
+    prefill's shapes, by CUDA events: it is plain PyTorch, as it is XLA
+    einsums in the JAX package."""
+    from repro_torch.models import ssm as ssm_mod
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    xh = torch.randn((b, s, h, p), generator=gen, device=device).to(cfg.dtype)
+    bm, cm = (torch.randn((b, s, n), generator=gen, device=device)
+              for _ in range(2))
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=device))
+    a_neg = -torch.linspace(1.0, 16.0, h, device=device)
+    chunk = min(cfg.ssm_chunk, s)
+    with torch.inference_mode():
+        y = ssm_mod._ssd_chunked(xh, bm, cm, dt, a_neg, chunk)
+        check(bool(torch.isfinite(y).all()), "SSD scan output finite")
+        ms = time_ms(lambda: ssm_mod._ssd_chunked(xh, bm, cm, dt, a_neg,
+                                                  chunk), 10, 2)
+    return dict(b=b, s=s, heads=h, head_dim=p, state=n, chunk=chunk, ms=ms)
+
+
+def profile_ssd_prefill(session, inputs, names) -> dict:
+    """The profiler over one prefill with each SSD scan inside a
+    ``record_function`` span: device busy time, the kernels' device time
+    that the spans' ops launched (the scan's), and each of ``names``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as torch_profile
+    from repro_torch.models import ssm as ssm_mod
+    orig = ssm_mod._ssd_chunked
+
+    def traced(*a, **kw):
+        with record_function(SSD_SPAN):
+            return orig(*a, **kw)
+    ssm_mod._ssd_chunked = traced
+    try:
+        session.prefill(inputs)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            session.prefill(inputs)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        ssm_mod._ssd_chunked = orig
+    evs = prof.events()
+    kern = [e for e in evs if e.device_type == DeviceType.CUDA
+            and e.name != SSD_SPAN]
+    busy = sum(e.time_range.elapsed_us() for e in kern)
+    spans = [e for e in evs if e.name == SSD_SPAN
+             and e.device_type == DeviceType.CPU]
+    ssd = sum(getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0) for e in spans)
+    ours = {sym: sum(e.time_range.elapsed_us() for e in kern if key in e.name)
+            for sym, key in names.items()}
+    return dict(wall_us=wall_us, device_busy_us=busy,
+                device_busy_share=busy / wall_us if kern else None,
+                ssd_spans=len(spans), ssd_device_us=ssd or None,
+                ssd_share=ssd / busy if ssd and busy else None,
+                kernels_device_us=ours)
+
+
+def _train_launches(launches: dict, what: str, sides: int, bmm: int,
+                    steps: int) -> None:
+    """A grouped training path's launches, exactly: ``sides``
+    plan_assign launches an encode (one at init and one a step),
+    ``bmm`` grouped_bmm_bf16 launches a step (its projections' forward
+    and remat replay), nothing else."""
+    check(launches["plan_assign"] == sides * (steps + 1),
+          f"{what}: plan_assign exactly {sides} an encode, {steps + 1} "
+          f"encodes ({launches})")
+    check(launches["grouped_bmm_bf16"] == bmm * steps,
+          f"{what}: grouped_bmm_bf16 exactly {bmm} a step ({launches})")
+    check_sort_route(launches, what)
+    for name in ("fused_bmm", "grouped_bmm_f32", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv", "osel_encode"):
+        check(launches[name] == 0, f"{name} not launched on {what}")
+
+
+def run_lm_train(kernels, device, arch: str, targets, batch: int,
+                 layers: Optional[int] = None) -> tuple:
+    """``train_lm`` at full width (cut to ``layers``), FLGW G=4 grouped
+    on ``targets``, AdamW, remat, TRAIN_STEPS steps of B=``batch`` x
+    S=SSM_SEQ, with the launch counts at 0 first. Returns (record, the
+    trained state)."""
+    torch.cuda.reset_peak_memory_stats(device)
+    _zero(kernels)
+    state, hist = train_lm(arch, smoke=False, steps=TRAIN_STEPS, batch=batch,
+                           seq=SSM_SEQ, log_every=1, seed=SEED, device=device,
+                           flgw_targets=targets, n_layers=layers,
+                           **TRAIN_FLGW)
+    torch.cuda.synchronize()
+    out = dict(loss=[float(h["loss"]) for h in hist],
+               grad_norm=[float(h["grad_norm"]) for h in hist],
+               step_s=[h["step_s"] for h in hist], launches=_launches(kernels),
+               peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+    check(all(np.isfinite(out["loss"])) and all(np.isfinite(out["grad_norm"])),
+          f"{arch} training: every loss and grad norm finite ({out})")
+    out["step_ms"] = statistics.median(out["step_s"][1:]) * 1e3
+    out["tokens_per_s"] = batch * SSM_SEQ / (out["step_ms"] / 1e3)
+    return out, state
+
+
+def run_mamba2(kernels, device, card: str) -> dict:
+    """mamba2-1.3b at full width and depth (48 layers), FLGW G=4 grouped
+    on ``"ssm"`` (its in and out projections): plan_assign bitwise at
+    every side, fused_bmm at a layer's 2 projections and grouped_bmm_bf16
+    at their training products; with the counts at 0, a certify session,
+    a B=4 x S=1,024 prefill, a lockstep and a continuous Engine run
+    (continuous admission recycles slots through ``reset_slots``, which
+    zeroes their SSM state) with exact launches; a 2-layer CPU replay; a
+    profile of the prefill (the SSD scan's share of device time); then
+    3 training steps."""
+    cfg = _ssm_cfg("mamba2_1_3b", MAMBA_TARGETS)
+    slack = flgw.FLGWConfig().capacity_slack
+    params = serve_params(cfg, device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    sides = check_assign_sides(params, slack)
+    check(not sides["tiled"] and len(sides["sort"]) == 2 * MAMBA_PROJECTIONS,
+          f"mamba2: every side on plan_assign ({len(sides['sort'])})")
+    with torch.inference_mode():
+        state = planenc.attach_compact(transformer.encode_plans(params, cfg),
+                                       params)
+    projs = _block_projs(params, state.plans,
+                         [("slot0", "mixer", "in"), ("slot0", "mixer", "out")])
+    kern_rows = check_compact_kernels(
+        projs, cfg, (SERVE_BATCH * SSM_SEQ, SERVE_BATCH), bmm=False)
+    train_rows = check_compact_kernels(
+        projs, cfg, (SSM_TRAIN_BATCH * SSM_SEQ,), bmm=True, fused=False)
+    del state, projs
+    torch.cuda.empty_cache()
+    _print_family_kernels("mamba2_1_3b", sides, [], [])
+    _print_compact_rows("mamba2_1_3b", kern_rows + train_rows)
+
+    calls, restore = _count_forwards()
+    try:
+        sv = run_serve(cfg, params, kernels, seq=SSM_SEQ, continuous=True,
+                       need=("plan_assign", "fused_bmm"))
+    finally:
+        restore()
+    session = sv.pop("session")
+    inputs = sv.pop("inputs")
+    del sv["logits"]
+    lc, enc = sv["launches"], sv["encodes"]
+    check(lc["plan_assign"] == 2 * MAMBA_PROJECTIONS * enc,
+          f"mamba2: plan_assign exactly {2 * MAMBA_PROJECTIONS} an encode "
+          f"({enc} encodes; {lc})")
+    check(lc["fused_bmm"] == MAMBA_PROJECTIONS * cfg.n_layers * calls[0],
+          f"mamba2: fused_bmm exactly {MAMBA_PROJECTIONS} a layer and "
+          f"forward ({cfg.n_layers} layers, {calls[0]} forwards; {lc})")
+    check(lc["flash_fwd"] == 0, f"mamba2: no flash_fwd ({lc})")
+    rp = cpu_replay(cfg, params, blocks=MAMBA_REPLAY_BLOCKS, seq=REPLAY_SEQ,
+                    steps=REPLAY_STEPS)
+    check(rp["equal_tokens"] == REPLAY_STEPS,
+          f"mamba2 CPU replay: every greedy token equal ({rp})")
+    scan = time_ssd_scan(cfg, SERVE_BATCH, SSM_SEQ, device)
+    prof = profile_ssd_prefill(session, inputs, MAMBA_KERNELS)
+    lk, ct = sv["lockstep"], sv["continuous"]
+    print(f"phase 14 mamba2_1_3b ({cfg.n_layers} layers, {n_params:,} params) "
+          f"on {card}: launches {lc} over {calls[0]} forwards; prefill "
+          f"B={SERVE_BATCH} x S={SSM_SEQ} {sv['prefill_ms']:.1f} ms "
+          f"({sv['prefill_tokens_per_s']:.0f} tokens/s); lockstep "
+          f"{lk['tokens_per_s']:.1f} tokens/s, p50 {lk['p50_s']:.3f} s; "
+          f"continuous {ct['tokens_per_s']:.1f} tokens/s, p50 "
+          f"{ct['p50_s']:.3f} s; CPU replay ({rp['layers']} layers) max abs "
+          f"err {rp['max_abs_err']}, {rp['equal_tokens']}/{REPLAY_STEPS} "
+          f"greedy tokens equal", flush=True)
+    print(f"  SSD scan: {scan['ms']:.3f} ms a layer at B={SERVE_BATCH} x "
+          f"S={SSM_SEQ} (x {cfg.n_layers} layers = "
+          f"{scan['ms'] * cfg.n_layers:.1f} ms); prefill profile: busy "
+          f"{prof['device_busy_us'] / 1e3:.1f} of {prof['wall_us'] / 1e3:.1f}"
+          f" ms, the SSD spans' kernels {prof['ssd_device_us']} us (share "
+          f"{prof['ssd_share']}), fused_bmm "
+          f"{prof['kernels_device_us']['fused_bmm']:.0f} us", flush=True)
+    del session, inputs, params
+    plan_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tr, state = run_lm_train(kernels, device, "mamba2_1_3b", MAMBA_TARGETS,
+                             SSM_TRAIN_BATCH)
+    # the 2 projections a layer, in the forward and its remat replay
+    _train_launches(tr["launches"], "mamba2 training",
+                    2 * MAMBA_PROJECTIONS, 2 * MAMBA_PROJECTIONS
+                    * cfg.n_layers, TRAIN_STEPS)
+    print(f"  mamba2 training (B={SSM_TRAIN_BATCH} x S={SSM_SEQ}, "
+          f"{TRAIN_STEPS} steps): {tr['step_ms']:.1f} ms/step "
+          f"({tr['tokens_per_s']:.0f} tokens/s), losses {tr['loss']}, peak "
+          f"{tr['peak_gb']:.1f} GB; launches {tr['launches']}", flush=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, params=n_params, assign=sides,
+                kernel_rows=kern_rows, train_rows=train_rows, serve=sv,
+                forwards=calls[0], replay=rp, ssd_scan=scan, profile=prof,
+                train=tr)
+
+
+def _masked_dense(p, plans):
+    """A slot's params on the plain path: each FLGW projection's W times
+    the mask of its plan's balanced groups (``row_group[r] ==
+    col_group[c]``, expert by expert), its IG/OG dropped."""
+    if "ig" in p:
+        keep = plans.row_group[..., :, None] == plans.col_group[..., None, :]
+        return {"w": torch.where(keep, p["w"], 0)}
+    return {k: (_masked_dense(v, plans.get(k) if isinstance(plans, dict)
+                              else None) if isinstance(v, dict) else v)
+            for k, v in p.items()}
+
+
+def jamba_oracle(params, plans, cfg, device) -> list[dict]:
+    """The cut's 2 layers on JAMBA_ORACLE_TOKENS tokens, layer by layer
+    from the same input: ``_slot_apply`` on the grouped path (the plans'
+    compact weights, fused_bmm) against the plain path with each weight
+    masked by its plan's balanced groups, on the card (a CPU replay would
+    need ~60 GB of host memory). Dropless MoE on both."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    t = JAMBA_ORACLE_TOKENS
+    h = torch.randn((1, t, cfg.d_model), generator=gen,
+                    device=device).to(cfg.dtype)
+    pos = torch.arange(t, device=device)[None]
+    dense = cfg.with_updates(flgw_groups=1)
+    blocks = transformer._index(params["blocks"], 0)
+    bplans = transformer._index(plans.plans["blocks"], 0)
+    out = []
+    for j, slot in enumerate(cfg.pattern):
+        name = f"slot{j}"
+        with torch.inference_mode():
+            got, _ = transformer._slot_apply(blocks[name], h, pos, cfg, slot,
+                                             moe_dropless=True,
+                                             plans=bplans[name])
+            plain = _masked_dense(blocks[name], bplans[name])
+            want, _ = transformer._slot_apply(plain, h, pos, dense, slot,
+                                              moe_dropless=True)
+            del plain
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        check(torch.allclose(got.float(), want.float(), **REPLAY_BF16_TOL)
+              and err <= REPLAY_BF16_TOL["rtol"] * scale,
+              f"jamba {name} ({slot.mixer} + {slot.ffn}) == plain masked "
+              f"products on the card within {REPLAY_BF16_TOL} and "
+              f"{REPLAY_BF16_TOL['rtol']} of its largest value (max abs err "
+              f"{err}, largest {scale})")
+        out.append(dict(slot=name, mixer=slot.mixer, ffn=slot.ffn, tokens=t,
+                        max_abs_err=err, max_abs_value=scale))
+        h = got
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_jamba(kernels, device, card: str) -> dict:
+    """jamba-1.5-large at full width, cut to slots 0-1 of its period,
+    FLGW G=4 grouped on ssm, moe, mlp and attn, ``use_flash``: plan_assign
+    bitwise at its 17 sides on the sort route, plan_rank + plan_place at
+    its 7 wide sides; fused_bmm at the cut's 12 projections for a B=2 x
+    S=1,024 prefill's rows (the experts' dropless 4,096) and a decode
+    step's; flash_fwd at the prefill's shapes; with the counts at 0, a
+    certify session, the prefill and a lockstep Engine run with exact
+    launches; each layer held against plain masked products on the
+    card."""
+    full = registry.get_config("jamba_1_5_large")
+    cfg = _ssm_cfg("jamba_1_5_large", JAMBA_TARGETS,
+                   pattern=full.pattern[:JAMBA_SLOTS], n_layers=JAMBA_SLOTS)
+    slack = flgw.FLGWConfig().capacity_slack
+    t0 = time.perf_counter()
+    params = serve_params(cfg, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    sides = check_assign_sides(params, slack)
+    check(len(sides["tiled"]) == JAMBA_TILED_SIDES
+          and len(sides["sort"]) == 2 * JAMBA_PROJECTIONS - JAMBA_TILED_SIDES,
+          f"jamba: {JAMBA_TILED_SIDES} sides past the sort route "
+          f"({len(sides['tiled'])}), the rest on plan_assign "
+          f"({len(sides['sort'])})")
+    with torch.inference_mode():
+        state = planenc.attach_compact(transformer.encode_plans(params, cfg),
+                                       params)
+    dense = _block_projs(params, state.plans, [
+        *(("slot0", "mixer", n) for n in "qkvo"),
+        *(("slot0", "ffn", n) for n in ("up", "gate", "down")),
+        ("slot1", "mixer", "in"), ("slot1", "mixer", "out")])
+    experts = _block_projs(params, state.plans, [
+        ("slot1", "moe", n) for n in ("up", "gate", "down")])
+    rows_b = JAMBA_BATCH * SSM_SEQ
+    kern_rows = (check_compact_kernels(dense, cfg, (rows_b, SERVE_BATCH),
+                                       bmm=False)
+                 + check_compact_kernels(experts, cfg,
+                                         (rows_b * cfg.top_k, DECODE_ROWS),
+                                         bmm=False))
+    del state, dense, experts
+    torch.cuda.empty_cache()
+    flash_rows = check_flash_kernel(cfg, device, ((SSM_SEQ, 0),), JAMBA_BATCH)
+    _print_family_kernels("jamba_1_5_large", sides, [], flash_rows)
+    _print_compact_rows("jamba_1_5_large", kern_rows)
+
+    calls, restore = _count_forwards()
+    try:
+        sv = run_serve(cfg, params, kernels, seq=SSM_SEQ, continuous=False,
+                       tiled_sides=JAMBA_TILED_SIDES, batch=JAMBA_BATCH)
+    finally:
+        restore()
+    session = sv.pop("session")
+    del sv["inputs"], sv["logits"]
+    lc, enc = sv["launches"], sv["encodes"]
+    sort_sides = 2 * JAMBA_PROJECTIONS - JAMBA_TILED_SIDES
+    check(lc["plan_assign"] == sort_sides * enc,
+          f"jamba: plan_assign exactly {sort_sides} an encode ({enc} "
+          f"encodes; {lc})")
+    check(lc["fused_bmm"] == JAMBA_PROJECTIONS * calls[0],
+          f"jamba: fused_bmm exactly {JAMBA_PROJECTIONS} a forward "
+          f"({calls[0]} forwards; {lc})")
+    prefills = len(sv["prefill_s"])
+    check(lc["flash_fwd"] == prefills,
+          f"jamba: flash_fwd exactly 1 a prefill forward ({prefills} "
+          f"prefills; {lc})")
+    oracle = jamba_oracle(params, session.plans and session._attach(
+        session.plans), cfg, device)
+    lk = sv["lockstep"]
+    print(f"phase 14 jamba_1_5_large (slots 0-1, {n_params:,} params) on "
+          f"{card}: launches {lc} over {calls[0]} forwards; prefill "
+          f"B={JAMBA_BATCH} x S={SSM_SEQ} {sv['prefill_ms']:.1f} ms "
+          f"({sv['prefill_tokens_per_s']:.0f} tokens/s; dropless "
+          f"{rows_b * cfg.top_k} rows an expert); lockstep "
+          f"{lk['tokens_per_s']:.1f} tokens/s, p50 {lk['p50_s']:.3f} s; "
+          f"oracle max abs err {[round(o['max_abs_err'], 4) for o in oracle]}"
+          f" (largest {[round(o['max_abs_value'], 3) for o in oracle]})",
+          flush=True)
+    del session, params
+    plan_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(slots=JAMBA_SLOTS, batch=JAMBA_BATCH, seq=SSM_SEQ,
+                params=n_params, init_s=init_s, assign=sides,
+                kernel_rows=kern_rows, flash_rows=flash_rows, serve=sv,
+                forwards=calls[0], oracle=oracle,
+                dropless_rows_per_expert=rows_b * cfg.top_k)
+
+
+def _print_compact_rows(arch, rows) -> None:
+    for r in rows:
+        bm = r.get("grouped_bmm_bf16")
+        bm = (f"grouped_bmm_bf16 {bm['ms']:.4f} ms ({bm['route']}, "
+              f"{bm['bound_share']:.3f} of its bound {bm['bound_ms']:.4f}), "
+              f"plain {bm['plain_ms']:.3f}, bmm {bm['library_ms']:.4f}"
+              ) if bm else ""
+        fb = (f"fused_bmm {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+              f"{r['bound_share']:.3f} of the bound {r['bound_ms']:.4f}, "
+              f"{r['route']}), plain {r['plain_ms']:.3f}, bmm "
+              f"{r['library_ms']:.4f}; ") if "ms" in r else ""
+        print(f"  {arch} {r['proj']} {r['tiles']} tiles x {r['rows']} rows "
+              f"K={r['cap_m']} N={r['cap_n']}: {fb}{bm}", flush=True)
+
+
+def backward_over_experts(p, plans, xs) -> list[dict]:
+    """The expert-axis backward (dx, dW, dIG, dOG of every expert at once)
+    against the 2-D backward run expert by expert, on the card, at each
+    expert projection with its inputs ``xs`` (captured from a training
+    step's dispatch) and a random output gradient. Both are the same
+    ``torch.bmm`` products and scatters; cuBLAS may pick other algorithms
+    for E·G tiles than for G, so each is held within 1e-2 of its largest
+    value and its bitwise agreement recorded."""
+    gen = torch.Generator(device=p["router"].device).manual_seed(SEED + 15)
+    out = []
+    with torch.no_grad():
+        for name in ("up", "gate", "down"):
+            w, ig, og = p[name]["w"], p[name]["ig"], p[name]["og"]
+            x, pl = xs[name], plans[name]
+            gy = torch.randn((*x.shape[:2], w.shape[-1]), generator=gen,
+                             device=w.device).to(w.dtype)
+            got = grouped._grouped_bwd(x, w, ig, og, pl, 1.0, gy)
+            errs, scales, same = [0.0] * 4, [0.0] * 4, True
+            for e in range(w.shape[0]):
+                one = grouped.GroupPlan(*(t[e] for t in pl[:6]))
+                want = grouped._grouped_bwd(x[e], w[e], ig[e], og[e], one,
+                                            1.0, gy[e])
+                for i, (a, b) in enumerate(zip(got, want)):
+                    errs[i] = max(errs[i], float((a[e].float() - b.float())
+                                                 .abs().max()))
+                    scales[i] = max(scales[i], float(b.float().abs().max()))
+                    same &= bool(torch.equal(a[e], b))
+                del want
+            for what, err, scale in zip(("dx", "dW", "dIG", "dOG"), errs,
+                                        scales):
+                check(err <= 1e-2 * scale,
+                      f"mixtral {name}: the expert-axis {what} == the 2-D "
+                      f"backward expert by expert within 1e-2 of its largest "
+                      f"value (max abs err {err}, largest {scale})")
+            out.append(dict(proj=name, experts=w.shape[0], rows=x.shape[1],
+                            max_abs_err=dict(zip(("dx", "dW", "dIG", "dOG"),
+                                                 errs)),
+                            max_abs_value=dict(zip(("dx", "dW", "dIG", "dOG"),
+                                                   scales)),
+                            bitwise=same))
+            del got, gy
+            torch.cuda.empty_cache()
+    return out
+
+
+def run_moe_train(kernels, device, card: str) -> dict:
+    """mixtral-8x22b at full width, 1 of 56 layers, FLGW G=4 grouped on
+    the experts: grouped_bmm_bf16 at the training dispatch's expert
+    shapes against its plain version; with the counts at 0, 3 training
+    steps of B=2 x S=1,024 (the grouped backward over the expert axis);
+    then on a step's batch the expert-axis backward against the 2-D one
+    expert by expert."""
+    from repro_torch.models import moe as moe_mod
+    arch, layers, targets, b = MOE_TRAIN
+    cfg = registry.get_config(arch, n_layers=layers, flgw_targets=targets,
+                              **TRAIN_FLGW)
+    cap = moe_mod.capacity(b * SSM_SEQ, cfg, False)
+    params = serve_params(cfg, device)
+    p_moe = transformer._index(params["blocks"], 0)["slot0"]["moe"]
+    fl = flgw.FLGWConfig(groups=cfg.flgw_groups, path="grouped")
+    with torch.inference_mode():
+        plans = grouped.attach_compact(grouped.encode_plans(p_moe, fl), p_moe)
+    kern_rows = check_compact_kernels(_expert_projs(p_moe, plans), cfg,
+                                      (cap,), bmm=True, fused=False)
+    del params, p_moe, plans
+    torch.cuda.empty_cache()
+    _print_compact_rows(arch, kern_rows)
+
+    tr, state = run_lm_train(kernels, device, arch, targets, b, layers)
+    # the 3 expert projections, in the forward and its remat replay
+    _train_launches(tr["launches"], f"{arch} grouped MoE training",
+                    2 * 3 * layers, 2 * 3 * layers, TRAIN_STEPS)
+
+    # the dispatch's activations of a step's batch, for each projection
+    xs = {}
+    orig = moe_mod._expert_ffn
+
+    def capture(p, xe, flgw_cfg, plans=None):
+        xs["up"] = xs["gate"] = xe
+        return orig(p, xe, flgw_cfg, plans)
+    ds = SyntheticTokens(cfg.vocab, b, SSM_SEQ, seed=SEED)
+    batch = ds.tensors_at(0, device)
+    moe_mod._expert_ffn = capture
+    try:
+        with torch.no_grad():
+            transformer.lm_apply(state.params, cfg, batch["tokens"],
+                                 batch["positions"], return_hidden=True,
+                                 plans=state.plans)
+    finally:
+        moe_mod._expert_ffn = orig
+    p_moe = transformer._index(state.params["blocks"], 0)["slot0"]["moe"]
+    bplans = transformer._index(state.plans.plans["blocks"], 0)["slot0"]["moe"]
+    fl = flgw.FLGWConfig(groups=cfg.flgw_groups, path="grouped")
+    with torch.no_grad():
+        up = flgw.flgw_linear(xs["up"], p_moe["up"]["w"], p_moe["up"]["ig"],
+                              p_moe["up"]["og"], fl, plan=bplans["up"])
+        gate = flgw.flgw_linear(xs["up"], p_moe["gate"]["w"],
+                                p_moe["gate"]["ig"], p_moe["gate"]["og"], fl,
+                                plan=bplans["gate"])
+        xs["down"] = torch.nn.functional.gelu(gate, approximate="tanh") * up
+        del up, gate
+    bwd = backward_over_experts(p_moe, bplans, xs)
+    print(f"phase 14 {arch} grouped MoE training ({layers} layer, "
+          f"B={b} x S={SSM_SEQ}, {cap} rows an expert) on {card}: "
+          f"{tr['step_ms']:.1f} ms/step ({tr['tokens_per_s']:.0f} tokens/s), "
+          f"losses {tr['loss']}, peak {tr['peak_gb']:.1f} GB; launches "
+          f"{tr['launches']}; expert-axis backward vs 2-D: "
+          + ", ".join(f"{r['proj']} {r['max_abs_err']} "
+                      f"(bitwise {r['bitwise']})" for r in bwd), flush=True)
+    del state, xs, p_moe, bplans
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=layers, batch=b, seq=SSM_SEQ, rows_per_expert=cap,
+                kernel_rows=kern_rows, train=tr, backward=bwd)
+
+
+def run_ssm_family(kernels, device, card: str) -> dict:
+    """Phase 14: mamba2-1.3b served and trained, jamba-1.5-large (slots
+    0-1) served, mixtral-8x22b's grouped MoE trained."""
+    return {"mamba2_1_3b": run_mamba2(kernels, device, card),
+            "jamba_1_5_large": run_jamba(kernels, device, card),
+            "mixtral_8x22b_train": run_moe_train(kernels, device, card)}
+
+
+def ssm_launches(fam, sym: str) -> dict:
+    """One kernel's launches on each path of phase 14."""
+    return {"mamba2_1_3b_serve": fam["mamba2_1_3b"]["serve"]["launches"][sym],
+            "mamba2_1_3b_train":
+                fam["mamba2_1_3b"]["train"]["launches"][sym],
+            "jamba_1_5_large_serve":
+                fam["jamba_1_5_large"]["serve"]["launches"][sym],
+            "mixtral_8x22b_grouped_train":
+                fam["mixtral_8x22b_train"]["train"]["launches"][sym]}
 
 
 def moe_launches(moe, sym: str) -> dict:
@@ -3370,6 +3980,13 @@ def main() -> int:
     moe_s = time.perf_counter() - t_moe
     print(f"phase 13 (MoE family) took {moe_s:.1f} s; the script so far "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
+    # -- path 11: the SSM and hybrid families, the grouped MoE trained -----
+    t_ssm = time.perf_counter()
+    ssm_fam = run_ssm_family(all_kernels, dev, card)
+    ssm_s = time.perf_counter() - t_ssm
+    print(f"phase 14 (SSM and hybrid families, grouped MoE training) took "
+          f"{ssm_s:.1f} s; the script so far "
+          f"{time.perf_counter() - t_script:.1f} s", flush=True)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -3384,7 +4001,7 @@ def main() -> int:
                 "ic3net_async": op["launches"][sym],
                 "gemma2_ckpt": ck["launches"][sym],
                 **family_launches(fam, pre, band, sync, sym),
-                **moe_launches(moe, sym)}
+                **moe_launches(moe, sym), **ssm_launches(ssm_fam, sym)}
 
     def launches(sym):
         return sum(path_launches(sym).values())
@@ -3416,12 +4033,19 @@ def main() -> int:
             "bound_share", "sort_yardstick_ms")}
             for r in rows]
 
+    jamba = ssm_fam["jamba_1_5_large"]
+    mamba = ssm_fam["mamba2_1_3b"]
+    moe_train = ssm_fam["mixtral_8x22b_train"]
+
+    def timed_sides(rows, name):
+        return [dict(side=r["side"], layers=r["layers"], items=r["items"],
+                     **{k: r[name][k] for k in (
+                         "ms", "plain_ms", "bound_ms", "device_us")})
+                for r in rows if name in r]
+
     def tiled_entry(name, line):
         t = tiled[name]
-        on_path = [dict(side=r["side"], layers=r["layers"], items=r["items"],
-                        **{k: r[name][k] for k in (
-                            "ms", "plain_ms", "bound_ms", "device_us")})
-                   for r in family_tiled]
+        on_path = timed_sides(family_tiled, name)
         return dict(name=f"plan_{name}", route="cuda",
                     source="src/repro_torch/csrc/plan_encode.cu",
                     replaces=f"src/repro/kernels/plan_encode/plan_encode.py:"
@@ -3435,6 +4059,7 @@ def main() -> int:
                     profiler_recorded_launches=t[
                         "profiler_recorded_launches"],
                     gemma2_27b_sides=on_path,
+                    jamba_sides=timed_sides(jamba["assign"]["tiled"], name),
                     timed_over=f"one call at L, M, G = {TILED_SIDE} (past "
                                "the sort route's limit, the tiled route); "
                                "bound by bytes at 3.35 TB/s; "
@@ -3467,6 +4092,12 @@ def main() -> int:
              moe_sides=[dict(arch=a, **{k: r[k] for k in (
                  "side", "layers", "items", "axis", "ms", "device_us",
                  "plain_ms", "bound_ms")}) for a, f in moe.items()
+                 for r in f["assign"]["sort"] if "ms" in r],
+             ssm_sides=[dict(arch=a, **{k: r[k] for k in (
+                 "side", "layers", "items", "axis", "ms", "device_us",
+                 "plain_ms", "bound_ms")})
+                 for a, f in (("mamba2_1_3b", mamba),
+                              ("jamba_1_5_large", jamba))
                  for r in f["assign"]["sort"] if "ms" in r],
              encode=enc_t,
              ptxas={f"plan_assign_kernel<{tier}>": pe_usage.get(
@@ -3510,7 +4141,9 @@ def main() -> int:
              replaces="src/repro/kernels/flgw_matmul/flgw_matmul.py:38",
              launches=launches("grouped_bmm_bf16"),
              launches_by_path=path_launches("grouped_bmm_bf16"),
-             max_abs_err=max(r["max_abs_err"] for r in bmm16_rows),
+             max_abs_err=max([r["max_abs_err"] for r in bmm16_rows] + [
+                 r["grouped_bmm_bf16"]["max_abs_err"]
+                 for r in mamba["train_rows"] + moe_train["kernel_rows"]]),
              ms=total(train_layer, "ms"),
              plain_ms=total(train_layer, "plain_ms"),
              bound_ms=total(train_layer, "bound_ms"),
@@ -3536,6 +4169,10 @@ def main() -> int:
                        **r["grouped_bmm_bf16"])
                   for f in moe.values() for r in f["kernel_rows"]
                   if "grouped_bmm_bf16" in r],
+             ssm_train=[dict(arch=r["arch"], proj=r["proj"], tiles=r["tiles"],
+                             rows=r["rows"], cap_m=r["cap_m"],
+                             cap_n=r["cap_n"], **r["grouped_bmm_bf16"])
+                        for r in mamba["train_rows"] + moe_train["kernel_rows"]],
              timed_over="one training layer's forward: its 3 MLP products "
                         "(up, gate, down) at 4096 rows, bf16; bound at 989 "
                         "TFLOP/s (bf16 tensor cores); device us a launch: "
@@ -3548,7 +4185,8 @@ def main() -> int:
              launches=launches("fused_bmm"),
              launches_by_path=path_launches("fused_bmm"),
              max_abs_err=max(r["max_abs_err"] for r in fused_rows + [
-                 r for f in moe.values() for r in f["kernel_rows"]]),
+                 r for f in moe.values() for r in f["kernel_rows"]]
+                 + mamba["kernel_rows"] + jamba["kernel_rows"]),
              ms=total(prefill_layer, "ms"),
              plain_ms=total(prefill_layer, "plain_ms"),
              bound_ms=total(prefill_layer, "bound_ms"),
@@ -3572,6 +4210,7 @@ def main() -> int:
              dense_family_down=fk["fused_down"],
              moe=[{k: v for k, v in r.items() if k != "grouped_bmm_bf16"}
                   for f in moe.values() for r in f["kernel_rows"]],
+             ssm_family=mamba["kernel_rows"] + jamba["kernel_rows"],
              timed_over="one prefill layer: its 7 projections at 4096 rows, "
                         "bf16; bound at 989 TFLOP/s (bf16 tensor cores); "
                         "library = torch.bmm on pre-gathered operands, "
@@ -3602,6 +4241,11 @@ def main() -> int:
                  "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                  "bound_share", "tflops", "route")})
                   for a, f in moe.items() for r in f["flash_rows"]],
+             jamba=[{k: r[k] for k in (
+                 "b", "hq", "hkv", "d", "s", "window", "softcap",
+                 "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                 "bound_by", "bound_share", "tflops", "route")}
+                 for r in jamba["flash_rows"]],
              timed_over=f"one call at B={SERVE_BATCH}, Hq=8, Hkv=4, "
                         f"S={PREFILL_SEQ}, D=256, causal, softcap 50; bound "
                         "at 989 TFLOP/s (bf16 tensor cores); library = SDPA "
@@ -3669,7 +4313,8 @@ def main() -> int:
         learner_replay=lrep, learner_profile=lprof, learning_check=fig9,
         async_pipeline=asy, checkpoint=ck, dense_family=fam,
         prefix_lm=pre, banded=band, sync_launcher=sync, moe_family=moe,
-        moe_phase_s=moe_s, script_s=time.perf_counter() - t_script,
+        moe_phase_s=moe_s, ssm_family=ssm_fam, ssm_phase_s=ssm_s,
+        script_s=time.perf_counter() - t_script,
         **kernels_line), indent=1, default=str))
     print(json.dumps(kernels_line))
     print(card)

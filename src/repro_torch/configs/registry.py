@@ -3,9 +3,10 @@
 Port of ``repro.configs.registry``'s lookup half. Each architecture
 registers its published config and a reduced smoke config (same family,
 tiny dims). The dense family (gemma2-2b, gemma2-27b, gemma3-12b,
-internlm2-20b and paligemma-3b's prefix-LM backbone) and the MoE family
-(mixtral-8x22b, arctic-480b) are registered; the SSM and audio
-architectures wait for their families (ROADMAP, Queue 1). The
+internlm2-20b and paligemma-3b's prefix-LM backbone), the MoE family
+(mixtral-8x22b, arctic-480b), the SSM mamba2-1.3b and the hybrid
+jamba-1.5-large are registered; the audio architecture (whisper) waits
+for cross-attention and encoder stacks (ROADMAP, Queue 1). The
 configs are the JAX package's, with its simplifications (one
 ``rope_theta`` a model, the attention scale ``head_dim ** -0.5``, no
 qk-norm), not every detail of the published models.
@@ -21,7 +22,8 @@ _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: Dict[str, Callable[[], ModelConfig]] = {}
 
 ARCH_IDS = ("gemma2_2b", "gemma2_27b", "gemma3_12b", "internlm2_20b",
-            "paligemma_3b", "mixtral_8x22b", "arctic_480b")
+            "paligemma_3b", "mixtral_8x22b", "arctic_480b", "mamba2_1_3b",
+            "jamba_1_5_large")
 
 
 def register(name: str):

@@ -15,7 +15,8 @@ either differentiable: dx and dW exactly, through the transposed compact
 products, and dIG/dOG through the sparse-restricted straight-through
 estimator, with the plan an input that the backward reuses. Stacked
 experts (a leading expert axis on W, IG, OG, x and the plan) run every
-expert's tiles in one launch, forward only.
+expert's tiles in one launch, and their backward as one batch of E·G
+tiles.
 """
 from __future__ import annotations
 
@@ -160,57 +161,99 @@ def _core_matmul(x: torch.Tensor, w: torch.Tensor,
                                plan.row_valid, plan.col_valid)
 
 
+def _scatter_weight(dwc: torch.Tensor, plan: GroupPlan, m: int,
+                    n: int) -> torch.Tensor:
+    """dW's scatter: compact tiles (E·G, capM, capN) -> the dense (E, M,
+    N) gradient, or (M, N) for a plan without the expert axis. Each
+    entry goes to one flat int64 offset row·(N+1) + col of an (E·(M+1),
+    N+1) buffer, expert e's rows offset by e·(M+1), padding slots to a
+    sink row or column that is sliced off. The offsets are built for as
+    many tiles at a time as keep them near ``kops._INDEX_BYTES``:
+    indexing with separate row and column tensors would broadcast both
+    to the tiles' shape, 16 B of index for each 2-byte entry (~5 GB a
+    projection at mixtral-8x22b's width)."""
+    e = plan.row_ids.shape[0] if plan.row_ids.dim() == 3 else 1
+    rows = torch.where(plan.row_valid, plan.row_ids, m)
+    cols = torch.where(plan.col_valid, plan.col_ids, n)
+    if e > 1:
+        rows = rows + torch.arange(e, device=rows.device)[:, None, None] * (
+            m + 1)
+    cap_m, cap_n = rows.shape[-1], cols.shape[-1]
+    rows, cols = rows.reshape(-1, cap_m, 1), cols.reshape(-1, 1, cap_n)
+    dw = dwc.new_zeros((e * (m + 1) * (n + 1),))
+    step = max(1, kops._INDEX_BYTES // (8 * cap_m * cap_n))
+    for i in range(0, dwc.shape[0], step):
+        j = min(i + step, dwc.shape[0])
+        dw[(rows[i:j] * (n + 1) + cols[i:j]).reshape(-1)] = \
+            dwc[i:j].reshape(-1)
+    dw = dw.view(e, m + 1, n + 1)[:, :m, :n]
+    return dw if plan.row_ids.dim() == 3 else dw[0]
+
+
+def _scatter_rows(sc: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                  m: int) -> torch.Tensor:
+    """Per-slot sums (E·G, cap) -> per-item float32 (E, M), or (M,)
+    without the expert axis; padding slots go to a sliced-off sink."""
+    e = ids.shape[0] if ids.dim() == 3 else 1
+    flat = torch.where(valid, ids, m)
+    if e > 1:
+        flat = flat + torch.arange(e, device=ids.device)[:, None, None] * (
+            m + 1)
+    out = torch.zeros(e * (m + 1), dtype=torch.float32, device=sc.device)
+    out[flat.reshape(-1)] = sc.float().reshape(-1)
+    out = out.view(e, m + 1)[:, :m]
+    return out if ids.dim() == 3 else out[0]
+
+
 def _grouped_bwd(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,
                  og: torch.Tensor, plan: GroupPlan, temperature: float,
                  gy: torch.Tensor):
     """(dx, dW, dIG, dOG) of one compact product, as the JAX package's
-    ``_grouped_bwd``. Its two products are XLA einsums there, outside any
-    Pallas kernel, so here they are ``torch.bmm`` in the operands' dtype
-    (f32 accumulation); the scatters send padding slots to a sink row or
-    column that is sliced off."""
-    b = x.shape[0]
-    m, g = ig.shape
-    n = og.shape[1]
-    cap_n = plan.col_ids.shape[1]
-    xg = kops.gather_x(x, plan.row_ids, plan.row_valid)
-    wc = plan.wc if plan.wc is not None else kops.compact_weights(
+    ``_grouped_bwd``: x (B, M), w (M, N), ig (M, G), og (G, N), plan
+    leaves (G, cap) and gy (B, N); or, with a leading expert axis, x (E,
+    B, M), w (E, M, N), ig (E, M, G), og (E, G, N), leaves (E, G, cap)
+    and gy (E, B, N), every expert's gradients at once (JAX vmaps its
+    backward over the experts). Its two products are XLA einsums there,
+    outside any Pallas kernel, so here they are ``torch.bmm`` over the
+    E·G tiles in the operands' dtype (f32 accumulation); the scatters
+    send padding slots to a sink row or column that is sliced off."""
+    m, g = ig.shape[-2:]
+    n = og.shape[-1]
+    xg = kops.gather_x(x, plan.row_ids, plan.row_valid)      # (E·G, B, capM)
+    gc = kops.gather_x(gy, plan.col_ids, plan.col_valid)     # (E·G, B, capN)
+    wc = (plan.wc if plan.wc is not None else kops.compact_weights(
         w, plan.row_ids, plan.col_ids, plan.row_valid, plan.col_valid)
-    gc = gy[:, plan.col_ids.reshape(-1)].reshape(b, g, cap_n).permute(1, 0, 2)
-    gc = torch.where(plan.col_valid[:, None, :], gc, 0)
+    ).flatten(0, -3)                                        # (E·G, capM, capN)
 
     # dX: the transposed compact product (Mask^T has the same structure
     # with IG/OG swapped, so the compact tiles are reused).
-    flat_rows = torch.where(plan.row_valid, plan.row_ids, m).reshape(-1)
-    flat_cols = torch.where(plan.col_valid, plan.col_ids, n).reshape(-1)
-    dxc = torch.bmm(gc, wc.transpose(1, 2))                  # (G, B, capM)
-    dx = x.new_zeros((b, m + 1))
-    dx[:, flat_rows] = dxc.permute(1, 0, 2).reshape(b, -1)
+    dxc = torch.bmm(gc, wc.transpose(1, 2))                  # (E·G, B, capM)
+    dx = kops.scatter_cols(dxc, plan.row_ids, plan.row_valid, m)
 
     # dW: compact outer products scattered to the dense weight.
-    dwc = torch.bmm(xg.transpose(1, 2), gc)                  # (G, capM, capN)
-    dw = w.new_zeros((m + 1, n + 1))
-    dw[flat_rows.reshape(g, -1, 1), flat_cols.reshape(g, 1, -1)] = dwc
+    dwc = torch.bmm(xg.transpose(1, 2), gc)                  # (E·G, capM, capN)
+    dw = _scatter_weight(dwc, plan, m, n)
 
     # dIG/dOG: the mask gradient on surviving entries is dW * W, reduced
     # to per-row / per-column scalars and pushed through the softmax
-    # Jacobian at the assigned group.
+    # Jacobian at the assigned group, expert by expert over G.
     dmask = dwc * wc
-    s_row = torch.zeros(m + 1, dtype=torch.float32, device=x.device)
-    s_row[flat_rows] = dmask.sum(2).float().reshape(-1)
-    s_col = torch.zeros(n + 1, dtype=torch.float32, device=x.device)
-    s_col[flat_cols] = dmask.sum(1).float().reshape(-1)
-    s_row, s_col = s_row[:m], s_col[:n]
+    s_row = _scatter_rows(dmask.sum(2), plan.row_ids, plan.row_valid, m)
+    s_col = _scatter_rows(dmask.sum(1), plan.col_ids, plan.col_valid, n)
 
     tau = temperature
-    soft_ig = torch.softmax(ig / tau, dim=1)                 # (M, G)
+    soft_ig = torch.softmax(ig / tau, dim=-1)                # (E, M, G)
     pg_row = F.one_hot(plan.row_group, g).to(soft_ig.dtype)
-    sel_r = (soft_ig * pg_row).sum(1, keepdim=True)
-    dig = (s_row[:, None] / tau) * sel_r * (pg_row - soft_ig)
-    soft_og = torch.softmax(og / tau, dim=0)                 # (G, N)
-    pg_col = F.one_hot(plan.col_group, g).T.to(soft_og.dtype)
-    sel_c = (soft_og * pg_col).sum(0, keepdim=True)
-    dog = (s_col[None, :] / tau) * sel_c * (pg_col - soft_og)
-    return dx[:, :m], dw[:m, :n], dig.to(ig.dtype), dog.to(og.dtype)
+    sel_r = (soft_ig * pg_row).sum(-1, keepdim=True)
+    dig = (s_row[..., None] / tau) * sel_r * (pg_row - soft_ig)
+    # over G as the last axis: the CPU's softmax over a middle axis
+    # rounds by the batch's layout, so one expert of a batch would not be
+    # bitwise that expert alone
+    soft_og = torch.softmax(og.mT / tau, dim=-1).mT          # (E, G, N)
+    pg_col = F.one_hot(plan.col_group, g).mT.to(soft_og.dtype)
+    sel_c = (soft_og * pg_col).sum(-2, keepdim=True)
+    dog = (s_col[..., None, :] / tau) * sel_c * (pg_col - soft_og)
+    return dx, dw, dig.to(ig.dtype), dog.to(og.dtype)
 
 
 class _GroupedCore(torch.autograd.Function):
@@ -232,13 +275,6 @@ class _GroupedCore(torch.autograd.Function):
                 None, None)
 
 
-_MOE_TRAINING = (
-    "training a grouped MoE (the compact product's backward over a "
-    "leading expert axis) is not ported to repro_torch yet (ROADMAP, "
-    "Queue 1: MoE training); serve it under torch.inference_mode, or "
-    "train on the masked or dense path")
-
-
 def grouped_apply(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,
                   og: torch.Tensor, cfg, *, transpose: bool = False,
                   plan: Optional[GroupPlan] = None) -> torch.Tensor:
@@ -248,21 +284,14 @@ def grouped_apply(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,
 
     Stacked experts: w (E, M, N), ig (E, M, G), og (E, G, N), x (E, ...,
     M) and plan leaves (E, G, cap) run every expert's tiles in one kernel
-    launch, forward only: when autograd records, this raises
-    ``NotImplementedError`` (ROADMAP, Queue 1: MoE training)."""
-    experts = w.dim() == 3
-    if experts and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w, ig, og)):
-        raise NotImplementedError(_MOE_TRAINING)
+    launch, and the backward every expert's gradients at once."""
     if transpose:
         w, ig, og = w.mT, og.mT, ig.mT
         plan = transpose_plan(plan) if plan is not None else None
     if plan is None:
         plan = make_plan(ig.detach(), og.detach(), cfg.capacity_slack)
     lead = x.shape[:-1]
-    if experts:
-        y = _core_matmul(x.reshape(w.shape[0], -1, x.shape[-1]), w, plan)
-    else:
-        y = _GroupedCore.apply(x.reshape(-1, x.shape[-1]), w, ig, og, plan,
-                               cfg.ste_temperature)
+    rows = (w.shape[0], -1) if w.dim() == 3 else (-1,)
+    y = _GroupedCore.apply(x.reshape(*rows, x.shape[-1]), w, ig, og, plan,
+                           cfg.ste_temperature)
     return y.reshape(*lead, -1)

@@ -128,10 +128,10 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, row_ids: torch.Tensor,
     launch (the counterpart of JAX's vmap over the Pallas call)."""
     wc = compact_weights(w, row_ids, col_ids, row_valid, col_valid)
     yc = grouped_bmm(gather_x(x, row_ids, row_valid), wc.flatten(0, -3))
-    return _scatter_cols(yc, col_ids, col_valid, w.shape[-1])
+    return scatter_cols(yc, col_ids, col_valid, w.shape[-1])
 
 
-def _scatter_cols(yc: torch.Tensor, col_ids: torch.Tensor,
+def scatter_cols(yc: torch.Tensor, col_ids: torch.Tensor,
                   col_valid: torch.Tensor, n: int) -> torch.Tensor:
     """Step 4: compact outputs (G, B, capN) -> y (B, n), or with a
     leading expert axis (E·G, B, capN) and plan leaves (E, G, capN) -> y
@@ -282,4 +282,4 @@ def grouped_matmul_fused(x: torch.Tensor, wc: torch.Tensor,
     """
     xt, ids = fused_operands(x, row_ids, row_valid)
     yc = fused_bmm(xt, wc.flatten(0, -3), ids)
-    return _scatter_cols(yc, col_ids, col_valid, n)
+    return scatter_cols(yc, col_ids, col_valid, n)

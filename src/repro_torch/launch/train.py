@@ -18,6 +18,7 @@ from __future__ import annotations
 import argparse
 import functools
 import time
+from typing import Optional
 
 import torch
 
@@ -33,12 +34,15 @@ from repro_torch.train import step as step_lib
 def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
              batch: int = 8, seq: int = 256, lr: float = 3e-4,
              flgw_groups: int = 1, flgw_path: str = "masked",
-             refresh_every: int = 1, refresh: str = "period",
+             flgw_targets: Optional[tuple] = None,
+             n_layers: Optional[int] = None, refresh_every: int = 1, refresh: str = "period",
              optimizer: str = "adamw", ckpt_dir: str = None,
              save_every: int = 100, log_every: int = 10,
              banded: bool = False, seed: int = 0, device=None):
     """Train ``arch`` up to step ``steps`` on synthetic tokens (from the
-    latest checkpoint in ``ckpt_dir``, when there is one). Returns
+    latest checkpoint in ``ckpt_dir``, when there is one).
+    ``flgw_targets`` (default the config's) and ``n_layers`` (a depth
+    cut, a multiple of the pattern's period) override the config. Returns
     ``(state, history)``: one metrics dict per step run (tensors, plus
     the step's synchronised wall time ``step_s``)."""
     dev = resolve_device(device)
@@ -46,6 +50,10 @@ def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
     overrides = {}
     if flgw_groups > 1:
         overrides = dict(flgw_groups=flgw_groups, flgw_path=flgw_path)
+        if flgw_targets:
+            overrides["flgw_targets"] = tuple(flgw_targets)
+    if n_layers:
+        overrides["n_layers"] = n_layers
     cfg = get(arch, **overrides)
     schedule = None
     if flgw_groups > 1 and flgw_path == "grouped" and \
@@ -124,6 +132,9 @@ def main(argv=None):
     ap.add_argument("--flgw-groups", type=int, default=1)
     ap.add_argument("--flgw-path", default="masked",
                     choices=("masked", "grouped"))
+    ap.add_argument("--flgw-targets", default=None,
+                    help="comma-separated FLGW targets (mlp,attn,moe,ssm; "
+                         "default the config's)")
     ap.add_argument("--refresh", type=int, default=1,
                     help="re-encode the grouped path's plan cache every k "
                          "steps (1 = every step)")
@@ -143,7 +154,9 @@ def main(argv=None):
     a = ap.parse_args(argv)
     train_lm(a.arch, smoke=a.smoke, steps=a.steps, batch=a.batch,
              seq=a.seq, lr=a.lr, flgw_groups=a.flgw_groups,
-             flgw_path=a.flgw_path, refresh_every=a.refresh,
+             flgw_path=a.flgw_path,
+             flgw_targets=a.flgw_targets and a.flgw_targets.split(","),
+             refresh_every=a.refresh,
              refresh=a.refresh_mode, optimizer=a.optimizer,
              ckpt_dir=a.ckpt_dir, save_every=a.save_every,
              log_every=a.log_every, banded=a.banded, seed=a.seed,

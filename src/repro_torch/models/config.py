@@ -4,8 +4,8 @@ Layer heterogeneity (local/global attention, MoE cadence, Mamba/attention
 interleave) is a repeating *pattern* of ``period`` slots; the stack runs
 ``n_layers // period`` blocks of it. The fields are the JAX package's, so
 a config converts one to one; ``dtype`` is a ``torch.dtype``. The port's
-transformer runs the dense and MoE families and raises on the rest
-(``repro_torch.models.transformer``).
+transformer runs the dense, MoE, SSM and hybrid families and raises on
+cross-attention and encoder stacks (``repro_torch.models.transformer``).
 """
 from __future__ import annotations
 
@@ -65,7 +65,7 @@ class ModelConfig:
     # FLGW (the paper's technique)
     flgw_groups: int = 1
     flgw_path: str = "masked"    # dense | masked | grouped
-    flgw_targets: Tuple[str, ...] = ("mlp",)   # mlp | attn | moe
+    flgw_targets: Tuple[str, ...] = ("mlp",)   # mlp | attn | moe | ssm
     # training
     remat: bool = True           # checkpoint each layer slot under autograd
     use_flash: bool = False      # fused flash-attention core (prefill, train)

@@ -10,9 +10,9 @@ compact product over all E experts (``core.grouped.grouped_apply`` with a
 leading expert axis): one ``fused_bmm`` launch when the plans carry
 compact weights (serving), else one ``grouped_bmm`` launch. This is the
 counterpart of the JAX package's vmap of ``proj`` over the experts,
-which folds the expert axis into the Pallas kernels' grids. Training a
-grouped MoE raises (ROADMAP, Queue 1); the dense and masked paths train
-through autograd.
+which folds the expert axis into the Pallas kernels' grids. Every path
+trains through autograd; the grouped backward takes all experts' tiles
+at once (``core.grouped._grouped_bwd``).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Pattern-stacked transformer assembly, dense and MoE families.
+"""Pattern-stacked transformer assembly: dense, MoE, SSM and hybrid.
 
 Port of ``repro.models.transformer``. The stack is ``n_blocks`` blocks of
 the ``period`` slots of ``cfg.pattern``; per-slot parameters, plans and
@@ -8,15 +8,17 @@ of ``lax.scan``, slicing every stacked leaf.
 
 Ported: the dense family (attention mixers, MLP FFNs), the MoE family
 (``moe`` FFNs and ``moe_dense``, a MoE beside a parallel dense MLP
-residual; ``models.moe``), the VLM's prefix-LM backbone
-(``patch_embeds`` ahead of the tokens, attended both ways), the banded
-prefill (``banded``) and ``remat`` (each layer slot under a
+residual; ``models.moe``), the SSM mixers (``models.ssm``; with
+``ffn="none"`` a slot is a pure Mamba2 block, as mamba2-1.3b's; jamba
+interleaves attention, SSM, MLP and MoE slots), the VLM's prefix-LM
+backbone (``patch_embeds`` ahead of the tokens, attended both ways), the
+banded prefill (``banded``) and ``remat`` (each layer slot under a
 non-reentrant ``torch.utils.checkpoint``, so the backward recomputes one
 layer at a time from its input, as ``jax.checkpoint`` around the JAX
-package's block body). SSM mixers, cross-attention and encoder stacks
-(``frames``) raise ``NotImplementedError`` (ROADMAP, Queue 1); so do
-``unroll_blocks`` and ``attn_identity``, the JAX package's dry-run cost
-variants, which eager PyTorch has no use for.
+package's block body). Cross-attention and encoder stacks (``frames``),
+whisper-large-v3's, raise ``NotImplementedError`` (ROADMAP, Queue 1); so
+do ``unroll_blocks``, ``attn_identity`` and ``ssd_unroll``, the JAX
+package's dry-run cost variants, which eager PyTorch has no use for.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.core.flgw import FLGWConfig
 from repro_torch.core.grouped import GroupPlan
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig, SlotSpec
 from repro_torch.models.layers import (embed, embed_init, mlp, mlp_init,
                                        plan_of, rmsnorm, rmsnorm_init,
@@ -45,14 +48,15 @@ def _unported(what: str):
 
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.encoder_layers:
-        raise _unported("an encoder stack (encoder_layers)")
+        raise _unported("an encoder stack (encoder_layers, "
+                        "whisper-large-v3's)")
     for slot in cfg.pattern:
-        if slot.mixer != "attn":
+        if slot.mixer not in ("attn", "ssm"):
             raise _unported(f"the {slot.mixer!r} mixer")
-        if slot.ffn not in ("mlp", "moe", "moe_dense"):
+        if slot.ffn not in ("mlp", "moe", "moe_dense", "none"):
             raise _unported(f"the {slot.ffn!r} FFN")
         if slot.cross:
-            raise _unported("cross-attention")
+            raise _unported("cross-attention (whisper-large-v3's)")
 
 
 def _flgw_cfg(cfg: ModelConfig, target: str) -> Optional[FLGWConfig]:
@@ -78,10 +82,17 @@ def encode_plans(params: dict, cfg: ModelConfig) -> planenc.PlanState:
 def _slot_init(generator, cfg: ModelConfig, slot: SlotSpec, n: int) -> dict:
     lead = (n,)
     dev = generator.device
-    p = {"norm1": rmsnorm_init(cfg.d_model, device=dev, lead=lead),
-         "mixer": attn_mod.attn_init(generator, cfg,
-                                     flgw=_flgw_cfg(cfg, "attn"), lead=lead),
-         "norm2": rmsnorm_init(cfg.d_model, device=dev, lead=lead)}
+    p = {"norm1": rmsnorm_init(cfg.d_model, device=dev, lead=lead)}
+    if slot.mixer == "attn":
+        p["mixer"] = attn_mod.attn_init(generator, cfg,
+                                        flgw=_flgw_cfg(cfg, "attn"),
+                                        lead=lead)
+    else:
+        p["mixer"] = ssm_mod.ssm_init(generator, cfg,
+                                      flgw=_flgw_cfg(cfg, "ssm"), lead=lead)
+    if slot.ffn == "none":     # a pure SSM block (mamba2) has no FFN
+        return p
+    p["norm2"] = rmsnorm_init(cfg.d_model, device=dev, lead=lead)
     if slot.ffn != "mlp":
         p["moe"] = moe_mod.moe_init(generator, cfg,
                                     flgw=_flgw_cfg(cfg, "moe"), lead=lead)
@@ -135,17 +146,25 @@ def _slot_apply(p, x, positions, cfg: ModelConfig, slot: SlotSpec, *,
                 cache=None, pos=None, prefix_len=0, q_chunk=512,
                 banded=False, moe_dropless=False, plans=None):
     """One layer -> (x, aux), aux the MoE's load-balancing loss (None
-    for an MLP slot); a decode step writes ``cache``'s KV buffers in
-    place. A MoE slot is dropless whenever a cache is given."""
+    for an MLP slot or none); a decode step writes ``cache``'s KV buffers
+    or SSM state and conv ring in place. A MoE slot is dropless whenever
+    a cache is given."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    c = None if cache is None else {"k": cache["k"], "v": cache["v"],
-                                    "pos": pos}
-    h, _ = attn_mod.attention(
-        p["mixer"], h, positions, cfg, window=slot.window,
-        causal=slot.causal, prefix_len=prefix_len, cache=c, q_chunk=q_chunk,
-        banded=banded, flash=cfg.use_flash, flgw=_flgw_cfg(cfg, "attn"),
-        plans=plan_of(plans, "mixer"))
+    if slot.mixer == "attn":
+        c = None if cache is None else {"k": cache["k"], "v": cache["v"],
+                                        "pos": pos}
+        h, _ = attn_mod.attention(
+            p["mixer"], h, positions, cfg, window=slot.window,
+            causal=slot.causal, prefix_len=prefix_len, cache=c,
+            q_chunk=q_chunk, banded=banded, flash=cfg.use_flash,
+            flgw=_flgw_cfg(cfg, "attn"), plans=plan_of(plans, "mixer"))
+    else:
+        h = ssm_mod.ssm(p["mixer"], h, cfg, cache=cache,
+                        chunk=cfg.ssm_chunk, flgw=_flgw_cfg(cfg, "ssm"),
+                        plans=plan_of(plans, "mixer"))
     x = x + h
+    if slot.ffn == "none":     # a pure SSM block (mamba2) has no FFN
+        return x, None
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if slot.ffn == "mlp":
         return x + mlp(p["ffn"], h, _flgw_cfg(cfg, "mlp"),
@@ -163,7 +182,8 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
              q_chunk: int = 512, banded: bool = False, remat=None,
              return_hidden: bool = False, unroll_blocks: bool = False,
              attn_identity: bool = False, plans=None,
-             patch_embeds=None, frames=None, moe_dropless: bool = False):
+             patch_embeds=None, frames=None, moe_dropless: bool = False,
+             ssd_unroll: bool = False):
     """Forward pass. Returns (logits, aux_loss, new_cache).
 
     tokens, positions: (B, S) integer. ``patch_embeds``: (B, P, d) VLM
@@ -182,8 +202,8 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
     (the serving prefill); a decode step (a cache) is dropless always.
     """
     _check_supported(cfg)
-    if unroll_blocks or attn_identity:
-        raise _unported("unroll_blocks and attn_identity")
+    if unroll_blocks or attn_identity or ssd_unroll:
+        raise _unported("unroll_blocks, attn_identity and ssd_unroll")
     if frames is not None:
         raise _unported("the audio encoder (frames)")
     if plans is None and cache is not None:
@@ -233,8 +253,8 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
 
     new_cache = None
     if cache is not None:
-        # the KV buffers were written in place (models.attention); plans
-        # ride the cache unchanged
+        # the KV buffers and SSM states were written in place
+        # (models.attention, models.ssm); plans ride the cache unchanged
         new_cache = dict(cache, pos=pos + tokens.shape[1])
     return out, aux, new_cache
 
@@ -252,7 +272,9 @@ def _cache_len(slot: SlotSpec, max_seq: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, params=None,
                per_slot: bool = False, device=None) -> dict:
-    """Decode caches in ``cfg.dtype``, stacked (n_blocks, ...) per slot.
+    """Decode caches, stacked (n_blocks, ...) per slot: an attention
+    slot's KV ring buffers ``k``/``v`` in ``cfg.dtype``, an SSM slot's
+    recurrent ``state`` (float32) and ``conv`` ring (``cfg.dtype``).
 
     ``params``: encode a PlanState beside the KV buffers
     (``cache["plans"]``) on the FLGW grouped path, with the compact
@@ -270,10 +292,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, params=None,
     nb = cfg.n_blocks
     blocks = {}
     for i, slot in enumerate(cfg.pattern):
-        kv = (nb, batch, _cache_len(slot, max_seq), cfg.n_kv_heads,
-              cfg.head_dim)
-        blocks[f"slot{i}"] = {"k": torch.zeros(kv, dtype=dtype, device=device),
-                              "v": torch.zeros(kv, dtype=dtype, device=device)}
+        if slot.mixer == "attn":
+            kv = (nb, batch, _cache_len(slot, max_seq), cfg.n_kv_heads,
+                  cfg.head_dim)
+            blocks[f"slot{i}"] = {
+                "k": torch.zeros(kv, dtype=dtype, device=device),
+                "v": torch.zeros(kv, dtype=dtype, device=device)}
+        else:
+            conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+            blocks[f"slot{i}"] = {
+                "state": torch.zeros((nb, batch, cfg.ssm_heads,
+                                      cfg.ssm_head_dim, cfg.ssm_state),
+                                     dtype=torch.float32, device=device),
+                "conv": torch.zeros((nb, batch, cfg.conv_width - 1,
+                                     conv_ch), dtype=dtype, device=device)}
     pos_shape = (batch,) if per_slot else ()
     cache = {"pos": torch.zeros(pos_shape, dtype=torch.int64, device=device),
              "blocks": blocks}
@@ -305,7 +337,9 @@ def reset_slots(cache: dict, mask) -> dict:
     ``mask``: (batch,) bool; True rows return to stream offset 0, which
     invalidates every ring index of theirs (each maps to a negative
     absolute position until rewritten), so the KV buffers need no
-    clearing. False rows pass through untouched.
+    clearing; their SSM ``state`` and ``conv`` rows are zeroed in place
+    (the state integrates every step, so the previous request would leak
+    into the next). False rows pass through bitwise untouched.
     """
     pos = cache["pos"]
     if pos.dim() != 1:
@@ -313,4 +347,8 @@ def reset_slots(cache: dict, mask) -> dict:
             "reset_slots needs a per-slot cache (init_cache(per_slot=True)); "
             "this cache has a scalar shared position")
     mask = torch.as_tensor(mask, dtype=torch.bool, device=pos.device)
+    for c in cache["blocks"].values():
+        for leaf in ("state", "conv"):
+            if leaf in c:
+                c[leaf][:, mask] = 0
     return dict(cache, pos=torch.where(mask, 0, pos))

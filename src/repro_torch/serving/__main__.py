@@ -39,7 +39,7 @@ def main(argv=None) -> None:
                     choices=("masked", "grouped"),
                     help="FLGW execution path when --groups > 1")
     ap.add_argument("--targets", default="mlp",
-                    help="comma-separated FLGW targets (mlp,attn,moe)")
+                    help="comma-separated FLGW targets (mlp,attn,moe,ssm)")
     ap.add_argument("--mode", default="lockstep",
                     choices=("lockstep", "continuous"))
     ap.add_argument("--plan-policy", default="certify",

@@ -64,7 +64,9 @@ def make_prefill_step(cfg, *, plan_policy: str = "certify",
     dropless (every expert takes t·k rows, as in JAX). ``batch`` holds
     ``tokens`` and ``positions`` and, for a VLM, ``patch_embeds``.
     ``banded`` and ``q_chunk`` (default :func:`pick_q_chunk` of the token
-    count) go to the chunked attention core.
+    count) go to the chunked attention core. A model with SSM slots
+    prefills in ``min(cfg.ssm_chunk, S)``-token chunks, which must divide
+    S (``models.ssm`` raises otherwise, as the JAX package asserts).
 
     ``certify`` checks caller-supplied plans against the params (one
     signature pass, a re-encode iff the layout moved), ``trust`` takes

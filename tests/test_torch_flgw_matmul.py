@@ -181,26 +181,39 @@ def test_grouping_indices_mask_and_sparsity_match_jax():
 
 def test_unported_paths_raise():
     """The compact-weight path is ported now (tests/test_torch_fused_bmm.py),
-    and MoE FFNs are served (tests/test_torch_moe.py); what is still
-    unported raises instead of running something else: SSM mixers,
-    cross-attention, encoder stacks, and the grouped product of stacked
-    experts under autograd (MoE training)."""
+    MoE FFNs are served and trained (tests/test_torch_moe.py) and SSM
+    mixers run (tests/test_torch_ssm.py); what is still unported,
+    whisper-large-v3's cross-attention and encoder stack, raises instead
+    of running something else. The SSM mixer now initialises, and the
+    grouped product of stacked experts now takes gradients under
+    autograd."""
     from repro_torch.configs import registry
     from repro_torch.models import transformer
     from repro_torch.models.config import SlotSpec
     p, x = _layer(8, 16, 16, 2)
     cfg = registry.get_smoke_config("gemma2_2b", dtype=torch.float32)
-    for bad in (dict(pattern=(SlotSpec(mixer="ssm"),)),
+    # whisper-large-v3's decoder slot, its encoder stack, and both at once
+    whisper = SlotSpec(mixer="attn", window=0, ffn="mlp", cross=True)
+    for bad in (dict(pattern=(whisper,), encoder_layers=2),
                 dict(pattern=(SlotSpec(cross=True),)),
                 dict(encoder_layers=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="whisper"):
             transformer.lm_init(torch.Generator(),
                                 cfg.with_updates(n_layers=2, **bad))
+    ssm = transformer.lm_init(torch.Generator(), cfg.with_updates(
+        n_layers=2, pattern=(SlotSpec(mixer="ssm"),), ssm_state=8,
+        ssm_head_dim=16))
+    assert set(ssm["blocks"]["slot0"]["mixer"]) == {
+        "in", "out", "conv_w", "A_log", "D", "dt_bias", "norm"}
     experts = [torch.from_numpy(np.stack([a] * 3)) for a in
                (x, p["w"], p["ig"], p["og"])]
     experts[1].requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flgw.flgw_linear(*experts, flgw.FLGWConfig(groups=2, path="grouped"))
+    y = flgw.flgw_linear(*experts, flgw.FLGWConfig(groups=2, path="grouped"))
+    y.sum().backward()
+    # three identical experts: three identical weight gradients
+    assert experts[1].grad.shape == experts[1].shape
+    assert torch.equal(experts[1].grad[0], experts[1].grad[2])
+    assert experts[1].grad.abs().sum() > 0
     with pytest.raises(ValueError, match="unknown FLGW path"):
         flgw.flgw_linear(torch.from_numpy(x), torch.from_numpy(p["w"]),
                          torch.from_numpy(p["ig"]), torch.from_numpy(p["og"]),

@@ -551,6 +551,73 @@ def test_training_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=5e-2, atol=5e-2)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_ssm_layer_on_the_card_matches_the_cpu(cuda, dtype, tol):
+    """A Mamba2 layer (FLGW G=4 grouped on its in/out projections) on the
+    card against the CPU: the chunked prefill over several chunks and a
+    decode step from its state, which both write in place."""
+    from repro_torch.configs import registry
+    from repro_torch.core import grouped
+    from repro_torch.core.flgw import FLGWConfig
+    from repro_torch.models import ssm
+    cfg = registry.get_smoke_config("mamba2_1_3b", dtype=dtype,
+                                    d_model=128, ssm_head_dim=32)
+    fl = FLGWConfig(groups=4, path="grouped")
+    p = ssm.ssm_init(torch.Generator().manual_seed(0), cfg, flgw=fl)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 48, cfg.d_model), generator=gen).to(dtype)
+    state = torch.randn((2, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                        generator=gen)
+    conv = torch.randn((2, cfg.conv_width - 1,
+                        cfg.d_inner + 2 * cfg.ssm_state),
+                       generator=gen).to(dtype)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        pd = _to(p, dev)
+        plans = {k: grouped.make_plan(pd[k]["ig"], pd[k]["og"], 1.25)
+                 for k in ("in", "out")}
+        cache = {"state": state.to(dev, copy=True),
+                 "conv": conv.to(dev, copy=True)}
+        with torch.inference_mode():
+            y = ssm.ssm(pd, x.to(dev), cfg, chunk=16, flgw=fl, plans=plans)
+            yd = ssm.ssm(pd, x[:, :1].to(dev), cfg, cache=cache, flgw=fl,
+                         plans=plans)
+        out[dev.type] = [t.float().cpu() for t in (y, yd, cache["state"],
+                                                   cache["conv"])]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,m,n", [(8, 160, 384, 1024), (4, 7, 96, 200)])
+def test_expert_axis_backward_matches_the_2d_one_on_the_card(cuda, dtype, e,
+                                                             c, m, n):
+    """The grouped backward over a leading expert axis (every expert's
+    dx, dW, dIG, dOG at once, torch.bmm over the E·G tiles) against the
+    2-D backward run expert by expert, on the card: cuBLAS may pick other
+    algorithms for E·G tiles than for G, so within a bf16 rounding of the
+    largest value (f32: 1e-5)."""
+    from repro_torch.core import grouped
+    gen = torch.Generator(device=cuda).manual_seed(e * c)
+    x = torch.randn((e, c, m), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((e, m, n), generator=gen, device=cuda).to(dtype)
+    ig = torch.randn((e, m, 4), generator=gen, device=cuda)
+    og = torch.randn((e, 4, n), generator=gen, device=cuda)
+    gy = torch.randn((e, c, n), generator=gen, device=cuda).to(dtype)
+    plan = grouped.make_plan(ig, og, 1.25)
+    got = grouped._grouped_bwd(x, w, ig, og, plan, 1.0, gy)
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    for i in range(e):
+        one = grouped.GroupPlan(*(t[i] for t in plan[:6]))
+        want = grouped._grouped_bwd(x[i], w[i], ig[i], og[i], one, 1.0,
+                                    gy[i])
+        for a, b in zip(got, want):
+            scale = float(b.float().abs().max())
+            assert float((a[i].float() - b.float()).abs().max()) <= \
+                rel * scale
+
+
 def _to(tree, dev):
     """A copy of a tensor tree on ``dev`` (the optimizers write in place)."""
     if isinstance(tree, dict):

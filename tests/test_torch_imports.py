@@ -50,7 +50,9 @@ assert {"repro_torch.marl.async_train",
         "repro_torch.train.state", SHIM, "repro_torch.launch.marl_ic3net",
         "repro_torch.launch.quickstart", "repro_torch.models.moe",
         "repro_torch.configs.mixtral_8x22b",
-        "repro_torch.configs.arctic_480b"} <= set(names)
+        "repro_torch.configs.arctic_480b", "repro_torch.models.ssm",
+        "repro_torch.configs.mamba2_1_3b",
+        "repro_torch.configs.jamba_1_5_large"} <= set(names)
 print(len(names))
 """
 

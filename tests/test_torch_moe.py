@@ -9,8 +9,10 @@ attached), dropless and capacity bounded with tokens dropped; the
 batched compact products bitwise equal to a per-expert loop; the plans
 of an MoE stack bitwise JAX's; ``lm_apply`` logits and aux; the serving
 session's prefill and decode; the full forward against prefill +
-decode; and training: a grouped MoE raises under autograd, a masked
-one's loss and gradients match JAX's.
+decode; and training: the grouped MoE's loss and gradients (the
+backward over the expert axis, bitwise a per-expert loop of the 2-D
+one) and a masked one's match JAX's, and so do jamba-1.5-large's
+grouped loss and gradients with the reference's SSD fault masked.
 
 The same numpy weights (drawn from a seed) go to both packages through
 ``interop``. JAX runs its kernels through their plain reference
@@ -49,7 +51,8 @@ from repro_torch.train import step as step_lib  # noqa: E402
 
 ARCHS = ("mixtral_8x22b", "arctic_480b")
 TARGETS = {"mixtral_8x22b": ("moe", "attn"),
-           "arctic_480b": ("moe", "mlp", "attn")}
+           "arctic_480b": ("moe", "mlp", "attn"),
+           "jamba_1_5_large": ("ssm", "moe", "mlp", "attn")}
 # f32 throughout; sums taken in other orders move values by ~1e-7
 MOE_TOL = dict(rtol=1e-5, atol=1e-5)
 AUX_TOL = dict(rtol=1e-6, atol=1e-6)
@@ -368,16 +371,105 @@ def _loss_batch(cfg):
     return tok, pos, tgt
 
 
+def _ste_fault_mask(params):
+    """{path: (bool mask of ig, bool mask of og)}: True at ig[..., M-1, :]
+    and og[..., :, N-1] of every FLGW layer (each expert's), the entries
+    whose gradient the reference's ``make_plan`` fault (ROADMAP Queue 3)
+    moves."""
+    out = {}
+    for path, p in grouped.iter_flgw_layers(params):
+        ig = np.zeros(p["ig"].shape, bool)
+        og = np.zeros(p["og"].shape, bool)
+        ig[..., -1, :] = True
+        og[..., :, -1] = True
+        out[path] = (ig, og)
+    return out
+
+
+def _compare_grads(grads, jgrads, params, tol):
+    """Every gradient leaf within ``tol``, the STE entries of the
+    reference fault excluded; returns how many FLGW ig/og leaves moved."""
+    fault = _ste_fault_mask(params)
+    flat = jax.tree_util.tree_flatten_with_path(
+        interop.tree_to_numpy(grads))[0]
+    want = jax.tree.leaves(jgrads)
+    assert len(flat) == len(want)
+    moved = 0
+    for (kp, a), b in zip(flat, want):
+        path = tuple(k.key for k in kp)
+        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        assert np.isfinite(a).all() and np.isfinite(b).all(), path
+        keep = np.ones(a.shape, bool)
+        if path[:-1] in fault and path[-1] in ("ig", "og"):
+            keep = ~fault[path[:-1]][0 if path[-1] == "ig" else 1]
+            moved += bool(np.abs(a[keep]).max() > 0)
+        np.testing.assert_allclose(a[keep], b[keep], **tol,
+                                   err_msg="/".join(path))
+    return moved
+
+
 @pytest.mark.parametrize("arch", ARCHS)
-def test_grouped_moe_under_autograd_raises(arch):
-    _, _, cfg, params, _, plans = _build(arch)
+def test_grouped_moe_loss_and_grads_match_jax(arch):
+    """The grouped MoE trains: the expert-axis backward (every expert's
+    dx, dW, dIG and dOG at once) against JAX's vmap of its backward over
+    the experts, each package on its own plans."""
+    jcfg, jparams, cfg, params, jplans, plans = _build(arch)
     tok, pos, tgt = _loss_batch(cfg)
+    jbatch = {"tokens": jnp.asarray(tok), "positions": jnp.asarray(pos),
+              "targets": jnp.asarray(tgt)}
+    (jloss, jmetrics), jgrads = jax.value_and_grad(
+        lambda p: jstep._loss_fn(p, jbatch, jcfg, SEQ, False, ce_chunk=16,
+                                 plans=jplans), has_aux=True)(jparams)
     batch = {"tokens": torch.from_numpy(tok).long(),
              "positions": torch.from_numpy(pos).long(),
              "targets": torch.from_numpy(tgt).long()}
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        step_lib.loss_and_grads(params, batch, cfg, q_chunk=SEQ,
-                                plans=plans)
+    loss, metrics, grads = step_lib.loss_and_grads(
+        params, batch, cfg, q_chunk=SEQ, ce_chunk=16, plans=plans)
+    np.testing.assert_allclose(float(loss), float(jloss), **TOL)
+    np.testing.assert_allclose(float(metrics["aux"]),
+                               float(jmetrics["aux"]), **TOL)
+    # every FLGW layer's ig and og get gradients: the experts' up, gate,
+    # down and attention's q, k, v, o (and arctic's residual MLP)
+    assert _compare_grads(grads, jgrads, params, TOL) == 2 * (
+        7 if cfg.pattern[0].ffn == "moe" else 10)
+
+
+@pytest.mark.parametrize("e,c,m,n,g", [(4, 24, 64, 128, 4), (8, 5, 96, 64, 4),
+                                       (3, 1, 40, 24, 2)])
+def test_expert_axis_backward_equals_a_per_expert_loop(e, c, m, n, g,
+                                                       monkeypatch):
+    """The backward over a leading expert axis is bitwise the 2-D
+    backward run expert by expert: through ``_grouped_bwd`` on a bare
+    plan and on attached compact weights, with dW's flat offsets built a
+    tile at a time, and through ``grouped_apply`` under autograd."""
+    gen = torch.Generator().manual_seed(e * 100 + c)
+    x = torch.randn((e, c, m), generator=gen)
+    w = torch.randn((e, m, n), generator=gen)
+    ig = torch.randn((e, m, g), generator=gen)
+    og = torch.randn((e, g, n), generator=gen)
+    gy = torch.randn((e, c, n), generator=gen)
+    plan = grouped.make_plan(ig, og, 1.25)
+    fused = plan._replace(wc=fm_ops.compact_weights(
+        w, plan.row_ids, plan.col_ids, plan.row_valid, plan.col_valid))
+    got = grouped._grouped_bwd(x, w, ig, og, plan, 1.0, gy)
+    assert torch.equal(got[1], grouped._grouped_bwd(
+        x, w, ig, og, fused, 1.0, gy)[1])
+    leaves = [t.requires_grad_() for t in (x.clone(), w.clone(), ig.clone(),
+                                           og.clone())]
+    fl = FLGWConfig(groups=g, path="grouped")
+    y = grouped.grouped_apply(*leaves, fl, plan=plan)
+    y.backward(gy)
+    monkeypatch.setattr(fm_ops, "_INDEX_BYTES", 1)
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, grouped._grouped_bwd(x, w, ig, og, plan, 1.0, gy)))
+    for i in range(e):
+        one = grouped.GroupPlan(*(t[i] for t in plan[:6]))
+        want = grouped._grouped_bwd(x[i], w[i], ig[i], og[i], one, 1.0,
+                                    gy[i])
+        for a, b, t in zip(got, want, leaves):
+            assert a[i].shape == b.shape
+            assert torch.equal(a[i], b)
+            assert torch.equal(t.grad[i], b)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -408,3 +500,34 @@ def test_masked_moe_loss_and_grads_match_jax(arch):
         if "moe" in jax.tree_util.keystr(kp):
             moved += bool(np.abs(np.asarray(a)).max() > 0)
     assert moved >= 4        # router and the experts' w, ig, og get gradients
+
+
+JAMBA_SEQ = 16
+
+
+def test_jamba_grouped_loss_and_grads_match_jax(monkeypatch):
+    """jamba-1.5-large's smoke config, G=4 grouped on its SSM, MoE, MLP
+    and attention projections: the port's loss and gradients against
+    JAX's with the reference's SSD fault masked (JAX's own are NaN;
+    tests/test_torch_ssm.py pins it)."""
+    from test_torch_ssm import masked_ssd_chunked
+    from repro.models import ssm as jssm
+    monkeypatch.setattr(jssm, "_ssd_chunked", masked_ssd_chunked)
+    jcfg, jparams, cfg, params, jplans, plans = _build("jamba_1_5_large")
+    tok, pos = _tokens(cfg, s=JAMBA_SEQ, seed=4)
+    tgt = np.roll(tok, -1, axis=1)
+    jbatch = {"tokens": jnp.asarray(tok), "positions": jnp.asarray(pos),
+              "targets": jnp.asarray(tgt)}
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: jstep._loss_fn(p, jbatch, jcfg, JAMBA_SEQ, False,
+                                 ce_chunk=16, plans=jplans),
+        has_aux=True)(jparams)
+    batch = {"tokens": torch.from_numpy(tok).long(),
+             "positions": torch.from_numpy(pos).long(),
+             "targets": torch.from_numpy(tgt).long()}
+    loss, _, grads = step_lib.loss_and_grads(
+        params, batch, cfg, q_chunk=JAMBA_SEQ, ce_chunk=16, plans=plans)
+    np.testing.assert_allclose(float(loss), float(jloss), **TOL)
+    # every FLGW layer's ig and og move: 42 projections (ssm in/out,
+    # the experts', the MLPs', attention's)
+    assert _compare_grads(grads, jgrads, params, TOL) == 2 * 42

@@ -291,10 +291,11 @@ def test_train_lm_runs_on_the_cpu_and_logs(capsys):
 
 def test_train_lm_refuses_what_is_not_ported():
     """The banded prefill is ported (tests/test_torch_dense_family.py)
-    and so is the MoE family (tests/test_torch_moe.py); an architecture
-    whose family is not (the SSM's) refuses."""
+    and so are the MoE, SSM and hybrid families (tests/test_torch_moe.py,
+    tests/test_torch_ssm.py); an architecture whose family is not
+    (whisper-large-v3's, audio) refuses."""
     with pytest.raises(KeyError, match="not ported"):
-        launch.train_lm("mamba2_1_3b", steps=1, device="cpu")
-    for arch in ("mamba2_1_3b", "llama3_8b"):
+        launch.train_lm("whisper_large_v3", steps=1, device="cpu")
+    for arch in ("whisper_large_v3", "llama3_8b"):
         with pytest.raises(SystemExit):
             launch.main(["--arch", arch, "--device", "cpu"])
