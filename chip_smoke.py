@@ -8,9 +8,10 @@ The port's paths, each at full width with random weights from a seed:
 * IC3Net's actor half: the registered ``ic3net`` config (hidden 128,
   8 agents) with FLGW G=4 on the grouped path, predator-prey 10x10 with
   30 steps, B=16 environments;
-* serving gemma2-2b: the registered ``gemma2_2b`` config (26 layers,
-  d 2304, vocab 256,000, bf16) with FLGW G=4 on the grouped path for the
-  MLP and attention projections and the flash-attention prefill;
+* serving gemma2-2b: the registered ``gemma2_2b`` config at full width
+  (d 2304, vocab 256,000, bf16), its depth cut from 26 to SERVE_LAYERS
+  layers, with FLGW G=4 on the grouped path for the MLP and attention
+  projections and the flash-attention prefill;
 * training gemma2-2b: the same config with FLGW G=4 on the grouped path
   for the MLP (the launcher's targets), slack 1.25, AdamW, remat, B=4 x
   S=1024 batches of ``SyntheticTokens(seed=0)``;
@@ -50,7 +51,11 @@ The port's paths, each at full width with random weights from a seed:
   out projections), jamba-1.5-large cut to slots 0-1 of its 8-slot
   period served (G=4 on its SSM, MoE, MLP and attention projections),
   mixtral-8x22b at 1 layer trained on the grouped path (the backward
-  over the expert axis).
+  over the expert axis);
+* whisper-large-v3 (the audio encoder-decoder) at full width and depth:
+  32 encoder layers over 1,500 stub frame embeddings, 32 decoder layers
+  with cross-attention, 1.53 B params, served and trained (G=4 on mlp and
+  attn, the cross projections too).
 
 The script
 
@@ -77,8 +82,9 @@ The script
      one encode + rollout (device busy share, kernel device times);
   4. holds ``fused_bmm`` against its plain version at each FLGW projection
      shape of gemma2-2b for 4 and 4096 rows (bf16; one f32 case),
-     ``plan_assign`` at every FLGW side of the served model (13 stacked
-     layers a slot) and at the MLP's sides with 26 layers in a launch, and
+     ``plan_assign`` at every FLGW side of the served model (SERVE_LAYERS
+     / 2 stacked layers a slot) and at the MLP's sides with 26 layers in
+     a launch, and
      ``flash_fwd`` at the prefill's shapes, timing each against its plain
      version and a PyTorch call (with their TFLOP/s, share of the bound
      and route: wgmma or mma.sync on the tensor cores, or FP32 FMA; the
@@ -86,8 +92,10 @@ The script
      than L2); then, with every launch count at 0,
      builds a ``certify`` ServeSession, runs a B=4 x S=1024 prefill, one
      lockstep Engine run (4 requests, prompt 64, gen 32) and one
-     continuous run (16 synthetic requests), and checks which kernels the
-     path launched; replays a 4-layer cut of the same weights on the CPU
+     continuous run (16 synthetic requests), and checks the path's
+     launches exactly (28 ``plan_assign`` an encode, 7 ``fused_bmm`` a
+     layer and forward, one ``flash_fwd`` a layer and prefill); replays a
+     4-layer cut of the same weights on the CPU
      (prefill B=1 x S=256 and 8 greedy decode steps from the card's KV
      cache); and profiles one prefill plus 8 decode steps, checking that
      ``flash_fwd`` ran on the tensor cores and never on FP32 FMA, and
@@ -227,8 +235,28 @@ The script
       shapes; 3 grouped training steps (B=2 x S=1,024; exactly 6
       ``plan_assign`` an encode and 6 ``grouped_bmm_bf16`` a step); the
       expert-axis backward against the 2-D backward expert by expert;
-  15. prints one ``{"kernels": [...]}`` line, the card's name and power
-      limit, and as the last line ``{"ok": true, "device": {...}}``.
+  15. whisper-large-v3 at full width and depth (G=4 on mlp and attn,
+      ``use_flash``): ``plan_assign`` bitwise at its 32 sides,
+      ``fused_bmm`` at one encoder block's 6 and one decoder block's 10
+      projections for 6,000 (B x frames), 1,792 (B x S) and 4 rows and
+      ``grouped_bmm_bf16`` at the same products above 64 rows,
+      ``flash_fwd``/``flash_bwd_dq``/``flash_bwd_dkv`` at B=4,
+      Hq=Hkv=20, D=64, S=448, each timed; with the counts at 0, a
+      certify session, a B=4 x S=448 prefill with 1,500 frames, a decode
+      conditioned on the audio (the first step through
+      ``lm_apply(frames=..., cache=...)``, then 16 through
+      ``session.decode``) and a lockstep Engine run (4 requests, prompt
+      16, gen 16), each sub-path's launches exact; a 2 + 2-layer CPU
+      replay (B=1, S=64, every greedy token equal); a profile of a
+      prefill and of 8 decode steps (the encoder's and the cross
+      attention cores, the cross k/v projections and ``fused_bmm`` as
+      shares of device time; ``fused_bmm`` on wgmma and the streaming
+      kernel in every decode step, never wmma); 3 training steps through
+      ``make_train_step`` with a frames batch (B=4 x S=448, launches
+      exact);
+  16. prints each phase's wall seconds as it ends, then one
+      ``{"kernels": [...]}`` line, the card's name and power limit, and
+      as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Details go to ``chiprun_out/chip_smoke.json``.
@@ -415,7 +443,7 @@ def card_line() -> str:
 # gemma2-27b's d_ff (ROADMAP Queue 1, item 4), one layer, G = 4.
 TILED_SIDE = (1, 36864, 4)
 # gemma2-2b's MLP sides with the two slots' 13 layers in one launch (L = 26),
-# beside the real L = 13 sides the serve phase holds.
+# beside the SERVE_LAYERS / 2 stacked layers a slot the serve phase holds.
 LM26_SIDES = ((26, 2304, 1), (26, 9216, 0), (26, 9216, 1), (26, 2304, 0))
 ASSIGN_KERNEL = {"plan_assign": "plan_assign_kernel"}
 # plan_assign's tiers (threads, items a thread; csrc/plan_encode.cu's
@@ -685,11 +713,14 @@ def check_sort_route(launches: dict, what: str, tiled: int = 0) -> None:
               f"{name} launched {tiled} times on {what} ({launches[name]})")
 
 
-def profile(fn, names) -> dict:
+def profile(fn, names, spans=()) -> dict:
     """torch.profiler over one call of ``fn``: how many kernels the device
     ran, how much of the wall time it was busy, and each port kernel's
     device time (``names``: launch-count symbol -> a substring of its
-    CUDA kernel's name). The profiler's own cost inflates the wall."""
+    CUDA kernel's name); for each of ``spans`` (``record_function``
+    names that ``fn`` opens) the device time of the kernels launched
+    inside it and its share of the busy time. The profiler's own cost
+    inflates the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     torch.cuda.synchronize()
@@ -699,7 +730,8 @@ def profile(fn, names) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and e.name not in spans]
     busy_us = sum(e.time_range.elapsed_us() for e in evs)
     by_name: dict[str, list[float]] = {}
     for e in evs:
@@ -710,11 +742,19 @@ def profile(fn, names) -> dict:
         ours[sym] = dict(launches=len(ds), device_us_total=sum(ds),
                          device_us_mean=sum(ds) / len(ds) if ds else None)
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
+    span_us = {}
+    for e in prof.events():
+        if e.name in spans and e.device_type == DeviceType.CPU:
+            n, us = span_us.get(e.name, (0, 0.0))
+            span_us[e.name] = (n + 1, us + e.device_time_total)
     return dict(
         wall_us=wall_us, device_events=len(evs), device_busy_us=busy_us,
         device_busy_share=busy_us / wall_us if evs else None, kernels=ours,
         top=[dict(name=n[:100], count=len(v), device_us=sum(v))
-             for n, v in top])
+             for n, v in top],
+        spans={name: dict(count=n, device_us=us,
+                          share=us / busy_us if busy_us else None)
+               for name, (n, us) in span_us.items()})
 
 
 def profile_path(model, env, ecfg, names) -> dict:
@@ -744,6 +784,11 @@ def print_profile(what: str, prof: dict) -> None:
 SERVE_FLGW = dict(flgw_groups=4, flgw_path="grouped",
                   flgw_targets=("mlp", "attn"), use_flash=True)
 SERVE_BATCH = 4               # engine capacity (examples/serve.py default)
+# the serve phase's depth, cut from gemma2-2b's 26 layers (a multiple of
+# its 2-slot period, full width) to keep the script inside its time limit
+SERVE_LAYERS = 4
+# a gemma2-2b layer's compact projections: q, k, v, o, up, gate, down
+SERVE_PROJECTIONS = 7
 PROMPT, GEN = 64, 32          # examples/serve.py defaults
 PREFILL_SEQ = 1024
 FUSED_BF16_TOL = dict(rtol=1e-2, atol=1e-3)   # f32 sums, one bf16 rounding
@@ -1032,10 +1077,13 @@ def _to(tree, device, copy: bool = False):
     return tree
 
 
-def _decode_steps(session, cfg, prompt, steps, cache=None, feed=None):
+def _decode_steps(session, cfg, prompt, steps, cache=None, feed=None,
+                  frames=None):
     """Replay ``prompt`` through the decode path (hidden states only) and
-    take ``steps`` greedy steps, or the tokens ``feed`` gives. Returns
-    (per-step logits, tokens fed, the cache just before the steps)."""
+    take ``steps`` greedy steps, or the tokens ``feed`` gives. ``frames``
+    go to the first prompt step (an encoder-decoder's audio: the step
+    writes the encoder's output into the cache). Returns (per-step
+    logits, tokens fed, the cache just before the steps)."""
     params = session.params
     dev = session.device
     run = transformer.lm_apply
@@ -1043,9 +1091,11 @@ def _decode_steps(session, cfg, prompt, steps, cache=None, feed=None):
         if cache is None:
             cache = session.new_cache(1, len(prompt) + steps)
             for t in range(len(prompt) - 1):
+                kw = {} if t or frames is None else {"frames": frames}
                 _, _, cache = run(params, cfg, torch.tensor(
                     [[int(prompt[t])]], device=dev), torch.tensor(
-                    [[t]], device=dev), cache=cache, return_hidden=True)
+                    [[t]], device=dev), cache=cache, return_hidden=True,
+                    **kw)
         # a copy: the steps below write the ring buffers in place
         snap = _to(dict(cache, plans=()), "cpu", copy=True)
         logits, fed = [], [int(prompt[-1])]
@@ -1062,15 +1112,21 @@ def _decode_steps(session, cfg, prompt, steps, cache=None, feed=None):
 
 
 def cpu_replay(cfg, params, blocks: int = 2, seq: int = 256,
-               steps: int = 8) -> dict:
+               steps: int = 8, frames: Optional[torch.Tensor] = None) -> dict:
     """The first ``blocks`` blocks (2: 4 layers of gemma2) of the served
     weights, full width and vocab, on the card and on the CPU: the same
     B=1 x S=``seq`` prefill and ``steps`` greedy decode steps (the CPU's
     from the card's KV cache, fed the card's tokens); logits within
     REPLAY_BF16_TOL, greedy tokens equal wherever the CPU's top-2 margin
-    exceeds that tolerance."""
+    exceeds that tolerance. An encoder-decoder keeps ``blocks`` encoder
+    layers too and takes ``frames`` (1, T, d) on the card: in the
+    prefill and in the first decode step, which writes the encoder's
+    output into the cache the CPU continues from."""
     cfg4 = cfg.with_updates(n_layers=blocks * cfg.period)
     card_p = dict(params, blocks=_blocks_slice(params["blocks"], blocks))
+    if cfg.encoder_layers:
+        cfg4 = cfg4.with_updates(encoder_layers=blocks)
+        card_p["encoder"] = _blocks_slice(params["encoder"], blocks)
     cpu_p = _to(card_p, "cpu")
     card = ServeSession(cfg4, card_p)
     cpu = ServeSession(cfg4, cpu_p)
@@ -1081,6 +1137,8 @@ def cpu_replay(cfg, params, blocks: int = 2, seq: int = 256,
     prompt = np.random.default_rng(SEED + 5).integers(0, cfg.vocab, seq)
     batch = {"tokens": torch.as_tensor(prompt[None]),
              "positions": torch.arange(seq)[None]}
+    if frames is not None:
+        batch["frames"] = frames.cpu()
     t0 = time.perf_counter()
     want = cpu.prefill(batch)[0, 0]
     cpu_prefill_s = time.perf_counter() - t0
@@ -1089,7 +1147,8 @@ def cpu_replay(cfg, params, blocks: int = 2, seq: int = 256,
     check(torch.allclose(got, want, **REPLAY_BF16_TOL),
           f"replay prefill logits within {REPLAY_BF16_TOL} (max abs err "
           f"{errs['prefill']})")
-    card_lg, fed, snap = _decode_steps(card, cfg4, prompt, steps)
+    card_lg, fed, snap = _decode_steps(card, cfg4, prompt, steps,
+                                       frames=frames)
     cache = dict(snap, plans=cpu.new_cache(1, 1)["plans"])
     t0 = time.perf_counter()
     cpu_lg, _, _ = _decode_steps(cpu, cfg4, prompt, steps, cache=cache,
@@ -1223,17 +1282,21 @@ def check_bmm_bf16_kernel(cfg, device) -> list[dict]:
     return rows
 
 
-def check_flash_bwd_kernels(cfg, device) -> list[dict]:
+def check_flash_bwd_kernels(cfg, device,
+                            cases=((TRAIN_SEQ, 4096), (TRAIN_SEQ, 0),
+                                   (512, 128)),
+                            batch: int = TRAIN_BATCH) -> list[dict]:
     """flash_bwd_dq and flash_bwd_dkv against the plain backward (f32
-    math) at the training attention's shapes, bf16, softcap 50; each
-    kernel timed alone (dq also at softcap 0), the plain backward and
-    SDPA's backward (softcap 0, where its causal mask is the same) for all
-    three gradients."""
+    math) at the training attention's shapes (``cases``: (S, window) at
+    ``cfg``'s heads, head dim and softcap, ``batch`` sequences), bf16;
+    each kernel timed alone (dq also at softcap 0), the plain backward
+    and SDPA's backward (softcap 0, where its causal mask is the same)
+    for all three gradients."""
     import torch.nn.functional as F
-    b, hq, hkv, d = TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, hq, hkv, d = batch, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     rows = []
-    for s, window in ((TRAIN_SEQ, 4096), (TRAIN_SEQ, 0), (512, 128)):
+    for s, window in cases:
         q, do = (torch.randn((b, hq, s, d), generator=gen, device=device)
                  .bfloat16() for _ in range(2))
         k, v = (torch.randn((b, hkv, s, d), generator=gen, device=device)
@@ -1260,6 +1323,7 @@ def check_flash_bwd_kernels(cfg, device) -> list[dict]:
         dq_b, dq_by = bound_ms(dq_io, 6 * d * pairs, BF16_OPS_PER_S)
         dkv_b, dkv_by = bound_ms(dkv_io, 8 * d * pairs, BF16_OPS_PER_S)
         row = dict(
+            b=b, hq=hq, hkv=hkv, d=d, softcap=cfg.attn_softcap,
             s=s, window=window, max_abs_err=errs,
             dq_ms=time_ms(lambda: fa_ops.DQ(device, *ptrs, dq.data_ptr(),
                                             *args), 10, 2),
@@ -3119,12 +3183,13 @@ def _ssm_cfg(arch: str, targets, **kw):
         k: v for k, v in SERVE_FLGW.items() if k != "flgw_targets"}, **kw)
 
 
-def _block_projs(params, plans, names):
+def _block_projs(params, plans, names, stack: str = "blocks"):
     """``(label, w (1, M, N) or (E, M, N), plan)`` of block 0's FLGW
-    projections at ``names`` (paths of (slot, part, name)); a single
-    projection gets a leading axis of 1."""
-    blk = transformer._index(params["blocks"], 0)
-    bpl = transformer._index(plans["blocks"], 0)
+    projections at ``names`` (paths of (slot, part, name)) in ``stack``
+    (the decoder's ``blocks`` or an ``encoder``, whose labels it
+    prefixes); a single projection gets a leading axis of 1."""
+    blk = transformer._index(params[stack], 0)
+    bpl = transformer._index(plans[stack], 0)
     out = []
     for path in names:
         p, pl = blk, bpl
@@ -3133,7 +3198,8 @@ def _block_projs(params, plans, names):
         w = p["w"]
         if w.dim() == 2:
             w, pl = w[None], grouped.GroupPlan(*(t[None] for t in pl))
-        out.append(("/".join(path), w, pl))
+        label = "/".join(path if stack == "blocks" else (stack, *path))
+        out.append((label, w, pl))
     return out
 
 
@@ -3161,11 +3227,10 @@ def time_ssd_scan(cfg, b: int, s: int, device) -> dict:
 
 def profile_ssd_prefill(session, inputs, names) -> dict:
     """The profiler over one prefill with each SSD scan inside a
-    ``record_function`` span: device busy time, the kernels' device time
-    that the spans' ops launched (the scan's), and each of ``names``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, record_function
-    from torch.profiler import profile as torch_profile
+    ``record_function`` span (SSD_SPAN): device busy time, the device
+    time of the kernels the spans' ops launched (the scan's), and each
+    of ``names``."""
+    from torch.profiler import record_function
     from repro_torch.models import ssm as ssm_mod
     orig = ssm_mod._ssd_chunked
 
@@ -3175,30 +3240,9 @@ def profile_ssd_prefill(session, inputs, names) -> dict:
     ssm_mod._ssd_chunked = traced
     try:
         session.prefill(inputs)
-        torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            session.prefill(inputs)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        return profile(lambda: session.prefill(inputs), names, (SSD_SPAN,))
     finally:
         ssm_mod._ssd_chunked = orig
-    evs = prof.events()
-    kern = [e for e in evs if e.device_type == DeviceType.CUDA
-            and e.name != SSD_SPAN]
-    busy = sum(e.time_range.elapsed_us() for e in kern)
-    spans = [e for e in evs if e.name == SSD_SPAN
-             and e.device_type == DeviceType.CPU]
-    ssd = sum(getattr(e, "device_time_total", None)
-              or getattr(e, "cuda_time_total", 0) for e in spans)
-    ours = {sym: sum(e.time_range.elapsed_us() for e in kern if key in e.name)
-            for sym, key in names.items()}
-    return dict(wall_us=wall_us, device_busy_us=busy,
-                device_busy_share=busy / wall_us if kern else None,
-                ssd_spans=len(spans), ssd_device_us=ssd or None,
-                ssd_share=ssd / busy if ssd and busy else None,
-                kernels_device_us=ours)
 
 
 def _train_launches(launches: dict, what: str, sides: int, bmm: int,
@@ -3310,9 +3354,9 @@ def run_mamba2(kernels, device, card: str) -> dict:
           f"S={SSM_SEQ} (x {cfg.n_layers} layers = "
           f"{scan['ms'] * cfg.n_layers:.1f} ms); prefill profile: busy "
           f"{prof['device_busy_us'] / 1e3:.1f} of {prof['wall_us'] / 1e3:.1f}"
-          f" ms, the SSD spans' kernels {prof['ssd_device_us']} us (share "
-          f"{prof['ssd_share']}), fused_bmm "
-          f"{prof['kernels_device_us']['fused_bmm']:.0f} us", flush=True)
+          f" ms, the SSD spans' kernels {prof['spans'][SSD_SPAN]} us, "
+          f"fused_bmm {prof['kernels']['fused_bmm']['device_us_total']:.0f} "
+          "us", flush=True)
     del session, inputs, params
     plan_cache.clear()
     gc.collect()
@@ -3675,6 +3719,438 @@ def family_kernel_rows(fam, pre) -> dict:
             for r in f["fused_rows"] if r["proj"] == "down"])
 
 
+# ---------------------------------------------------------------------------
+# whisper-large-v3: the encoder stack and cross-attention
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper_large_v3"
+WHISPER_SEQ = 448             # whisper's published decoder context
+WHISPER_PROMPT, WHISPER_GEN = 16, 16     # the lockstep Engine run
+WHISPER_DECODE_STEPS = 16     # session.decode steps after the frames step
+# compact projections a layer: the encoder's q, k, v, o, up, down; the
+# decoder's self-attention q, k, v, o, cross-attention q, k, v, o, up,
+# down (the MLP is not gated)
+WHISPER_ENC_PROJS, WHISPER_DEC_PROJS = 6, 10
+WHISPER_REPLAY_BLOCKS, WHISPER_REPLAY_SEQ = 2, 64     # 2 + 2 layers, B=1
+WHISPER_PROFILE_STEPS = 8
+WHISPER_SPANS = ("encoder attention core", "cross attention core",
+                 "cross k/v projection")
+
+
+def _whisper_frames(cfg, b: int, device, seed: int) -> torch.Tensor:
+    """Stub frame embeddings (b, num_frames, d_model) in ``cfg.dtype``
+    from a seeded generator: the front end the JAX package stubs too."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((b, cfg.num_frames, cfg.d_model), generator=gen,
+                       device=device).to(cfg.dtype)
+
+
+@contextlib.contextmanager
+def whisper_spans():
+    """Each attention core (``models.attention._attend``) of the encoder's
+    self-attention and of the cross-attention, and each cross layer's k
+    and v projections of the encoder output, inside a ``record_function``
+    span named by WHISPER_SPANS."""
+    from torch.profiler import record_function
+    from repro_torch.models import attention as attn_mod
+    orig = (attn_mod.attention, attn_mod._attend, attn_mod.proj)
+    cur = {"span": None, "kv_x": None}
+
+    def attention(p, x, positions, cfg, **kw):
+        kv_x = kw.get("kv_x")
+        cur["kv_x"] = kv_x
+        cur["span"] = (WHISPER_SPANS[1] if kv_x is not None else
+                       None if kw.get("causal", True) else WHISPER_SPANS[0])
+        try:
+            return orig[0](p, x, positions, cfg, **kw)
+        finally:
+            cur["span"] = cur["kv_x"] = None
+
+    def attend(*a, **kw):
+        if cur["span"] is None:
+            return orig[1](*a, **kw)
+        with record_function(cur["span"]):
+            return orig[1](*a, **kw)
+
+    def proj(p, x, *a, **kw):
+        if cur["kv_x"] is None or x is not cur["kv_x"]:
+            return orig[2](p, x, *a, **kw)
+        with record_function(WHISPER_SPANS[2]):
+            return orig[2](p, x, *a, **kw)
+    attn_mod.attention, attn_mod._attend, attn_mod.proj = \
+        attention, attend, proj
+    try:
+        yield
+    finally:
+        attn_mod.attention, attn_mod._attend, attn_mod.proj = orig
+
+
+def _fused_share(prof) -> float:
+    k = prof["kernels"]
+    us = sum(k[f"fused_bmm {r}"]["device_us_total"] for r in (
+        "on wgmma", "streaming", "on wmma", "split-K sum"))
+    return us / prof["device_busy_us"] if prof["device_busy_us"] else None
+
+
+def run_whisper_serve(cfg, params, kernels, card: str) -> dict:
+    """The serving paths with every launch count at 0 first: a certify
+    session (one encode), a B=4 x S=448 prefill with frames (3 times), a
+    decode conditioned on the audio (its first step through
+    ``lm_apply(frames=..., cache=...)``, then WHISPER_DECODE_STEPS steps
+    through ``session.decode``) and one lockstep Engine run (4 requests,
+    prompt 16, gen 16; it decodes against the cache's zero
+    ``encoder_out``, as the reference's does), each sub-path's launches
+    exact: 32 plan_assign an encode (16 projections x 2 sides, L = 32),
+    512 fused_bmm a forward with frames (32 x 6 encoder + 32 x 10
+    decoder), 320 a forward from the cache, 32 flash_fwd a prefill."""
+    dev = params["embed"]["embedding"].device
+    b, s = SERVE_BATCH, WHISPER_SEQ
+    sides = 2 * (WHISPER_ENC_PROJS + WHISPER_DEC_PROJS)
+    with_frames = (WHISPER_ENC_PROJS * cfg.encoder_layers
+                   + WHISPER_DEC_PROJS * cfg.n_layers)
+    from_cache = WHISPER_DEC_PROJS * cfg.n_layers
+    plan_cache.clear()
+    _zero(kernels)
+    calls, restore = _count_forwards()
+    sub, last = {}, dict({k.symbol: 0 for k in kernels}, forwards=0)
+
+    def since(name):
+        """The launches and forwards since the last sub-path."""
+        nonlocal last
+        now = dict(_launches(kernels), forwards=calls[0])
+        sub[name] = {k: now[k] - last[k] for k in now}
+        last = now
+        return sub[name]
+
+    try:
+        t0 = time.perf_counter()
+        session = ServeSession(cfg, params, plan_policy="certify")
+        torch.cuda.synchronize()
+        session_s = time.perf_counter() - t0
+        encodes = plan_cache.stats()["encodes"]
+        lc = since("session")
+        check(encodes == 1 and lc["plan_assign"] == sides,
+              f"whisper session: one encode of exactly {sides} plan_assign "
+              f"launches ({encodes} encodes; {lc})")
+
+        rng = torch.Generator(device=dev).manual_seed(SEED + 16)
+        tok = torch.randint(0, cfg.vocab, (b, s), generator=rng, device=dev)
+        inputs = {"tokens": tok, "positions": torch.arange(
+            s, device=dev).expand(b, s),
+            "frames": _whisper_frames(cfg, b, dev, SEED + 17)}
+        prefill_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = session.prefill(inputs)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        check(logits.shape == (b, 1, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              "whisper prefill logits finite, (B, 1, vocab)")
+        lc = since("prefill")
+        check(lc["forwards"] == 3 and lc["fused_bmm"] == 3 * with_frames
+              and lc["flash_fwd"] == 3 * cfg.n_layers
+              and lc["plan_assign"] == 0,
+              f"whisper prefill with frames: exactly {with_frames} fused_bmm "
+              f"and {cfg.n_layers} flash_fwd a forward, no encode ({lc})")
+
+        # a decode conditioned on the audio: the first step takes the
+        # frames (the encoder runs and its output enters the cache)
+        cache = session.new_cache(
+            b, 1 + WHISPER_DECODE_STEPS + WHISPER_PROFILE_STEPS)
+        check(not cache["encoder_out"].any(),
+              "a new cache's encoder_out is zeros")
+        nxt, step_s = tok[:, :1], []
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _, cache = transformer.lm_apply(
+                params, cfg, nxt, session.greedy_positions(b, 0),
+                cache=cache, frames=inputs["frames"])
+            nxt = lg[:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        check(bool(cache["encoder_out"].abs().amax() > 0),
+              "the frames step wrote the encoder output into the cache")
+        lc = since("frames_step")
+        check(lc["forwards"] == 1 and lc["fused_bmm"] == with_frames
+              and lc["flash_fwd"] == 0,
+              f"whisper frames step: exactly {with_frames} fused_bmm, no "
+              f"flash ({lc})")
+        tokens = [nxt]
+        for t in range(1, 1 + WHISPER_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nxt, cache = session.decode(cache, nxt,
+                                        session.greedy_positions(b, t))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            tokens.append(nxt)
+        gen = torch.cat(tokens, 1)
+        check(gen.shape == (b, 1 + WHISPER_DECODE_STEPS)
+              and bool(((gen >= 0) & (gen < cfg.vocab)).all()),
+              "the audio-conditioned decode's tokens are valid ids")
+        lc = since("decode")
+        check(lc["forwards"] == WHISPER_DECODE_STEPS
+              and lc["fused_bmm"] == from_cache * WHISPER_DECODE_STEPS
+              and lc["flash_fwd"] == 0,
+              f"whisper decode from the cache: exactly {from_cache} "
+              f"fused_bmm a step, no flash ({lc})")
+
+        prompts = np.random.default_rng(SEED + 18).integers(
+            0, cfg.vocab, (b, WHISPER_PROMPT)).astype(np.int32)
+        reqs = [Request(rid=i, prompt=prompts[i],
+                        max_new_tokens=WHISPER_GEN) for i in range(b)]
+        lock = Engine(session, b, max_seq_for(reqs),
+                      admission="lockstep").run(reqs)
+        check(lock.generated_tokens == b * WHISPER_GEN
+              and all(0 <= t < cfg.vocab for r in lock.records
+                      for t in r.tokens),
+              "whisper lockstep: every request completed with valid ids")
+        lc = since("lockstep")
+        check(lc["fused_bmm"] == from_cache * lc["forwards"]
+              and lc["flash_fwd"] == 0 and lc["plan_assign"] == 0,
+              f"whisper lockstep: exactly {from_cache} fused_bmm a step "
+              f"({lc})")
+    finally:
+        restore()
+    launches = _launches(kernels)
+    check_sort_route(launches, "the whisper serving path")
+    for name in ("grouped_bmm_f32", "grouped_bmm_bf16", "flash_bwd_dq",
+                 "flash_bwd_dkv", "osel_encode"):
+        check(launches[name] == 0, f"{name} not launched on the whisper "
+                                   "serving path")
+    step_ms = statistics.median(step_s) * 1e3
+    out = dict(
+        launches=launches, by_subpath=sub, forwards=calls[0],
+        session_s=session_s, prefill_s=prefill_s,
+        prefill_ms=statistics.median(prefill_s) * 1e3,
+        prefill_tokens_per_s=b * s / statistics.median(prefill_s),
+        prefill_frames_per_s=b * cfg.num_frames
+        / statistics.median(prefill_s),
+        frames_step_ms=first_s * 1e3, decode_step_ms=step_ms,
+        decode_tokens_per_s=b / (step_ms / 1e3), lockstep=lock.summary(),
+        encodes=encodes)
+    lk = lock.summary()
+    print(f"phase 15 {WHISPER} serving on {card}: launches {launches} over "
+          f"{calls[0]} forwards; prefill B={b} x S={s} + {cfg.num_frames} "
+          f"frames {out['prefill_ms']:.1f} ms "
+          f"({out['prefill_tokens_per_s']:.0f} tokens/s); frames step "
+          f"{out['frames_step_ms']:.1f} ms, then {step_ms:.1f} ms a decode "
+          f"step ({out['decode_tokens_per_s']:.1f} tokens/s); lockstep "
+          f"{lk['tokens_per_s']:.1f} tokens/s, p50 {lk['p50_s']:.3f} s",
+          flush=True)
+    return dict(out, session=session, inputs=inputs, cache=cache)
+
+
+def profile_whisper(session, inputs, cache) -> dict:
+    """The profiler over one prefill with frames, then over
+    WHISPER_PROFILE_STEPS decode steps from the audio cache, each with
+    WHISPER_SPANS: the encoder's and the cross layers' attention cores
+    (plain PyTorch in both packages) and the cross k/v projections, each
+    as a share of device time beside fused_bmm's. Checks the routes:
+    flash_fwd on wgmma only; fused_bmm on wgmma only in the prefill, and
+    on both wgmma (the cross k/v projections, B x 1,500 rows) and the
+    streaming kernel (the rest, B rows) in every decode step, never on
+    wmma."""
+    b = inputs["tokens"].shape[0]
+    pos0 = int(cache["pos"])
+
+    def decode():
+        nonlocal cache
+        nxt = inputs["tokens"][:, :1]
+        for t in range(WHISPER_PROFILE_STEPS):
+            nxt, cache = session.decode(
+                cache, nxt, session.greedy_positions(b, pos0 + t))
+    with whisper_spans():
+        pre = profile(lambda: session.prefill(inputs), SERVE_KERNELS,
+                      WHISPER_SPANS)
+        dec = profile(decode, SERVE_KERNELS, WHISPER_SPANS)
+    check_flash_routes(pre, "the whisper prefill profile", ("flash_fwd",))
+    kp, kd = pre["kernels"], dec["kernels"]
+    check(kp["fused_bmm on wgmma"]["launches"] > 0
+          and kp["fused_bmm streaming"]["launches"] == 0
+          and kp["fused_bmm on wmma"]["launches"] == 0,
+          f"the whisper prefill profile: fused_bmm on wgmma only ({kp})")
+    check(kd["fused_bmm on wgmma"]["launches"] > 0
+          and kd["fused_bmm streaming"]["launches"] > 0
+          and kd["fused_bmm on wmma"]["launches"] == 0
+          and kd["flash_fwd"]["launches"] == 0,
+          f"the whisper decode profile: fused_bmm on wgmma (cross k/v) and "
+          f"streaming, never wmma; no flash ({kd})")
+    for what, pr in (("prefill", pre), ("decode", dec)):
+        check(all(pr["spans"].get(n, {}).get("count") for n in
+                  WHISPER_SPANS[1:]),
+              f"the whisper {what} profile saw every cross span "
+              f"({pr['spans']})")
+    check(pre["spans"].get(WHISPER_SPANS[0], {}).get("count"),
+          f"the whisper prefill profile saw the encoder's attention core "
+          f"({pre['spans']})")
+    for pr in (pre, dec):
+        pr["fused_bmm_share"] = _fused_share(pr)
+    return dict(prefill=pre, decode=dec, decode_steps=WHISPER_PROFILE_STEPS)
+
+
+def run_whisper_train(kernels, device, cfg) -> dict:
+    """3 steps through ``make_train_step`` (AdamW, remat, ``use_flash``,
+    G=4 grouped on mlp and attn) on B=4 x S=448 batches of
+    ``SyntheticTokens`` with stub frames, the launch counts at 0 before
+    the state's init: exactly 32 plan_assign an encode (init and each
+    step), 1,024 grouped_bmm_bf16 a step (the 512 projections of a
+    forward, again in the remat replay), 64 flash_fwd, 32 flash_bwd_dq
+    and 32 flash_bwd_dkv a step (the decoder's self-attention; the
+    encoder's and the cross cores are plain)."""
+    b, s = SERVE_BATCH, WHISPER_SEQ
+    sides = 2 * (WHISPER_ENC_PROJS + WHISPER_DEC_PROJS)
+    fwd = (WHISPER_ENC_PROJS * cfg.encoder_layers
+           + WHISPER_DEC_PROJS * cfg.n_layers)
+    torch.cuda.reset_peak_memory_stats(device)
+    _zero(kernels)
+    state = state_lib.init_state(
+        torch.Generator(device=device).manual_seed(SEED), cfg)
+    step = step_lib.make_train_step(cfg)
+    ds = SyntheticTokens(cfg.vocab, b, s, seed=SEED)
+    out = dict(loss=[], grad_norm=[], step_s=[])
+    for i in range(TRAIN_STEPS):
+        batch = dict(ds.tensors_at(i, device),
+                     frames=_whisper_frames(cfg, b, device, SEED + 20 + i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    la = _launches(kernels)
+    check(all(np.isfinite(out["loss"])) and all(np.isfinite(out["grad_norm"])),
+          f"whisper training: every loss and grad norm finite ({out})")
+    steps = TRAIN_STEPS
+    check(la["plan_assign"] == sides * (steps + 1)
+          and la["grouped_bmm_bf16"] == 2 * fwd * steps
+          and la["flash_fwd"] == 2 * cfg.n_layers * steps
+          and la["flash_bwd_dq"] == cfg.n_layers * steps
+          and la["flash_bwd_dkv"] == cfg.n_layers * steps,
+          f"whisper training launches exact: plan_assign {sides} an encode, "
+          f"grouped_bmm_bf16 {2 * fwd}, flash_fwd {2 * cfg.n_layers}, dq and "
+          f"dkv {cfg.n_layers} a step ({la})")
+    check_sort_route(la, "whisper training")
+    for name in ("fused_bmm", "grouped_bmm_f32", "osel_encode"):
+        check(la[name] == 0, f"{name} not launched in whisper training")
+    out.update(launches=la, batch=b, seq=s, frames=cfg.num_frames,
+               peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+               step_ms=statistics.median(out["step_s"][1:]) * 1e3)
+    out["tokens_per_s"] = b * s / (out["step_ms"] / 1e3)
+    out["frames_per_s"] = b * cfg.num_frames / (out["step_ms"] / 1e3)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_whisper(kernels, device, card: str) -> dict:
+    """Phase 15: whisper-large-v3 at full width and depth (32 encoder
+    layers over 1,500 stub frames, 32 decoder layers), FLGW G=4 grouped
+    on mlp and attn (the cross projections too), ``use_flash``:
+    plan_assign bitwise at its 32 sides; fused_bmm at one encoder block's
+    6 and one decoder block's 10 projections for 6,000 (B x frames),
+    1,792 (B x S) and 4 rows, grouped_bmm_bf16 at the same products above
+    64 rows; flash_fwd, flash_bwd_dq and flash_bwd_dkv at B=4, Hq=Hkv=20,
+    D=64, S=448, causal; then the serving paths with exact launches, a
+    2 + 2-layer CPU replay, a profile, and 3 training steps."""
+    cfg = registry.get_config(WHISPER, **SERVE_FLGW)
+    slack = flgw.FLGWConfig().capacity_slack
+    t0 = time.perf_counter()
+    params = serve_params(cfg, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    sides = check_assign_sides(params, slack)
+    n_sides = 2 * (WHISPER_ENC_PROJS + WHISPER_DEC_PROJS)
+    check(not sides["tiled"] and len(sides["sort"]) == n_sides,
+          f"whisper: every one of its {n_sides} sides on plan_assign "
+          f"({len(sides['sort'])}, {len(sides['tiled'])} past the limit)")
+    with torch.inference_mode():
+        state = planenc.attach_compact(transformer.encode_plans(params, cfg),
+                                       params)
+    mlp = [("slot0", "ffn", n) for n in ("up", "down")]
+    projs = (_block_projs(params, state.plans, [
+                 *(("slot0", "mixer", n) for n in "qkvo"), *mlp],
+                 stack="encoder")
+             + _block_projs(params, state.plans, [
+                 *(("slot0", part, n) for part in ("mixer", "cross")
+                   for n in "qkvo"), *mlp]))
+    check(len(projs) == WHISPER_ENC_PROJS + WHISPER_DEC_PROJS,
+          f"whisper: {len(projs)} compact projections a block pair")
+    rows = (SERVE_BATCH * cfg.num_frames, SERVE_BATCH * WHISPER_SEQ,
+            SERVE_BATCH)
+    kern_rows = check_compact_kernels(projs, cfg, rows, bmm=True)
+    for r in kern_rows:
+        check(r["route"] != "wmma",
+              f"whisper {r['proj']} at {r['rows']} rows: fused_bmm on wgmma "
+              f"or the streaming kernel ({r['route']})")
+    del state, projs
+    torch.cuda.empty_cache()
+    flash_rows = check_flash_kernel(cfg, device, ((WHISPER_SEQ, 0),),
+                                    SERVE_BATCH)
+    bwd_rows = check_flash_bwd_kernels(cfg, device, ((WHISPER_SEQ, 0),),
+                                       SERVE_BATCH)
+    _print_family_kernels(WHISPER, sides, [], flash_rows)
+    _print_compact_rows(WHISPER, kern_rows)
+    for r in bwd_rows:
+        print(f"  flash_bwd {WHISPER} B={r['b']} Hq={r['hq']} Hkv={r['hkv']} "
+              f"D={r['d']} S={r['s']}: dq {r['dq_ms']:.4f} ms "
+              f"({r['dq_bound_share']:.3f} of the bound "
+              f"{r['dq_bound_ms']:.4f}), dkv {r['dkv_ms']:.4f} ms "
+              f"({r['dkv_bound_share']:.3f} of the bound "
+              f"{r['dkv_bound_ms']:.4f}), plain {r['plain_ms']:.4f}, sdpa "
+              f"bwd {r['library_ms']}; max abs err {r['max_abs_err']}",
+              flush=True)
+
+    sv = run_whisper_serve(cfg, params, kernels, card)
+    session, inputs, cache = sv.pop("session"), sv.pop("inputs"), \
+        sv.pop("cache")
+    rp = cpu_replay(cfg, params, blocks=WHISPER_REPLAY_BLOCKS,
+                    seq=WHISPER_REPLAY_SEQ, steps=REPLAY_STEPS,
+                    frames=_whisper_frames(cfg, 1, device, SEED + 19))
+    check(rp["equal_tokens"] == REPLAY_STEPS,
+          f"whisper CPU replay: every greedy token equal ({rp})")
+    print(f"  CPU replay ({rp['layers']} + {WHISPER_REPLAY_BLOCKS} layers, "
+          f"{cfg.num_frames} frames, S={WHISPER_REPLAY_SEQ}): max abs err "
+          f"{rp['max_abs_err']}, {rp['equal_tokens']}/{REPLAY_STEPS} greedy "
+          f"tokens equal", flush=True)
+    prof = profile_whisper(session, inputs, cache)
+    for what in ("prefill", "decode"):
+        pr = prof[what]
+        print(f"  whisper {what} profile: busy "
+              f"{pr['device_busy_us'] / 1e3:.1f} of {pr['wall_us'] / 1e3:.1f} "
+              f"ms; fused_bmm share {pr['fused_bmm_share']}; spans "
+              + ", ".join(f"{n} {v['device_us'] / 1e3:.2f} ms (share "
+                          f"{v['share']}, {v['count']} spans)"
+                          for n, v in pr["spans"].items()), flush=True)
+    del session, inputs, cache, params
+    plan_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tr = run_whisper_train(kernels, device, cfg)
+    print(f"phase 15 {WHISPER} training (B={tr['batch']} x S={tr['seq']} + "
+          f"{tr['frames']} frames, {TRAIN_STEPS} steps) on {card}: "
+          f"{tr['step_ms']:.1f} ms/step ({tr['tokens_per_s']:.0f} tokens/s, "
+          f"{tr['frames_per_s']:.0f} frames/s), losses {tr['loss']}, peak "
+          f"{tr['peak_gb']:.1f} GB; launches {tr['launches']}", flush=True)
+    return dict(params=n_params, param_count=param_count(cfg),
+                init_s=init_s, assign=sides, kernel_rows=kern_rows,
+                flash_rows=flash_rows, bwd_rows=bwd_rows, serve=sv,
+                replay=rp, profile=prof, train=tr)
+
+
+def whisper_launches(wh, sym: str) -> dict:
+    """One kernel's launches on each path of phase 15."""
+    return {"whisper_large_v3_serve": wh["serve"]["launches"][sym],
+            "whisper_large_v3_train": wh["train"]["launches"][sym]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3686,10 +4162,21 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     gc.callbacks.append(_time_full_gcs)
 
+    phase_s, t_phase = {}, [time.perf_counter()]
+
+    def phase_done(n: int, what: str) -> None:
+        """Print and record phase ``n``'s wall seconds."""
+        now = time.perf_counter()
+        phase_s[f"{n} {what}"] = now - t_phase[0]
+        print(f"phase {n} ({what}) took {now - t_phase[0]:.1f} s; the "
+              f"script so far {now - t_script:.1f} s", flush=True)
+        t_phase[0] = now
+
     t0 = time.perf_counter()
     logs = _build.build()
     build_s = time.perf_counter() - t0
     print(f"built {sorted(logs)} in {build_s:.2f} s", flush=True)
+    phase_done(1, "build")
     ptxas = {name: ptxas_usage(log) for name, log in logs.items()}
     for name, usage in ptxas.items():
         for kernel, u in usage.items():
@@ -3744,6 +4231,7 @@ def main() -> int:
           "encode kernels have no single PyTorch call to time as a library "
           "yardstick (library_ms null), grouped_bmm_f32 has torch.bmm",
           flush=True)
+    phase_done(2, "IC3Net kernels")
 
     sl = run_slice(model, cpu_model, env, ecfg, all_kernels)
     print(f"slice 1: launches {sl['launches']}, encode {sl['encode_ms']:.3f} "
@@ -3754,14 +4242,17 @@ def main() -> int:
     print_profile("encode + rollout", prof)
     ic3_params = model.params        # the OSEL phase's IC3Net layers
     del model, cpu_model, plans
+    phase_done(3, "IC3Net actor")
 
     # -- path 2: serving gemma2-2b -------------------------------------------
     dev = resolve_device()
-    scfg = registry.get_config("gemma2_2b", **SERVE_FLGW)
+    scfg = registry.get_config("gemma2_2b", n_layers=SERVE_LAYERS,
+                               **SERVE_FLGW)
     params = serve_params(scfg, dev)
     n_params = sum(t.numel() for t in _leaves(params))
-    # every FLGW side of the served model (L = 13 stacked layers a slot),
-    # then the MLP's sides with both slots' layers in one launch (L = 26)
+    # every FLGW side of the served model (L = SERVE_LAYERS / 2 stacked
+    # layers a slot), then the MLP's sides with both slots' 13 layers in
+    # one launch (L = 26)
     lm_slack = flgw.FLGWConfig().capacity_slack   # transformer.encode_plans'
     gen26 = torch.Generator(device=dev).manual_seed(SEED + 6)
     lm_assign_rows = check_assign_kernel(
@@ -3797,11 +4288,26 @@ def main() -> int:
           f"{max(r['max_abs_err'] for r in fused_rows):.3g}), flash_fwd at "
           f"{len(flash_rows)} (max abs err "
           f"{max(r['max_abs_err'] for r in flash_rows):.3g})", flush=True)
-    sv = run_serve(scfg, params, all_kernels)
+    calls, restore = _count_forwards()
+    try:
+        sv = run_serve(scfg, params, all_kernels)
+    finally:
+        restore()
     session = sv.pop("session")
     del sv["inputs"], sv["logits"]
+    lc = sv["launches"]
+    check(lc["plan_assign"] == 2 * SERVE_PROJECTIONS * scfg.period
+          * sv["encodes"]
+          and lc["fused_bmm"] == SERVE_PROJECTIONS * scfg.n_layers * calls[0]
+          and lc["flash_fwd"] == scfg.n_layers * len(sv["prefill_s"]),
+          f"gemma2-2b serving launches exact: plan_assign "
+          f"{2 * SERVE_PROJECTIONS * scfg.period} an encode ({sv['encodes']} "
+          f"encodes), fused_bmm {SERVE_PROJECTIONS} a layer and forward "
+          f"({calls[0]} forwards), flash_fwd one a layer and prefill ({lc})")
+    sv["forwards"] = calls[0]
     lk, ct = sv["lockstep"], sv["continuous"]
-    print(f"slice 2: launches {sv['launches']}; prefill B={SERVE_BATCH} x "
+    print(f"slice 2 ({scfg.n_layers} of 26 layers): launches "
+          f"{sv['launches']} over {calls[0]} forwards; prefill B={SERVE_BATCH} x "
           f"S={PREFILL_SEQ} {sv['prefill_ms']:.1f} ms "
           f"({sv['prefill_tokens_per_s']:.0f} tokens/s); lockstep "
           f"{lk['tokens_per_s']:.1f} tokens/s, p50 {lk['p50_s']:.3f} s, "
@@ -3820,6 +4326,7 @@ def main() -> int:
     del session, params
     plan_cache.clear()
     torch.cuda.empty_cache()
+    phase_done(4, "gemma2-2b serving")
 
     # -- path 3: training gemma2-2b ------------------------------------------
     tcfg = registry.get_config("gemma2_2b", **TRAIN_FLGW)
@@ -3877,6 +4384,7 @@ def main() -> int:
                               attn_grad_rtol=TRAIN_ATTN_GRAD_RTOL))
     del tr
     torch.cuda.empty_cache()
+    phase_done(5, "gemma2-2b training")
 
     # -- the OSEL encoder (the mask-encode kernel) ----------------------------
     os_ = run_osel(ic3_params, dev)
@@ -3900,6 +4408,8 @@ def main() -> int:
               f"{r['bytes_dense']:.0f}, grouped {r['bytes_grouped']:.0f} "
               f"({r['footprint_ratio']:.2f}x)")
 
+    phase_done(6, "OSEL")
+
     # -- path 4: training IC3Net (the A2C learner) --------------------------
     lr = run_learner(all_kernels, dev)
     print(f"slice 4: IC3Net learner, {LEARN_ITERS} iterations "
@@ -3919,6 +4429,7 @@ def main() -> int:
                    if k not in ("model", "env", "ecfg", "tcfg")}
     del lr
     fig9 = learning_check(dev)
+    phase_done(7, "IC3Net learner and Fig. 9")
 
     # -- path 5: the async actor/learner pipeline ---------------------------
     asy = run_async(all_kernels, dev)
@@ -3943,6 +4454,7 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f}" for k, v in bd["ms"].items()),
           flush=True)
     print_profile("one async update cycle", bd["profile"])
+    phase_done(8, "async pipeline")
 
     # -- path 6: checkpoints and the fault-tolerant LM loop ----------------
     ck = run_checkpoint(all_kernels, dev)
@@ -3963,30 +4475,30 @@ def main() -> int:
           f"phase {ck['wall_s']:.1f} s", flush=True)
     plan_cache.clear()
     torch.cuda.empty_cache()
+    phase_done(9, "checkpoints")
 
     # -- path 7: the rest of the dense family, served ----------------------
     fam, (g3_cfg, g3_params) = run_dense_family(all_kernels, dev, card)
+    phase_done(10, "dense family")
     # -- path 8: paligemma-3b's prefix-LM prefill, gemma3-12b banded -------
     pre = run_prefix(all_kernels, dev, card)
     band = run_banded(g3_cfg, g3_params, all_kernels, card)
     del g3_params
     plan_cache.clear()
     torch.cuda.empty_cache()
+    phase_done(11, "prefix-LM and banded prefills")
     # -- path 9: the sync IC3Net launcher ------------------------------------
     sync = run_sync_launcher(all_kernels, dev, card)
+    phase_done(12, "sync launcher")
     # -- path 10: the MoE family served -------------------------------------
-    t_moe = time.perf_counter()
     moe = run_moe(all_kernels, dev, card)
-    moe_s = time.perf_counter() - t_moe
-    print(f"phase 13 (MoE family) took {moe_s:.1f} s; the script so far "
-          f"{time.perf_counter() - t_script:.1f} s", flush=True)
+    phase_done(13, "MoE family")
     # -- path 11: the SSM and hybrid families, the grouped MoE trained -----
-    t_ssm = time.perf_counter()
     ssm_fam = run_ssm_family(all_kernels, dev, card)
-    ssm_s = time.perf_counter() - t_ssm
-    print(f"phase 14 (SSM and hybrid families, grouped MoE training) took "
-          f"{ssm_s:.1f} s; the script so far "
-          f"{time.perf_counter() - t_script:.1f} s", flush=True)
+    phase_done(14, "SSM and hybrid families, grouped MoE training")
+    # -- path 12: whisper-large-v3, the encoder stack and cross-attention --
+    wh = run_whisper(all_kernels, dev, card)
+    phase_done(15, "whisper-large-v3")
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -4001,7 +4513,8 @@ def main() -> int:
                 "ic3net_async": op["launches"][sym],
                 "gemma2_ckpt": ck["launches"][sym],
                 **family_launches(fam, pre, band, sync, sym),
-                **moe_launches(moe, sym), **ssm_launches(ssm_fam, sym)}
+                **moe_launches(moe, sym), **ssm_launches(ssm_fam, sym),
+                **whisper_launches(wh, sym)}
 
     def launches(sym):
         return sum(path_launches(sym).values())
@@ -4032,6 +4545,15 @@ def main() -> int:
             "profiler_recorded_launches", "plain_ms", "bound_ms",
             "bound_share", "sort_yardstick_ms")}
             for r in rows]
+
+    def whisper_bwd(r, name):
+        return dict({k: r[k] for k in ("b", "hq", "hkv", "d", "s", "window",
+                                        "softcap", "plain_ms", "library_ms")},
+                    max_abs_err=r["max_abs_err"], ms=r[f"{name}_ms"],
+                    bound_ms=r[f"{name}_bound_ms"],
+                    bound_by=r[f"{name}_bound_by"],
+                    bound_share=r[f"{name}_bound_share"],
+                    tflops=r[f"{name}_tflops"], route=r[f"{name}_route"])
 
     jamba = ssm_fam["jamba_1_5_large"]
     mamba = ssm_fam["mamba2_1_3b"]
@@ -4099,6 +4621,10 @@ def main() -> int:
                  for a, f in (("mamba2_1_3b", mamba),
                               ("jamba_1_5_large", jamba))
                  for r in f["assign"]["sort"] if "ms" in r],
+             whisper_sides=[{k: r[k] for k in (
+                 "side", "layers", "items", "axis", "ms", "device_us",
+                 "plain_ms", "bound_ms")}
+                 for r in wh["assign"]["sort"] if "ms" in r],
              encode=enc_t,
              ptxas={f"plan_assign_kernel<{tier}>": pe_usage.get(
                  f"plan_assign_kernel<{tier}>") for tier in ASSIGN_TIERS},
@@ -4143,7 +4669,8 @@ def main() -> int:
              launches_by_path=path_launches("grouped_bmm_bf16"),
              max_abs_err=max([r["max_abs_err"] for r in bmm16_rows] + [
                  r["grouped_bmm_bf16"]["max_abs_err"]
-                 for r in mamba["train_rows"] + moe_train["kernel_rows"]]),
+                 for r in mamba["train_rows"] + moe_train["kernel_rows"]
+                 + wh["kernel_rows"] if "grouped_bmm_bf16" in r]),
              ms=total(train_layer, "ms"),
              plain_ms=total(train_layer, "plain_ms"),
              bound_ms=total(train_layer, "bound_ms"),
@@ -4173,6 +4700,11 @@ def main() -> int:
                              rows=r["rows"], cap_m=r["cap_m"],
                              cap_n=r["cap_n"], **r["grouped_bmm_bf16"])
                         for r in mamba["train_rows"] + moe_train["kernel_rows"]],
+             whisper_train=[dict(proj=r["proj"], tiles=r["tiles"],
+                                 rows=r["rows"], cap_m=r["cap_m"],
+                                 cap_n=r["cap_n"], **r["grouped_bmm_bf16"])
+                            for r in wh["kernel_rows"]
+                            if "grouped_bmm_bf16" in r],
              timed_over="one training layer's forward: its 3 MLP products "
                         "(up, gate, down) at 4096 rows, bf16; bound at 989 "
                         "TFLOP/s (bf16 tensor cores); device us a launch: "
@@ -4186,7 +4718,8 @@ def main() -> int:
              launches_by_path=path_launches("fused_bmm"),
              max_abs_err=max(r["max_abs_err"] for r in fused_rows + [
                  r for f in moe.values() for r in f["kernel_rows"]]
-                 + mamba["kernel_rows"] + jamba["kernel_rows"]),
+                 + mamba["kernel_rows"] + jamba["kernel_rows"]
+                 + wh["kernel_rows"]),
              ms=total(prefill_layer, "ms"),
              plain_ms=total(prefill_layer, "plain_ms"),
              bound_ms=total(prefill_layer, "bound_ms"),
@@ -4211,6 +4744,8 @@ def main() -> int:
              moe=[{k: v for k, v in r.items() if k != "grouped_bmm_bf16"}
                   for f in moe.values() for r in f["kernel_rows"]],
              ssm_family=mamba["kernel_rows"] + jamba["kernel_rows"],
+             whisper=[{k: v for k, v in r.items() if k != "grouped_bmm_bf16"}
+                      for r in wh["kernel_rows"]],
              timed_over="one prefill layer: its 7 projections at 4096 rows, "
                         "bf16; bound at 989 TFLOP/s (bf16 tensor cores); "
                         "library = torch.bmm on pre-gathered operands, "
@@ -4224,7 +4759,8 @@ def main() -> int:
                       "flash_attention.py:67",
              launches=launches("flash_fwd"),
              launches_by_path=path_launches("flash_fwd"),
-             max_abs_err=max(r["max_abs_err"] for r in flash_rows),
+             max_abs_err=max(r["max_abs_err"]
+                             for r in flash_rows + wh["flash_rows"]),
              ms=flash_rows[1]["ms"], plain_ms=flash_rows[1]["plain_ms"],
              bound_ms=flash_rows[1]["bound_ms"],
              bound_by=flash_rows[1]["bound_by"],
@@ -4235,6 +4771,7 @@ def main() -> int:
              tensor_core_route=flash_rows[1]["route"],
              ptxas=fa_usage.get("flash_fwd_wgmma_kernel<256>"),
              ptxas_d128=fa_usage.get("flash_fwd_wgmma_kernel<128>"),
+             ptxas_d64=fa_usage.get("flash_fwd_wgmma_kernel<64>"),
              dense_family=fk["flash"],
              moe=[dict(arch=a, **{k: r[k] for k in (
                  "hq", "hkv", "d", "s", "window", "softcap", "max_abs_err",
@@ -4246,6 +4783,11 @@ def main() -> int:
                  "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                  "bound_by", "bound_share", "tflops", "route")}
                  for r in jamba["flash_rows"]],
+             whisper=[{k: r[k] for k in (
+                 "b", "hq", "hkv", "d", "s", "window", "softcap",
+                 "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                 "bound_by", "bound_share", "tflops", "route")}
+                 for r in wh["flash_rows"]],
              timed_over=f"one call at B={SERVE_BATCH}, Hq=8, Hkv=4, "
                         f"S={PREFILL_SEQ}, D=256, causal, softcap 50; bound "
                         "at 989 TFLOP/s (bf16 tensor cores); library = SDPA "
@@ -4256,7 +4798,8 @@ def main() -> int:
                       "flash_attention.py:178",
              launches=launches("flash_bwd_dq"),
              launches_by_path=path_launches("flash_bwd_dq"),
-             max_abs_err=max(r["max_abs_err"]["dq"] for r in bwd_rows),
+             max_abs_err=max(r["max_abs_err"]["dq"]
+                             for r in bwd_rows + wh["bwd_rows"]),
              ms=bwd_rows[1]["dq_ms"], plain_ms=bwd_rows[1]["plain_ms"],
              bound_ms=bwd_rows[1]["dq_bound_ms"],
              bound_by=bwd_rows[1]["dq_bound_by"],
@@ -4267,6 +4810,8 @@ def main() -> int:
              bound_share=bwd_rows[1]["dq_bound_share"],
              tensor_core_route=bwd_rows[1]["dq_route"],
              ptxas=fa_usage.get("flash_bwd_dq_mma_kernel<256>"),
+             ptxas_d64=fa_usage.get("flash_bwd_dq_mma_kernel<64>"),
+             whisper=[whisper_bwd(r, "dq") for r in wh["bwd_rows"]],
              timed_over=bwd_timed),
         dict(name="flash_bwd_dkv", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -4275,7 +4820,8 @@ def main() -> int:
              launches=launches("flash_bwd_dkv"),
              launches_by_path=path_launches("flash_bwd_dkv"),
              max_abs_err=max(max(r["max_abs_err"]["dk"],
-                                 r["max_abs_err"]["dv"]) for r in bwd_rows),
+                                 r["max_abs_err"]["dv"])
+                             for r in bwd_rows + wh["bwd_rows"]),
              ms=bwd_rows[1]["dkv_ms"], plain_ms=bwd_rows[1]["plain_ms"],
              bound_ms=bwd_rows[1]["dkv_bound_ms"],
              bound_by=bwd_rows[1]["dkv_bound_by"],
@@ -4285,6 +4831,8 @@ def main() -> int:
              bound_share=bwd_rows[1]["dkv_bound_share"],
              tensor_core_route=bwd_rows[1]["dkv_route"],
              ptxas=fa_usage.get("flash_bwd_dkv_mma_kernel<256>"),
+             ptxas_d64=fa_usage.get("flash_bwd_dkv_mma_kernel<64>"),
+             whisper=[whisper_bwd(r, "dkv") for r in wh["bwd_rows"]],
              timed_over=bwd_timed),
         dict(name="osel_encode", route="cuda",
              source="src/repro_torch/csrc/osel_encode.cu",
@@ -4313,7 +4861,7 @@ def main() -> int:
         learner_replay=lrep, learner_profile=lprof, learning_check=fig9,
         async_pipeline=asy, checkpoint=ck, dense_family=fam,
         prefix_lm=pre, banded=band, sync_launcher=sync, moe_family=moe,
-        moe_phase_s=moe_s, ssm_family=ssm_fam, ssm_phase_s=ssm_s,
+        ssm_family=ssm_fam, whisper=wh, phase_s=phase_s,
         script_s=time.perf_counter() - t_script,
         **kernels_line), indent=1, default=str))
     print(json.dumps(kernels_line))

@@ -26,6 +26,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import registry
 from repro_torch.core.schedule import SparsitySchedule
 from repro_torch.data.pipeline import SyntheticTokens, make_batch_iterator
+from repro_torch.models import transformer
 from repro_torch.runtime.fault import StepRunner
 from repro_torch.train import state as state_lib
 from repro_torch.train import step as step_lib
@@ -55,6 +56,11 @@ def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
     if n_layers:
         overrides["n_layers"] = n_layers
     cfg = get(arch, **overrides)
+    if transformer.needs_frames(cfg):
+        # SyntheticTokens yields tokens only; the reference's launcher
+        # trains such a model with a cross layer that sees the future
+        raise transformer.no_frames_error(cfg, "train_lm (token batches "
+                                          "only)")
     schedule = None
     if flgw_groups > 1 and flgw_path == "grouped" and \
             (refresh_every > 1 or refresh != "period"):

@@ -1,22 +1,27 @@
-"""GQA self-attention: RoPE, sliding window, logit softcap, KV-cache decode.
+"""GQA attention: RoPE, sliding window, logit softcap, KV-cache decode,
+cross-attention.
 
-Port of ``repro.models.attention`` for decoder self-attention. Three
-regimes, as in the JAX package:
+Port of ``repro.models.attention``. Three regimes of self-attention, as
+in the JAX package:
 
 * prefill with ``flash=True``: the flash-attention kernel
   (``repro_torch.kernels.flash_attention``), which never stores the
   (S, T) logits;
 * prefill without it, or with a bidirectional prefix (``prefix_len``,
-  the VLM's patches, as in JAX): the plain core, query-chunked so the
-  logit tile is (B, Hkv, q_per_kv, Cq, T) (a Python loop where JAX
-  scans); ``banded=True`` gives each chunk of a sliding-window layer only
-  its reachable KV band, which is exact;
+  the VLM's patches, as in JAX) or no causal mask (an encoder stack):
+  the plain core, query-chunked so the logit tile is (B, Hkv, q_per_kv,
+  Cq, T) (a Python loop where JAX scans); ``banded=True`` gives each
+  chunk of a sliding-window layer only its reachable KV band, which is
+  exact;
 * decode: one token per step written into a ring buffer of length
   ``min(max_seq, window)`` and attended with the plain core (plain
   ``einsum`` in JAX too). The KV buffers are updated in place: the
   returned cache shares them with the one passed in.
 
-Cross-attention is not ported (ROADMAP, Queue 1).
+Cross-attention (``kv_x``, whisper's decoder): q from ``x``, k and v
+projected from ``kv_x`` (the encoder's output), neither rotated, no
+mask, no cache: a decode step projects k and v from ``kv_x`` again, as
+in JAX. It always takes the plain core (JAX's flash branch excludes it).
 """
 from __future__ import annotations
 
@@ -114,6 +119,7 @@ def _decode(k, v, cache, positions, b, s, window, causal, prefix_len):
 
 def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
               window: int = 0, causal: bool = True, prefix_len: int = 0,
+              kv_x: Optional[torch.Tensor] = None,
               cache: Optional[dict] = None, q_chunk: int = 512,
               banded: bool = False, flash: bool = False,
               flgw: Optional[FLGWConfig] = None, plans=None):
@@ -121,7 +127,9 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
 
     * prefill: ``cache is None``, full sequence;
     * decode: ``cache = {"k", "v", "pos"}``, insert the step's token at
-      ``pos`` and attend over the cache.
+      ``pos`` and attend over the cache;
+    * cross-attention: ``kv_x`` (B, T, d) given, keys and values from it
+      at key positions 0..T-1, no RoPE, no causal mask, no cache.
 
     ``plans``: this layer's entry of a cached PlanState, one GroupPlan per
     q/k/v/o projection on the FLGW grouped path (None re-encodes per
@@ -129,12 +137,26 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     """
     b, s, _ = x.shape
     hd, n_kv, qpk = cfg.head_dim, cfg.n_kv_heads, cfg.q_per_kv
-    q = proj(p["q"], x, flgw, plan=plan_of(plans, "q"))
-    k = proj(p["k"], x, flgw, plan=plan_of(plans, "k")).reshape(b, s, n_kv, hd)
-    v = proj(p["v"], x, flgw, plan=plan_of(plans, "v")).reshape(b, s, n_kv, hd)
-    q = rope(q.reshape(b, s, n_kv * qpk, hd), positions,
-             cfg.rope_theta).reshape(b, s, n_kv, qpk, hd)
-    k = rope(k, positions, cfg.rope_theta)
+    src = x if kv_x is None else kv_x
+    t = src.shape[1]
+    q = proj(p["q"], x, flgw, plan=plan_of(plans, "q")
+             ).reshape(b, s, n_kv, qpk, hd)
+    k = proj(p["k"], src, flgw, plan=plan_of(plans, "k")
+             ).reshape(b, t, n_kv, hd)
+    v = proj(p["v"], src, flgw, plan=plan_of(plans, "v")
+             ).reshape(b, t, n_kv, hd)
+    if kv_x is None:
+        q = rope(q.reshape(b, s, n_kv * qpk, hd), positions,
+                 cfg.rope_theta).reshape(b, s, n_kv, qpk, hd)
+        k = rope(k, positions, cfg.rope_theta)
+        k_pos = positions
+    else:
+        if cache is not None:
+            raise ValueError("cross-attention takes no KV cache: a decode "
+                             "step projects k and v from kv_x again")
+        # the memory's own positions; no query is masked from any of them
+        k_pos = torch.arange(t, device=x.device)[None]
+        causal = False
 
     def out_proj(o):
         return proj(p["o"], o.reshape(b, s, -1), flgw, plan=plan_of(plans, "o"))
@@ -145,7 +167,7 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
         out = _attend(q, ck, cv, mask, cfg)
         return out_proj(out), {"k": ck, "v": cv, "pos": new_pos}
 
-    if flash and prefix_len == 0 and causal:
+    if flash and prefix_len == 0 and causal and kv_x is None:
         # the kernel masks by absolute position 0..S-1, so positions must
         # be that plain ramp, as in the JAX package's flash branch; a
         # bidirectional prefix takes the chunked core below, as in JAX
@@ -156,7 +178,7 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
         return out_proj(of.transpose(1, 2)), None
 
     if s <= q_chunk:
-        mask = _mask(positions, positions, causal=causal, window=window,
+        mask = _mask(positions, k_pos, causal=causal, window=window,
                      prefix_len=prefix_len)
         return out_proj(_attend(q, k, v, mask, cfg)), None
 
@@ -164,12 +186,12 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
         q_chunk = next(c for c in range(q_chunk, 0, -1) if s % c == 0)
     # banded: the KV band one query chunk can reach, window + chunk rounded
     # to the chunk (exact: outside it everything is masked)
-    band = (min(s, (-(-window // q_chunk) + 1) * q_chunk)
-            if banded and window > 0 else s)
+    use_band = banded and window > 0 and kv_x is None
+    band = min(t, (-(-window // q_chunk) + 1) * q_chunk) if use_band else t
     outs = []
     for c0 in range(0, s, q_chunk):
-        k0 = max(c0 + q_chunk - band, 0)
-        m = _mask(positions[:, c0:c0 + q_chunk], positions[:, k0:k0 + band],
+        k0 = max(c0 + q_chunk - band, 0) if use_band else 0
+        m = _mask(positions[:, c0:c0 + q_chunk], k_pos[:, k0:k0 + band],
                   causal=causal, window=window, prefix_len=prefix_len)
         outs.append(_attend(q[:, c0:c0 + q_chunk], k[:, k0:k0 + band],
                             v[:, k0:k0 + band], m, cfg))

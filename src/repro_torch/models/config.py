@@ -4,8 +4,8 @@ Layer heterogeneity (local/global attention, MoE cadence, Mamba/attention
 interleave) is a repeating *pattern* of ``period`` slots; the stack runs
 ``n_layers // period`` blocks of it. The fields are the JAX package's, so
 a config converts one to one; ``dtype`` is a ``torch.dtype``. The port's
-transformer runs the dense, MoE, SSM and hybrid families and raises on
-cross-attention and encoder stacks (``repro_torch.models.transformer``).
+transformer runs the dense, MoE, SSM, hybrid and audio (encoder-decoder)
+families (``repro_torch.models.transformer``).
 """
 from __future__ import annotations
 

@@ -11,14 +11,16 @@ Ported: the dense family (attention mixers, MLP FFNs), the MoE family
 residual; ``models.moe``), the SSM mixers (``models.ssm``; with
 ``ffn="none"`` a slot is a pure Mamba2 block, as mamba2-1.3b's; jamba
 interleaves attention, SSM, MLP and MoE slots), the VLM's prefix-LM
-backbone (``patch_embeds`` ahead of the tokens, attended both ways), the
+backbone (``patch_embeds`` ahead of the tokens, attended both ways),
+whisper-large-v3's encoder-decoder (an ``encoder`` stack of
+bidirectional attention + MLP layers run over ``frames``, and a
+cross-attention layer in every decoder slot reading its output), the
 banded prefill (``banded``) and ``remat`` (each layer slot under a
 non-reentrant ``torch.utils.checkpoint``, so the backward recomputes one
 layer at a time from its input, as ``jax.checkpoint`` around the JAX
-package's block body). Cross-attention and encoder stacks (``frames``),
-whisper-large-v3's, raise ``NotImplementedError`` (ROADMAP, Queue 1); so
-do ``unroll_blocks``, ``attn_identity`` and ``ssd_unroll``, the JAX
-package's dry-run cost variants, which eager PyTorch has no use for.
+package's block body). ``unroll_blocks``, ``attn_identity`` and
+``ssd_unroll``, the JAX package's dry-run cost variants, which eager
+PyTorch has no use for, raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,17 +48,37 @@ def _unported(what: str):
     return NotImplementedError(f"{what} {_UNPORTED}")
 
 
+# the encoder stack's layer (whisper's): bidirectional attention + MLP
+ENC_SLOT = SlotSpec(mixer="attn", window=0, ffn="mlp", causal=False)
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.encoder_layers:
-        raise _unported("an encoder stack (encoder_layers, "
-                        "whisper-large-v3's)")
     for slot in cfg.pattern:
         if slot.mixer not in ("attn", "ssm"):
             raise _unported(f"the {slot.mixer!r} mixer")
         if slot.ffn not in ("mlp", "moe", "moe_dense", "none"):
             raise _unported(f"the {slot.ffn!r} FFN")
-        if slot.cross:
-            raise _unported("cross-attention (whisper-large-v3's)")
+
+
+def needs_frames(cfg: ModelConfig) -> bool:
+    """Whether the model's decoder cross-attends to an encoder's output
+    (whisper's), which only ``frames`` or a decode cache can give."""
+    return any(slot.cross for slot in cfg.pattern)
+
+
+def no_frames_error(cfg: ModelConfig, where: str = "lm_apply") -> ValueError:
+    """The refusal of a cross-attending model run without frames. The JAX
+    package runs on there: its cross layer, given ``kv_x=None``, takes k
+    and v from the decoder's own stream with RoPE and no causal mask
+    (src/repro/models/attention.py:103-112), so every position sees the
+    later tokens (ROADMAP, Queue 3). The port does not mirror that."""
+    return ValueError(
+        f"{where}: {cfg.name} cross-attends to its audio encoder's output, "
+        "and no frames were given (frames=, or a decode cache holding "
+        "encoder_out). The JAX reference runs on without them, its cross "
+        "layer then attending the decoder's own tokens with no causal mask "
+        "(src/repro/models/attention.py:103-112), so each position sees "
+        "later tokens; the port refuses instead")
 
 
 def _flgw_cfg(cfg: ModelConfig, target: str) -> Optional[FLGWConfig]:
@@ -90,6 +112,11 @@ def _slot_init(generator, cfg: ModelConfig, slot: SlotSpec, n: int) -> dict:
     else:
         p["mixer"] = ssm_mod.ssm_init(generator, cfg,
                                       flgw=_flgw_cfg(cfg, "ssm"), lead=lead)
+    if slot.cross:
+        p["norm_x"] = rmsnorm_init(cfg.d_model, device=dev, lead=lead)
+        p["cross"] = attn_mod.attn_init(generator, cfg,
+                                        flgw=_flgw_cfg(cfg, "attn"),
+                                        lead=lead)
     if slot.ffn == "none":     # a pure SSM block (mamba2) has no FFN
         return p
     p["norm2"] = rmsnorm_init(cfg.d_model, device=dev, lead=lead)
@@ -106,14 +133,22 @@ def _slot_init(generator, cfg: ModelConfig, slot: SlotSpec, n: int) -> dict:
 def lm_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """Random params on ``generator``'s device, laid out as the JAX
     package's ``lm_init`` tree (without its sharding specs). Weights are
-    N(0, 1/fan_in) in ``cfg.dtype``; grouping matrices and norms f32."""
+    N(0, 1/fan_in) in ``cfg.dtype``; grouping matrices and norms f32. An
+    encoder-decoder adds ``encoder`` (``encoder_layers`` stacked
+    ENC_SLOT layers) and ``enc_norm``."""
     _check_supported(cfg)
-    return {
+    params = {
         "embed": embed_init(generator, cfg.vocab, cfg.d_model, cfg.dtype),
         "blocks": {f"slot{i}": _slot_init(generator, cfg, slot, cfg.n_blocks)
                    for i, slot in enumerate(cfg.pattern)},
         "final_norm": rmsnorm_init(cfg.d_model, device=generator.device),
     }
+    if cfg.encoder_layers:
+        params["encoder"] = {"slot0": _slot_init(generator, cfg, ENC_SLOT,
+                                                 cfg.encoder_layers)}
+        params["enc_norm"] = rmsnorm_init(cfg.d_model,
+                                          device=generator.device)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -143,12 +178,13 @@ def _unstack(tree, n: int) -> list:
 
 
 def _slot_apply(p, x, positions, cfg: ModelConfig, slot: SlotSpec, *,
-                cache=None, pos=None, prefix_len=0, q_chunk=512,
-                banded=False, moe_dropless=False, plans=None):
+                cache=None, pos=None, encoder_out=None, prefix_len=0,
+                q_chunk=512, banded=False, moe_dropless=False, plans=None):
     """One layer -> (x, aux), aux the MoE's load-balancing loss (None
     for an MLP slot or none); a decode step writes ``cache``'s KV buffers
     or SSM state and conv ring in place. A MoE slot is dropless whenever
-    a cache is given."""
+    a cache is given. A cross slot attends ``encoder_out`` between its
+    mixer and its FFN."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if slot.mixer == "attn":
         c = None if cache is None else {"k": cache["k"], "v": cache["v"],
@@ -163,6 +199,13 @@ def _slot_apply(p, x, positions, cfg: ModelConfig, slot: SlotSpec, *,
                         chunk=cfg.ssm_chunk, flgw=_flgw_cfg(cfg, "ssm"),
                         plans=plan_of(plans, "mixer"))
     x = x + h
+    if slot.cross:
+        h = rmsnorm(p["norm_x"], x, cfg.norm_eps)
+        h, _ = attn_mod.attention(
+            p["cross"], h, positions, cfg, causal=False, kv_x=encoder_out,
+            q_chunk=q_chunk, flgw=_flgw_cfg(cfg, "attn"),
+            plans=plan_of(plans, "cross"))
+        x = x + h
     if slot.ffn == "none":     # a pure SSM block (mamba2) has no FFN
         return x, None
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
@@ -178,6 +221,34 @@ def _slot_apply(p, x, positions, cfg: ModelConfig, slot: SlotSpec, *,
     return x + out, aux
 
 
+def _apply_blocks(blocks, cfg: ModelConfig, pattern, n_blocks: int, x,
+                  positions, *, block_plans=None, caches=None, remat=False,
+                  **kw):
+    """The stack of ``n_blocks`` blocks of ``pattern``'s slots over x ->
+    (x, aux summed over the MoE slots). ``caches``: the decode caches'
+    ``blocks``; ``kw`` goes to every ``_slot_apply``."""
+    aux = torch.zeros((), device=x.device)
+    per_block = _unstack(blocks, n_blocks)
+    for i in range(n_blocks):
+        block_pl = _index(block_plans, i)
+        for j, slot in enumerate(pattern):
+            name = f"slot{j}"
+            c = None if caches is None else _index(caches[name], i)
+            kw_j = dict(kw, cache=c, plans=plan_of(block_pl, name))
+            if remat:
+                # the plans are inputs: the recompute consumes them as the
+                # forward did, never re-encoding
+                x, a = checkpoint(_slot_apply, per_block[i][name], x,
+                                  positions, cfg, slot, use_reentrant=False,
+                                  **kw_j)
+            else:
+                x, a = _slot_apply(per_block[i][name], x, positions, cfg,
+                                   slot, **kw_j)
+            if a is not None:
+                aux = aux + a
+    return x, aux
+
+
 def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
              q_chunk: int = 512, banded: bool = False, remat=None,
              return_hidden: bool = False, unroll_blocks: bool = False,
@@ -189,8 +260,14 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
     tokens, positions: (B, S) integer. ``patch_embeds``: (B, P, d) VLM
     prefix embeddings (prefill only), placed before the tokens and
     attended both ways; the positions become the plain ramp over the P + S
-    stream, and ``return_hidden`` drops the prefix. ``banded``: each
-    query chunk of a sliding-window layer attends only its reachable KV
+    stream, and ``return_hidden`` drops the prefix. ``frames``: (B, T, d)
+    audio frame embeddings (whisper's stub front end): the encoder stack
+    runs over them (positions 0..T-1, the same ``q_chunk`` and remat) and
+    every cross slot attends its normed output; without frames a decode
+    step reads the cache's ``encoder_out``, and the returned cache
+    carries the encoder output used. A cross-attending model given
+    neither raises ``ValueError`` (:func:`no_frames_error`). ``banded``:
+    each query chunk of a sliding-window layer attends only its reachable KV
     band (exact). ``cache``: decode caches from :func:`init_cache`. ``plans``: cached FLGW metadata (PlanState or its
     raw dict); when None, a ``plans`` entry riding the decode cache is
     consumed, and with neither the grouped path re-encodes per
@@ -204,18 +281,15 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
     _check_supported(cfg)
     if unroll_blocks or attn_identity or ssd_unroll:
         raise _unported("unroll_blocks, attn_identity and ssd_unroll")
-    if frames is not None:
-        raise _unported("the audio encoder (frames)")
     if plans is None and cache is not None:
         plans = cache.get("plans")
     if isinstance(plans, planenc.PlanState):
         plans = plans.plans
     plans = plans or {}
-    block_plans = plans.get("blocks")
-    # remat only without a cache (as the JAX package) and only where
-    # autograd records: serving runs under inference_mode
-    remat = (cfg.remat if remat is None else remat) and cache is None \
-        and torch.is_grad_enabled()
+    # remat only where autograd records (serving runs under
+    # inference_mode); the decoder's only without a cache, as in JAX
+    remat = (cfg.remat if remat is None else remat) and \
+        torch.is_grad_enabled()
     x = embed(params["embed"], tokens, cfg.d_model).to(cfg.dtype)
     prefix_len = 0
     if patch_embeds is not None:
@@ -223,28 +297,31 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
         positions = torch.arange(x.shape[1], device=x.device).expand(
             x.shape[:2])
         prefix_len = patch_embeds.shape[1]
+
+    encoder_out = None
+    if cfg.encoder_layers and frames is not None:
+        t = frames.shape[1]
+        eo, _ = _apply_blocks(
+            params["encoder"], cfg, (ENC_SLOT,), cfg.encoder_layers,
+            frames.to(cfg.dtype),
+            torch.arange(t, device=x.device).expand(frames.shape[0], t),
+            block_plans=plans.get("encoder"), remat=remat, q_chunk=q_chunk)
+        encoder_out = rmsnorm(params["enc_norm"], eo, cfg.norm_eps)
+    elif cfg.encoder_layers and cache is not None:
+        encoder_out = cache["encoder_out"]
+    if needs_frames(cfg) and encoder_out is None:
+        # the reference runs on here with kv_x=None: a cross layer that
+        # sees the future (src/repro/models/attention.py:103-112)
+        raise no_frames_error(cfg)
+
     pos = None if cache is None else cache["pos"]
-    aux = torch.zeros((), device=x.device)
-    blocks = _unstack(params["blocks"], cfg.n_blocks)
-    for i in range(cfg.n_blocks):
-        block_pl = _index(block_plans, i)
-        for j, slot in enumerate(cfg.pattern):
-            name = f"slot{j}"
-            c = None if cache is None else _index(cache["blocks"][name], i)
-            kw = dict(cache=c, pos=pos, prefix_len=prefix_len,
-                      q_chunk=q_chunk, banded=banded,
-                      moe_dropless=moe_dropless,
-                      plans=plan_of(block_pl, name))
-            if remat:
-                # the plans are inputs: the recompute consumes them as the
-                # forward did, never re-encoding
-                x, a = checkpoint(_slot_apply, blocks[i][name], x, positions,
-                                  cfg, slot, use_reentrant=False, **kw)
-            else:
-                x, a = _slot_apply(blocks[i][name], x, positions, cfg, slot,
-                                   **kw)
-            if a is not None:
-                aux = aux + a
+    x, aux = _apply_blocks(
+        params["blocks"], cfg, cfg.pattern, cfg.n_blocks, x, positions,
+        block_plans=plans.get("blocks"),
+        caches=None if cache is None else cache["blocks"],
+        remat=remat and cache is None, pos=pos, encoder_out=encoder_out,
+        prefix_len=prefix_len, q_chunk=q_chunk, banded=banded,
+        moe_dropless=moe_dropless)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
         out = x[:, prefix_len:]
@@ -256,6 +333,8 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
         # the KV buffers and SSM states were written in place
         # (models.attention, models.ssm); plans ride the cache unchanged
         new_cache = dict(cache, pos=pos + tokens.shape[1])
+        if encoder_out is not None:
+            new_cache["encoder_out"] = encoder_out
     return out, aux, new_cache
 
 
@@ -274,7 +353,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, params=None,
                per_slot: bool = False, device=None) -> dict:
     """Decode caches, stacked (n_blocks, ...) per slot: an attention
     slot's KV ring buffers ``k``/``v`` in ``cfg.dtype``, an SSM slot's
-    recurrent ``state`` (float32) and ``conv`` ring (``cfg.dtype``).
+    recurrent ``state`` (float32) and ``conv`` ring (``cfg.dtype``); an
+    encoder-decoder's ``encoder_out``, zeros (batch, ``num_frames``,
+    d_model) in ``cfg.dtype`` until a step with frames writes it, as in
+    JAX.
 
     ``params``: encode a PlanState beside the KV buffers
     (``cache["plans"]``) on the FLGW grouped path, with the compact
@@ -315,6 +397,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, params=None,
         if state.plans:
             plans = planenc.attach_compact(state, params)
     cache["plans"] = plans
+    if cfg.encoder_layers:
+        cache["encoder_out"] = torch.zeros(
+            (batch, cfg.num_frames, cfg.d_model), dtype=dtype, device=device)
     return cache
 
 

@@ -61,6 +61,10 @@ def main(argv=None) -> None:
                          flgw_targets=tuple(args.targets.split(",")))
     get = registry.get_config if args.full else registry.get_smoke_config
     cfg = get(args.arch, **overrides)
+    if transformer.needs_frames(cfg):
+        # the requests carry tokens only: no frames for the encoder
+        ap.error(str(transformer.no_frames_error(
+            cfg, "python -m repro_torch.serving (token prompts only)")))
     device = resolve_device(args.device)
     params = transformer.lm_init(
         torch.Generator(device=device).manual_seed(0), cfg)

@@ -62,7 +62,11 @@ def make_prefill_step(cfg, *, plan_policy: str = "certify",
     """Returns ``prefill(params, batch, plans=None) -> last logits``
     (B, 1, vocab) float32: the full-sequence forward, its MoE slots
     dropless (every expert takes t·k rows, as in JAX). ``batch`` holds
-    ``tokens`` and ``positions`` and, for a VLM, ``patch_embeds``.
+    ``tokens`` and ``positions``, for a VLM ``patch_embeds`` and for an
+    encoder-decoder (whisper) ``frames``. As in JAX, only the last
+    logits come back: the encoder's output does not outlive the call (a
+    decode conditioned on the audio starts from ``lm_apply(frames=...,
+    cache=...)``, which writes it into the cache).
     ``banded`` and ``q_chunk`` (default :func:`pick_q_chunk` of the token
     count) go to the chunked attention core. A model with SSM slots
     prefills in ``min(cfg.ssm_chunk, S)``-token chunks, which must divide
@@ -88,7 +92,8 @@ def make_prefill_step(cfg, *, plan_policy: str = "certify",
                 params, plans, lambda: transformer.encode_plans(params, cfg))
         hidden, _, _ = transformer.lm_apply(
             params, cfg, batch["tokens"], batch["positions"],
-            patch_embeds=batch.get("patch_embeds"), q_chunk=qc,
+            patch_embeds=batch.get("patch_embeds"),
+            frames=batch.get("frames"), q_chunk=qc,
             banded=banded, return_hidden=True, moe_dropless=True,
             plans=plans)
         # only the last position's logits are needed to start decoding

@@ -49,7 +49,8 @@ def _loss_fn(params, batch, cfg: ModelConfig, q_chunk: int,
              banded: bool = False, ce_chunk: int = 512, plans=None):
     hidden, aux, _ = transformer.lm_apply(
         params, cfg, batch["tokens"], batch["positions"],
-        patch_embeds=batch.get("patch_embeds"), q_chunk=q_chunk,
+        patch_embeds=batch.get("patch_embeds"), frames=batch.get("frames"),
+        q_chunk=q_chunk,
         banded=banded, return_hidden=True, plans=plans)
     ce = chunked_cross_entropy(
         hidden, params["embed"]["embedding"], batch["targets"],
@@ -79,11 +80,13 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adamw",
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch``: ``tokens``, ``targets``, ``positions`` (B, S) integer
-    tensors on the state's device, and for a VLM ``patch_embeds`` (B, P,
-    d), whose positions the loss skips. ``banded``: the chunked attention
-    core attends each chunk's KV band only. ``schedule``: the plan-refresh
-    ``SparsitySchedule`` (None: re-encode every step). ``microbatches``
-    splits the batch and averages float32-accumulated grads. The step
+    tensors on the state's device, for a VLM ``patch_embeds`` (B, P, d),
+    whose positions the loss skips, and for an encoder-decoder (whisper)
+    ``frames`` (B, T, d), the encoder's input. ``banded``: the chunked
+    attention core attends each chunk's KV band only. ``schedule``: the
+    plan-refresh ``SparsitySchedule`` (None: re-encode every step).
+    ``microbatches`` splits the batch and averages float32-accumulated
+    grads. The step
     consumes ``state``: its params and optimizer tensors are updated in
     place and shared with the returned state.
     """

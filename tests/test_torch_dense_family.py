@@ -142,10 +142,11 @@ def test_configs_equal_jax_field_by_field(arch):
         assert _fields(cfg) == _fields(jcfg)
         assert tconfig.param_count(cfg) == jconfig.param_count(jcfg)
     # the MoE family is held by tests/test_torch_moe.py, the SSM and
-    # hybrid ones by tests/test_torch_ssm.py
+    # hybrid ones by tests/test_torch_ssm.py, the audio one by
+    # tests/test_torch_whisper.py
     assert set(registry.ARCH_IDS) == {"gemma2_2b", *ARCHS, "mixtral_8x22b",
                                       "arctic_480b", "mamba2_1_3b",
-                                      "jamba_1_5_large"}
+                                      "jamba_1_5_large", "whisper_large_v3"}
 
 
 def test_plans_are_bitwise_jax(model):

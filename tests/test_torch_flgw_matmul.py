@@ -181,25 +181,39 @@ def test_grouping_indices_mask_and_sparsity_match_jax():
 
 def test_unported_paths_raise():
     """The compact-weight path is ported now (tests/test_torch_fused_bmm.py),
-    MoE FFNs are served and trained (tests/test_torch_moe.py) and SSM
-    mixers run (tests/test_torch_ssm.py); what is still unported,
-    whisper-large-v3's cross-attention and encoder stack, raises instead
-    of running something else. The SSM mixer now initialises, and the
-    grouped product of stacked experts now takes gradients under
-    autograd."""
+    MoE FFNs are served and trained (tests/test_torch_moe.py), SSM
+    mixers run (tests/test_torch_ssm.py) and whisper-large-v3's
+    cross-attention and encoder stack run (tests/test_torch_whisper.py).
+    What still raises instead of running something else: a cross slot
+    with no encoder output to attend (the reference's fault, ROADMAP
+    Queue 3), the JAX package's dry-run cost variants, and an unknown
+    mixer. The SSM mixer now initialises, and the grouped product of
+    stacked experts now takes gradients under autograd."""
     from repro_torch.configs import registry
     from repro_torch.models import transformer
     from repro_torch.models.config import SlotSpec
     p, x = _layer(8, 16, 16, 2)
     cfg = registry.get_smoke_config("gemma2_2b", dtype=torch.float32)
-    # whisper-large-v3's decoder slot, its encoder stack, and both at once
+    tok = torch.zeros((1, 4), dtype=torch.long)
+    pos = torch.arange(4)[None]
+    # a cross slot, with and without an encoder stack, given no frames
+    # and no cache; the dry-run cost variants; an unknown mixer
     whisper = SlotSpec(mixer="attn", window=0, ffn="mlp", cross=True)
     for bad in (dict(pattern=(whisper,), encoder_layers=2),
-                dict(pattern=(SlotSpec(cross=True),)),
-                dict(encoder_layers=2)):
-        with pytest.raises(NotImplementedError, match="whisper"):
-            transformer.lm_init(torch.Generator(),
-                                cfg.with_updates(n_layers=2, **bad))
+                dict(pattern=(SlotSpec(cross=True),))):
+        c = cfg.with_updates(n_layers=2, **bad)
+        params = transformer.lm_init(torch.Generator(), c)
+        with pytest.raises(ValueError, match="no frames"):
+            transformer.lm_apply(params, c, tok, pos)
+    params = transformer.lm_init(torch.Generator(), cfg.with_updates(
+        n_layers=2, encoder_layers=2))
+    for variant in ("unroll_blocks", "attn_identity", "ssd_unroll"):
+        with pytest.raises(NotImplementedError, match=variant):
+            transformer.lm_apply(params, cfg.with_updates(
+                n_layers=2, encoder_layers=2), tok, pos, **{variant: True})
+    with pytest.raises(NotImplementedError, match="'mlp' mixer"):
+        transformer.lm_init(torch.Generator(), cfg.with_updates(
+            n_layers=2, pattern=(SlotSpec(mixer="mlp"),)))
     ssm = transformer.lm_init(torch.Generator(), cfg.with_updates(
         n_layers=2, pattern=(SlotSpec(mixer="ssm"),), ssm_state=8,
         ssm_head_dim=16))

@@ -286,7 +286,10 @@ def test_grouped_bmm_entries_refuse_what_the_shapes_do_not_allow(cuda):
     (2, 8, 2, 257, 256, 90, 50.0, True, None),     # qpk 4, window in a tile
     (1, 4, 4, 192, 64, 0, 30.0, True, None),       # D 64
     (1, 4, 1, 100, 128, 50, 0.0, True, None),      # D 128, qpk 4
-    (1, 8, 4, 256, 256, 0, 50.0, True, 0.1)])      # a scale not D ** -0.5
+    (1, 8, 4, 256, 256, 0, 50.0, True, 0.1),       # a scale not D ** -0.5
+    # whisper-large-v3's decoder: D 64, 20 heads, no GQA, S 448 (partial
+    # 64-row tiles)
+    (4, 20, 20, 448, 64, 0, 0.0, True, None)])
 def test_flash_bwd_matches_its_plain_version(cuda, dtype, b, hq, hkv, s, d,
                                              window, softcap, causal, scale):
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -464,7 +467,10 @@ def test_batched_expert_products_match_the_masked_product(cuda, e, m, n,
     # inside S 2,048, D 256)
     (1, 32, 16, 1024, 1024, 128, 4096, 50.0, True),
     (1, 48, 8, 1024, 1024, 128, 0, 0.0, True),
-    (1, 16, 8, 2048, 2048, 256, 1024, 0.0, True)])
+    (1, 16, 8, 2048, 2048, 256, 1024, 0.0, True),
+    # whisper-large-v3's decoder: D 64, 20 heads, no GQA, S 448 (a
+    # partial 128-query tile)
+    (4, 20, 20, 448, 448, 64, 0, 0.0, True)])
 def test_flash_fwd_matches_its_plain_version(cuda, dtype, b, hq, hkv, s, t,
                                              d, window, softcap, causal):
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -514,6 +520,54 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
     reqs = synthetic_requests(0, 4, vocab=cfg.vocab)
     rep = Engine(card, 2, 32).run(reqs)
     assert rep.generated_tokens == sum(r.max_new_tokens for r in reqs)
+
+
+def test_whisper_on_the_card_matches_the_cpu(cuda):
+    """whisper-large-v3's smoke config, FLGW G=4 grouped on mlp and attn,
+    bf16, on the card against the CPU: the forward with frames (encoder
+    stack, cross-attention, flash prefill) and a decode step that takes
+    the frames and one that reads the cache's encoder output."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer
+    cfg = registry.get_smoke_config(
+        "whisper_large_v3", flgw_groups=4, flgw_path="grouped",
+        flgw_targets=("mlp", "attn"), use_flash=True)
+    params = transformer.lm_init(torch.Generator(device=cuda).manual_seed(0),
+                                 cfg)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (2, 40), generator=gen, device=cuda)
+    pos = torch.arange(40, device=cuda).expand(2, 40)
+    frames = torch.randn((2, cfg.num_frames, cfg.d_model), generator=gen,
+                         device=cuda).to(cfg.dtype)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = _to(params, dev)
+        plans = transformer.encode_plans(p, cfg)
+        before = (fm_ops.FUSED.launches, fa_ops.FWD.launches)
+        with torch.inference_mode():
+            full, _, _ = transformer.lm_apply(
+                p, cfg, tok.to(dev), pos.to(dev), frames=frames.to(dev),
+                plans=plans)
+            cache = transformer.init_cache(cfg, 2, 2, params=p)
+            steps = []
+            for t in range(2):
+                kw = {} if t else {"frames": frames.to(dev)}
+                lg, _, cache = transformer.lm_apply(
+                    p, cfg, tok[:, t:t + 1].to(dev), pos[:, t:t + 1].to(dev),
+                    cache=cache, **kw)
+                steps.append(lg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            # the decoder's self-attention prefill on the flash kernel; the
+            # compact products on fused_bmm
+            assert fa_ops.FWD.launches - before[1] == cfg.n_layers
+            assert fm_ops.FUSED.launches > before[0]
+        out[dev.type] = (full.float().cpu(), torch.cat(steps, 1).float().cpu(),
+                         cache["encoder_out"].float().cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        # bf16 activations with f32 sums in other orders on the two devices
+        torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)
 
 
 def test_training_on_the_card_matches_the_cpu(cuda):

@@ -290,12 +290,16 @@ def test_train_lm_runs_on_the_cpu_and_logs(capsys):
 
 
 def test_train_lm_refuses_what_is_not_ported():
-    """The banded prefill is ported (tests/test_torch_dense_family.py)
-    and so are the MoE, SSM and hybrid families (tests/test_torch_moe.py,
-    tests/test_torch_ssm.py); an architecture whose family is not
-    (whisper-large-v3's, audio) refuses."""
-    with pytest.raises(KeyError, match="not ported"):
+    """Every LM architecture of the JAX package is ported; the launcher
+    refuses whisper-large-v3 all the same, before it allocates a state:
+    its token batches carry no frames, and the reference's launcher then
+    trains a cross layer that sees the future (ROADMAP Queue 3). An
+    unknown architecture refuses too."""
+    with pytest.raises(ValueError, match="no frames"):
         launch.train_lm("whisper_large_v3", steps=1, device="cpu")
-    for arch in ("whisper_large_v3", "llama3_8b"):
-        with pytest.raises(SystemExit):
-            launch.main(["--arch", arch, "--device", "cpu"])
+    with pytest.raises(ValueError, match="attention.py:103-112"):
+        launch.main(["--arch", "whisper_large_v3", "--device", "cpu"])
+    with pytest.raises(KeyError, match="unknown"):
+        launch.train_lm("llama3_8b", steps=1, device="cpu")
+    with pytest.raises(SystemExit):
+        launch.main(["--arch", "llama3_8b", "--device", "cpu"])

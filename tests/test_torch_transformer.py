@@ -84,8 +84,10 @@ def test_config_and_params_mirror_the_reference(model):
     ours = transformer.lm_init(torch.Generator().manual_seed(0), cfg)
     shapes = jax.tree.map(lambda a: tuple(a.shape), jparams)
     assert jax.tree.map(lambda a: tuple(a.shape), ours) == shapes
-    with pytest.raises(KeyError, match="not ported"):
-        registry.get_config("whisper_large_v3")    # the audio family waits
+    with pytest.raises(KeyError, match="unknown"):
+        registry.get_config("llama3_8b")
+    # every LM architecture of the JAX package is ported
+    assert set(registry.ARCH_IDS) == set(jregistry.ARCH_IDS) - {"ic3net"}
 
 
 def test_plans_and_signature_on_stacked_params_are_bitwise(model, jplans):
