@@ -47,15 +47,18 @@ The port's paths, each at full width with random weights from a seed:
   arctic-480b at 1 of 35 (128 experts, top-2, and the dense residual
   MLP; G=4 on the experts, the residual and attention);
 * the SSM and hybrid families and grouped MoE training at full width:
-  mamba2-1.3b at all 48 layers served and trained (G=4 on its in and
-  out projections), jamba-1.5-large cut to slots 0-1 of its 8-slot
+  mamba2-1.3b at 12 of its 48 layers served and trained (G=4 on its in
+  and out projections), jamba-1.5-large cut to slots 0-1 of its 8-slot
   period served (G=4 on its SSM, MoE, MLP and attention projections),
   mixtral-8x22b at 1 layer trained on the grouped path (the backward
   over the expert axis);
 * whisper-large-v3 (the audio encoder-decoder) at full width and depth:
   32 encoder layers over 1,500 stub frame embeddings, 32 decoder layers
   with cross-attention, 1.53 B params, served and trained (G=4 on mlp and
-  attn, the cross projections too).
+  attn, the cross projections too);
+* the IC3Net learner on an ``("env", "agent")`` process mesh: the
+  actor's config and env, B=16, one process a shard (1, 2 or 4 processes
+  on the card).
 
 The script
 
@@ -128,9 +131,15 @@ The script
      replays one more iteration's sampled actions and gates on the CPU
      (loss within 1e-5, each gradient within 1e-4 relative norm, the gate
      head's gradient exactly 0 on both); profiles one sparse iteration;
-     then runs the Fig. 9 learning check on the masked and the grouped
-     path against bands around the JAX package's success rates;
-  8. with every launch count at 0 before each run, drives the async
+     then starts the Fig. 9 learning check on the masked and the grouped
+     path, each run in a spawned process of its own that goes on through
+     phases 8 and 9 (host-bound, the card ~5 % busy), and checks them
+     against bands around the JAX package's success rates once phase 8
+     is joined;
+  8. in a spawned process of its own, started with the Fig. 9 runs and
+     joined after phase 9 (it is host-bound too; its numbers are taken
+     beside phase 9's and those runs' work), with every launch count at
+     0 before each run, drives the async
      pipeline: depth 1 without correction for 3 updates against 3
      iterations of ``train`` from the same seed (each loss within 1e-5,
      every parameter within 1e-4 relative norm); V-trace with 2 windows
@@ -146,21 +155,21 @@ The script
      updates/s and env-steps/s beside the card's name and power limit;
   9. with every launch count at 0 before each run, drives the
      checkpointed LM loop in a fresh temporary directory (which must
-     hold four checkpoints; removed after): (a) steps 1-4 uninterrupted,
-     saving step 4; (b) the same init, a real SIGTERM inside step 3, the
-     runner saving steps 2 and 3 and stopping; (c) a fresh state from
-     another seed restored through ``restore_state`` (``plan_assign``
-     exactly one encode's 12 sides) and stepped to 4
-     (``grouped_bmm_bf16`` 6 a layer and step throughout); checks that
-     (a)'s and (c)'s step-4 manifests agree leaf for leaf, hash for hash
-     (bitwise resume), times a save, a restore and the hashing of the
-     same bytes, checks that a corrupted leaf raises ``IOError`` and
-     leaves the target's hashes as they were, runs the launcher as a
-     process, SIGTERM once it logs step 2 (it must save step 3 and exit
-     0) and again (it must print ``steps 3->6``), and checks that the
-     SIGTERM handler is the one before the phase; prints checkpoint
-     bytes, save and restore s and GB/s beside the card's name and power
-     limit;
+     hold two checkpoints; removed after): (a) steps 1-4 uninterrupted,
+     its step-4 state hashed in memory; (b) the same init, a real
+     SIGTERM inside step 3, the runner saving step 3 and stopping; (c) a
+     fresh state from another seed restored through ``restore_state``
+     (``plan_assign`` exactly one encode's 12 sides) and stepped to 4,
+     saving step 4 (``grouped_bmm_bf16`` 6 a layer and step throughout);
+     checks that (a)'s state and (c)'s step-4 checkpoint agree leaf for
+     leaf, hash for hash (bitwise resume), times (c)'s step-4 save, the
+     restore and the hashing, checks that a corrupted leaf raises
+     ``IOError`` and leaves the target's hashes as they were, runs the
+     launcher as a process, SIGTERM once it logs step 2 (it must save
+     step 3 and exit 0) and again (it must print ``steps 3->6``), and
+     checks that the SIGTERM handler is the one before the phase; prints
+     checkpoint bytes, save and restore s and GB/s beside the card's
+     name and power limit;
   10. for gemma2-27b, internlm2-20b and gemma3-12b in turn: holds
       ``plan_assign`` bitwise at every FLGW side on the sort route and
       ``plan_rank``/``plan_place`` at every side past it (gemma2-27b's
@@ -189,7 +198,7 @@ The script
       at 0 (the launches checked); the same command as a process on the
       card (exit 0, its success, throughput and sparsity lines, each
       layer's learned sparsity within 10 points of 75 %), and ``--mesh
-      2,2`` (a non-zero exit naming sharding);
+      2,2`` in one process (a non-zero exit, "needs 4 devices");
   13. for mixtral-8x22b and arctic-480b in turn: ``plan_assign`` bitwise
       at every FLGW side (the experts' sides at L = layers x experts);
       ``fused_bmm`` at one MoE layer's batched expert shapes (E·G tiles
@@ -210,8 +219,8 @@ The script
       1-layer cut (B=1 x S=64, 4 greedy steps) and a profile of one
       prefill and 8 decode steps (``fused_bmm`` on wgmma and the
       streaming kernel only, ``flash_fwd`` on wgmma only);
-  14. mamba2-1.3b at full width and depth (48 layers, G=4 on its in and
-      out projections): ``plan_assign`` bitwise at every side,
+  14. mamba2-1.3b at full width, its depth cut to 12 of 48 layers (G=4
+      on its in and out projections): ``plan_assign`` bitwise at every side,
       ``fused_bmm`` at a layer's two projections for 4,096 and 4 rows,
       ``grouped_bmm_bf16`` at their training products, each timed; with
       the counts at 0, a certify session, a B=4 x S=1,024 prefill, a
@@ -254,7 +263,23 @@ The script
       kernel in every decode step, never wmma); 3 training steps through
       ``make_train_step`` with a frames batch (B=4 x S=448, launches
       exact);
-  16. prints each phase's wall seconds as it ends, then one
+  16. the IC3Net learner on an ``("env", "agent")`` process mesh, the
+      actor's config and env, B=16, 5 iterations (a plan refresh at the
+      top of each): with every launch count at 0, ``mesh=(1, 1)`` on a
+      world-1 NCCL group in this process, bitwise the run without a mesh
+      (parameters and history), ``plan_assign`` 2 x 5 layers x 6 encodes
+      and ``grouped_bmm_f32`` 5 x 5 layers x 30 steps, the gradient and
+      metric all-reduces on NCCL; then for (2, 1), (1, 2) and (2, 2) as
+      many spawned ranks on this card on gloo, the 8 ranks at once (NCCL
+      refuses two ranks on one card), each rank's launches exact on
+      (16/env)·(8/agent) rows a
+      ``grouped_bmm_f32`` call, its rollout tensors (16/env, 30,
+      8/agent), every rank's parameters bitwise rank 0's and within 1e-5
+      of the one-process run (losses within 1e-4); the compressed
+      all-reduce at ratio 1/G of two ranks' gradient trees as CUDA
+      tensors against a host reference; prints ms an iteration and
+      env-steps/s of each shape beside the card's name and power limit;
+  17. prints each phase's wall seconds as it ends, then one
       ``{"kernels": [...]}`` line, the card's name and power limit, and
       as the last line ``{"ok": true, "device": {...}}``.
 
@@ -280,6 +305,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -335,11 +361,38 @@ REPLAY_TOL = 1e-4
 OUT = ROOT / "chiprun_out"
 
 
+def port_kernels() -> tuple:
+    """Every kernel wrapper with a launch count, in the kernels line's
+    order."""
+    return (pe_ops.ASSIGN, pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM,
+            fm_ops.BMM16, fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ, fa_ops.DKV,
+            os_ops.OSEL)
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
 
 
+_WALL: dict = {}     # function -> [calls, inclusive wall s], this process
+
+
+def _timed(fn):
+    """Counts ``fn``'s calls and inclusive wall seconds in _WALL (where a
+    phase's time goes: the script prints them at its end)."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            c = _WALL.setdefault(fn.__name__, [0, 0.0])
+            c[0] += 1
+            c[1] += time.perf_counter() - t0
+    return wrapper
+
+
+@_timed
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     """Mean ms per call of ``fn`` over back-to-back calls, by CUDA events
     (host enqueue included when it is slower than the device)."""
@@ -356,6 +409,7 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+@_timed
 def host_us(fn, iters: int = 2000, warmup: int = 50) -> float:
     """Mean host us per call of ``fn``: the time for the call to return,
     without waiting for the device (the device keeps up when its time a
@@ -371,6 +425,7 @@ def host_us(fn, iters: int = 2000, warmup: int = 50) -> float:
     return dt / iters * 1e6
 
 
+@_timed
 def device_us(fn, calls: int = 20) -> float:
     """Device us per call of ``fn``: for each kernel or memset that
     ``calls`` calls ran, the profiler's mean time an event times its
@@ -516,6 +571,7 @@ def check_assign_one(what: str, scores, axis: int, slack: float) -> dict:
                 max_abs_err=err)
 
 
+@_timed
 def check_assign_kernel(sides, slack: float) -> list[dict]:
     """plan_assign checked and timed at every side of ``sides``
     (``(name, scores, axis)``)."""
@@ -596,6 +652,7 @@ def check_tiled(what: str, scores, axis: int, slack: float,
     return out
 
 
+@_timed
 def check_bmm_kernel(model, plans, rows_b: int) -> list[dict]:
     """grouped_bmm against its plain version on the compact operands of
     every FLGW layer, with B*A activation rows."""
@@ -713,6 +770,7 @@ def check_sort_route(launches: dict, what: str, tiled: int = 0) -> None:
               f"{name} launched {tiled} times on {what} ({launches[name]})")
 
 
+@_timed
 def profile(fn, names, spans=()) -> dict:
     """torch.profiler over one call of ``fn``: how many kernels the device
     ran, how much of the wall time it was busy, and each port kernel's
@@ -853,11 +911,13 @@ def check_bmm_routes(prof: dict) -> None:
           f"only ({n})")
 
 
+@_timed
 def serve_params(cfg, device) -> dict:
     return transformer.lm_init(
         torch.Generator(device=device).manual_seed(SEED), cfg)
 
 
+@_timed
 def check_fused_kernel(params, cfg, rows_bf16=(4, 4096),
                        rows_f32: Optional[int] = 64) -> list[dict]:
     """fused_bmm against its plain version at each FLGW projection of
@@ -938,6 +998,7 @@ def _attn_pairs(s: int, window: int) -> int:
     return sum(min(q + 1, window) if window > 0 else q + 1 for q in range(s))
 
 
+@_timed
 def check_flash_kernel(cfg, device,
                        cases=((PREFILL_SEQ, 4096), (PREFILL_SEQ, 0),
                               (512, 128)),
@@ -987,6 +1048,7 @@ def check_flash_kernel(cfg, device,
     return rows
 
 
+@_timed
 def run_serve(cfg, params, kernels, seq: int = PREFILL_SEQ,
               continuous: bool = True, tiled_sides: int = 0,
               batch: int = SERVE_BATCH,
@@ -1111,6 +1173,7 @@ def _decode_steps(session, cfg, prompt, steps, cache=None, feed=None,
     return torch.stack(logits), fed, snap
 
 
+@_timed
 def cpu_replay(cfg, params, blocks: int = 2, seq: int = 256,
                steps: int = 8, frames: Optional[torch.Tensor] = None) -> dict:
     """The first ``blocks`` blocks (2: 4 layers of gemma2) of the served
@@ -1171,6 +1234,7 @@ def cpu_replay(cfg, params, blocks: int = 2, seq: int = 256,
                 cpu_decode_s=cpu_decode_s, tol=REPLAY_BF16_TOL)
 
 
+@_timed
 def profile_serve(session, cfg, seq: int = PREFILL_SEQ,
                   names=None) -> dict:
     """The profiler over one B=4 x S=``seq`` prefill and 8 decode steps
@@ -1221,6 +1285,7 @@ TRAIN_KERNELS = {"plan_assign": "plan_assign_kernel",
 BMM16_ROUTES = {fm_ops.TMA: "tma + wgmma", fm_ops.WMMA: "wmma"}
 
 
+@_timed
 def check_bmm_bf16_kernel(cfg, device) -> list[dict]:
     """grouped_bmm_bf16 against its plain version at the training MLP's
     compact products (4096 rows; up and gate share a shape), on the TMA
@@ -1282,6 +1347,7 @@ def check_bmm_bf16_kernel(cfg, device) -> list[dict]:
     return rows
 
 
+@_timed
 def check_flash_bwd_kernels(cfg, device,
                             cases=((TRAIN_SEQ, 4096), (TRAIN_SEQ, 0),
                                    (512, 128)),
@@ -1523,6 +1589,7 @@ def run_train(kernels) -> dict:
                 step=step, cfg=cfg, ds=ds)
 
 
+@_timed
 def train_replay(cfg, params) -> dict:
     """One training step's loss and grad norm on the first block (2
     layers) of the trained weights, full width and vocab, B=1 x S=128, on
@@ -1831,35 +1898,101 @@ def profile_learner(lr: dict) -> dict:
     return profile(run, LEARN_KERNELS)
 
 
-def learning_check(device) -> dict:
-    """The Fig. 9 config trained on the card on the masked and the grouped
-    path; each final success rate within FIG9_BAND_PCT points of the JAX
-    package's."""
+FIG9_PATHS = ("masked", "grouped")
+FIG9_TIMEOUT_S = 900
+FIG9_THREADS = 1         # intra-op threads a run (host-bound on the card)
+
+
+def fig9_run(path: str, iters: int, device: str) -> dict:
+    """One Fig. 9 training run on ``path`` (module level: a spawned
+    process runs it)."""
     env, ecfg = envs.make("predator_prey", **FIG9_ENV)
+    cfg = ic3net.IC3NetConfig(hidden=128, flgw_groups=4, flgw_path=path)
+    t0 = time.perf_counter()
+    _, hist = train.train(cfg, ecfg, train.TrainConfig(batch=BATCH),
+                          iterations=iters, seed=SEED, env=env,
+                          device=resolve_device(device))
+    return dict(success=[h["success"] for h in hist],
+                steps_per_s=[h["steps_per_s"] for h in hist],
+                mask_sparsity=hist[-1]["mask_sparsity"],
+                wall_s=time.perf_counter() - t0)
+
+
+class _Background:
+    """``fn(*args, **kwargs)`` on a daemon thread (the script's exit does
+    not wait for it); ``result()`` joins it and re-raises its error."""
+
+    def __init__(self, fn, *args, **kwargs):
+        self._out = {}
+        self._thread = threading.Thread(
+            target=self._run, args=(fn, args, kwargs), daemon=True)
+        self._thread.start()
+
+    def _run(self, fn, args, kwargs) -> None:
+        try:
+            self._out["value"] = fn(*args, **kwargs)
+        except BaseException as e:                      # noqa: BLE001
+            self._out["error"] = e
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+def in_process(fn, *args, threads: int, timeout_s: float) -> _Background:
+    """``fn(*args)`` in a spawned process of its own, started now;
+    ``.result()`` waits for it and raises its error with its traceback.
+    For host-bound runs (the card busy ~5 % of their time): the phases
+    that run meanwhile share the host and the card with them."""
+    from repro_torch.launch import mesh as mesh_lib
+    d = tempfile.mkdtemp(prefix="repro-spawn-")
+
+    def run():
+        try:
+            return mesh_lib.spawn(fn, 1, *args, backend="gloo",
+                                  init_file=f"{d}/rdv", timeout_s=timeout_s,
+                                  torch_threads=threads)[0]
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    return _Background(run)
+
+
+def start_learning_check(device) -> dict:
+    """Starts the Fig. 9 config's masked and grouped runs on ``device``,
+    each in a process of its own; ``learning_check`` waits for them."""
+    return dict(runs={path: in_process(
+        fig9_run, path, FIG9_ITERS, str(device), threads=FIG9_THREADS,
+        timeout_s=FIG9_TIMEOUT_S) for path in FIG9_PATHS},
+        t0=time.perf_counter())
+
+
+def learning_check(started: dict) -> dict:
+    """Waits for ``start_learning_check``'s runs: each final success rate
+    within FIG9_BAND_PCT points of the JAX package's."""
     out = {}
-    for path in ("masked", "grouped"):
-        cfg = ic3net.IC3NetConfig(hidden=128, flgw_groups=4, flgw_path=path)
-        t0 = time.perf_counter()
-        _, hist = train.train(cfg, ecfg, train.TrainConfig(batch=BATCH),
-                              iterations=FIG9_ITERS, seed=SEED, env=env,
-                              device=device)
-        wall_s = time.perf_counter() - t0
-        succ = np.array([h["success"] for h in hist]) * 100
+    for path, run in started["runs"].items():
+        r = run.result()
+        succ = np.array(r["success"]) * 100
         out[path] = dict(
             final_pct=float(succ[-FIG9_TAIL:].mean()),
             first_pct=float(succ[:FIG9_TAIL].mean()),
             mean_pct=float(succ.mean()),
-            mask_sparsity=hist[-1]["mask_sparsity"], wall_s=wall_s,
-            ms_per_iter=statistics.median(1e3 / h["steps_per_s"]
-                                          for h in hist),
+            mask_sparsity=r["mask_sparsity"], wall_s=r["wall_s"],
+            ms_per_iter=statistics.median(1e3 / x
+                                          for x in r["steps_per_s"]),
             jax_final_pct=FIG9_JAX_PCT[path])
         print(f"  learning check {path}: final success "
               f"{out[path]['final_pct']:.2f} % (JAX package "
               f"{FIG9_JAX_PCT[path]} %), first {FIG9_TAIL} "
               f"{out[path]['first_pct']:.2f} %, mean "
               f"{out[path]['mean_pct']:.2f} %, sparsity "
-              f"{out[path]['mask_sparsity']:.4f}, {wall_s:.1f} s", flush=True)
-    for path, r in out.items():
+              f"{out[path]['mask_sparsity']:.4f}, {r['wall_s']:.1f} s "
+              "in its own process", flush=True)
+    out["wall_s"] = time.perf_counter() - started["t0"]
+    for path in FIG9_PATHS:
+        r = out[path]
         floor = FIG9_JAX_PCT[path] - FIG9_BAND_PCT
         check(r["final_pct"] >= floor,
               f"learning check {path}: final success {r['final_pct']:.2f} "
@@ -2044,6 +2177,19 @@ def run_async(kernels, device) -> dict:
     return out
 
 
+ASYNC_TIMEOUT_S = 900
+ASYNC_THREADS = 2        # intra-op threads (the CPU replay of an update)
+
+
+def async_phase(device: str) -> dict:
+    """``run_async`` in a process of its own (module level: a spawned
+    process runs it), its wall seconds beside its results."""
+    t0 = time.perf_counter()
+    out = run_async(port_kernels(), resolve_device(device))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def async_breakdown(model, opt, env, ecfg, tcfg, acfg) -> dict:
     """Synchronised wall ms of each piece of a deterministic update
     (median of 3 after a warm-up), and the profiler over one update cycle
@@ -2145,14 +2291,14 @@ def async_replay(model, traj, tcfg, acfg) -> dict:
 
 # gemma2-2b at full width cut to one local-window and one global slot:
 # a checkpoint is ~7.5 GB (bf16 params, two f32 moments); at 26 layers it
-# would be ~26 GB, and the phase holds four at once.
+# would be ~26 GB, and the phase holds two at once.
 CKPT_LAYERS = 2
 CKPT_STEPS, CKPT_SIGTERM_STEP = 4, 3
 # refresh every 2 steps on a change of layout: the resume at step 3 lands
 # mid-period, where a restore that trusted stale plans would diverge
 CKPT_SCHEDULE = SparsitySchedule(groups=4, refresh_every=2,
                                  refresh="on_change")
-CKPT_ON_DISK = 4
+CKPT_ON_DISK = 2               # (b)'s step 3 and (c)'s step 4
 # the launcher leg: its smoke config on the card, grouped
 LAUNCH_ARGS = ("--arch", "gemma2_2b", "--flgw-groups", "4", "--flgw-path",
                "grouped", "--save-every", "2", "--steps", "6",
@@ -2220,14 +2366,22 @@ def _launcher(d: Path, stop_after: Optional[str]) -> dict:
                 wall_s=time.perf_counter() - t0)
 
 
+def _state_hashes(state) -> dict:
+    """Each leaf's hash, as ``save_checkpoint`` records it."""
+    return {p: store.hash_array(store.leaf_to_numpy(leaf)[0])
+            for p, leaf in store.tree_paths(state)}
+
+
 def run_checkpoint(kernels, device) -> dict:
     """gemma2-2b at full width, 2 layers, grouped, through StepRunner:
     (a) steps 1-4 uninterrupted; (b) the same init preempted by a real
     SIGTERM inside step 3; (c) a fresh state from another seed restored
-    through ``restore_state`` and stepped to 4. Every launch count at 0
-    before each. (a)'s and (c)'s step-4 checkpoints must agree hash for
-    hash. Then a timed save, a corrupted leaf, and the launcher as a
-    process preempted and resumed."""
+    through ``restore_state`` and stepped to 4, saving step 4. Every
+    launch count at 0 before each. (a)'s step-4 state and (c)'s step-4
+    checkpoint must agree hash for hash. Then a corrupted leaf of that
+    checkpoint, and the launcher as a process preempted and resumed. The
+    save timed is (c)'s step-4 save (its run's wall less its step's), the
+    hashing (a)'s state's (the device-to-host copies included)."""
     t_phase = time.perf_counter()
     cfg = registry.get_config("gemma2_2b", **TRAIN_FLGW).with_updates(
         n_layers=CKPT_LAYERS)
@@ -2235,7 +2389,7 @@ def run_checkpoint(kernels, device) -> dict:
     ds = SyntheticTokens(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
     sigterm_before = signal.getsignal(signal.SIGTERM)
     root = Path(tempfile.mkdtemp(prefix="repro-ckpt-"))
-    dir_a, dir_b, dir_x = root / "a", root / "b", root / "x"
+    dir_a, dir_b = root / "a", root / "b"      # (a) writes nothing
     out = dict(cut=f"n_layers {CKPT_LAYERS} of 26 (one local, one global "
                    f"slot)", params=param_count(cfg), dir=str(root))
 
@@ -2270,7 +2424,9 @@ def run_checkpoint(kernels, device) -> dict:
         check(disk.free >= CKPT_ON_DISK * state_bytes,
               f"{root} holds {CKPT_ON_DISK} checkpoints of "
               f"{state_bytes / 1e9:.2f} GB ({disk.free / 1e9:.1f} GB free)")
-        runner = StepRunner(timed, dir_a, save_every=CKPT_STEPS)
+        # no save: (c) takes the periodic one; (a)'s step-4 state is hashed
+        # in memory, as a save would hash it
+        runner = StepRunner(timed, dir_a, save_every=CKPT_STEPS + 1)
         try:
             state, out["a"] = _ckpt_run(runner, state, ds, 0, device)
         finally:
@@ -2278,16 +2434,19 @@ def run_checkpoint(kernels, device) -> dict:
         out["a"]["launches"] = _counts(kernels)
         _ckpt_launches(out["a"]["launches"], "checkpoint run (a)",
                        CKPT_STEPS)
-        check(out["a"]["end"] == CKPT_STEPS
-              and store.list_steps(dir_a) == [CKPT_STEPS],
-              f"run (a) wrote step {CKPT_STEPS} ({store.list_steps(dir_a)})")
+        check(out["a"]["end"] == CKPT_STEPS,
+              f"run (a) ran to step {CKPT_STEPS} ({out['a']['end']})")
+        t0 = time.perf_counter()
+        hashes_a = _state_hashes(state)
+        out["hash_s"] = time.perf_counter() - t0
         del state
 
-        # (b) the same init, SIGTERM inside step 3
+        # (b) the same init, SIGTERM inside step 3 (no periodic save before
+        # it: (a) and (c) take those)
         _zero(kernels)
         state = state_lib.init_state(
             torch.Generator(device=device).manual_seed(SEED), cfg)
-        runner = StepRunner(preempted, dir_b, save_every=2)
+        runner = StepRunner(preempted, dir_b, save_every=CKPT_STEPS)
         try:
             state, out["b"] = _ckpt_run(runner, state, ds, 0, device)
         finally:
@@ -2296,7 +2455,7 @@ def run_checkpoint(kernels, device) -> dict:
         _ckpt_launches(out["b"]["launches"], "checkpoint run (b)",
                        CKPT_SIGTERM_STEP)
         check(out["b"]["end"] == CKPT_SIGTERM_STEP
-              and store.list_steps(dir_b) == [2, CKPT_SIGTERM_STEP],
+              and store.list_steps(dir_b) == [CKPT_SIGTERM_STEP],
               f"run (b) stopped at the SIGTERM's boundary "
               f"{CKPT_SIGTERM_STEP} and saved it ({out['b']['end']}, "
               f"{store.list_steps(dir_b)})")
@@ -2321,51 +2480,40 @@ def run_checkpoint(kernels, device) -> dict:
             _ckpt_launches(out["restore_launches"], "the restore", 0,
                            encodes=1)
             _zero(kernels)
+            t0 = time.perf_counter()
             state, out["c"] = _ckpt_run(runner, state, ds, start, device)
+            # the run's one step and its step-4 save
+            out["save_s"] = time.perf_counter() - t0 - sum(
+                out["c"]["step_s"])
         finally:
             runner.guard.restore()
         out["c"]["launches"] = _counts(kernels)
         _ckpt_launches(out["c"]["launches"], "checkpoint run (c)",
                        CKPT_STEPS - CKPT_SIGTERM_STEP)
-        ma = store.read_manifest(dir_a, step=CKPT_STEPS)
         mc = store.read_manifest(dir_b, step=CKPT_STEPS)
-        differ = [a["path"] for a, c in zip(ma["leaves"], mc["leaves"])
-                  if a != c]
-        out.update(leaves=len(ma["leaves"]), leaves_differing=differ)
-        check(len(ma["leaves"]) == len(mc["leaves"]) and not differ,
-              f"(a)'s and (c)'s step-{CKPT_STEPS} checkpoints agree leaf "
-              f"for leaf, hash for hash ({len(differ)} of "
-              f"{len(ma['leaves'])} differ: {differ[:8]})")
-        out["ckpt_bytes"] = sum(
-            f.stat().st_size
-            for f in (dir_b / f"step_{CKPT_STEPS:08d}").iterdir())
-        shutil.rmtree(dir_a)
+        hashes_c = {e["path"]: e["hash"] for e in mc["leaves"]}
+        differ = [p for p in hashes_c if hashes_a.get(p) != hashes_c[p]]
+        out.update(leaves=len(hashes_c), leaves_differing=differ)
+        check(hashes_a.keys() == hashes_c.keys() and not differ,
+              f"(a)'s step-{CKPT_STEPS} state and (c)'s step-{CKPT_STEPS} "
+              f"checkpoint agree leaf for leaf, hash for hash ({len(differ)} "
+              f"of {len(hashes_c)} differ: {differ[:8]})")
+        path = dir_b / f"step_{CKPT_STEPS:08d}"
+        out["ckpt_bytes"] = sum(f.stat().st_size for f in path.iterdir())
 
-        # a timed save of the resumed state, then a corrupted leaf
-        t0 = time.perf_counter()
-        path = Path(store.save_checkpoint(dir_x, CKPT_STEPS, state))
-        out["save_s"] = time.perf_counter() - t0
-        mx = store.read_manifest(dir_x)
-        out["hash_s"] = 0.0
-        for e in mx["leaves"]:
-            arr = np.load(path / e["file"])
-            t0 = time.perf_counter()
-            store.hash_array(arr)
-            out["hash_s"] += time.perf_counter() - t0
-        bad = mx["leaves"][-1]
+        # a corrupted leaf of (c)'s step-4 checkpoint
+        bad = mc["leaves"][-1]
         raw = bytearray((path / bad["file"]).read_bytes())
         raw[-1] ^= 0xFF
         (path / bad["file"]).write_bytes(bytes(raw))
         try:
-            store.restore_checkpoint(dir_x, state)
+            store.restore_checkpoint(dir_b, state)
             raised = None
         except IOError as e:
             raised = str(e)
         check(raised == f"checkpoint corruption at {bad['path']}",
               f"a corrupted {bad['path']} raises IOError ({raised})")
-        hashes = {p: store.hash_array(store.leaf_to_numpy(leaf)[0])
-                  for p, leaf in store.tree_paths(state)}
-        check(hashes == {e["path"]: e["hash"] for e in mc["leaves"]},
+        check(_state_hashes(state) == hashes_c,
               "the failed restore left the target untouched")
         out.update(corrupted=bad["path"], raised=raised)
         del state
@@ -2428,6 +2576,7 @@ def _launches(kernels) -> dict:
     return {k.symbol: k.launches for k in kernels}
 
 
+@_timed
 def check_assign_sides(params, slack: float) -> dict:
     """plan_assign bitwise at every FLGW side of ``params`` that takes the
     sort route, timed once per distinct (L, M, G, axis); plan_rank and
@@ -2725,8 +2874,8 @@ def run_sync_launcher(kernels, device, card: str) -> dict:
     128, B=16). Its kernels at its shapes (plan_assign bitwise at every
     side, grouped_bmm_f32 at every layer, timed); its ``main`` in this
     process with the counts at 0; then the same command as a process on
-    the card (exit 0, its lines), and ``--mesh 2,2`` (a non-zero exit
-    naming sharding)."""
+    the card (exit 0, its lines), and ``--mesh 2,2`` without a process
+    group (a non-zero exit, "needs 4 devices")."""
     env, ecfg = envs.make("predator_prey", **LAUNCHER_ENV)
     cfg = ic3net.IC3NetConfig(hidden=128, flgw_groups=4, flgw_path="grouped")
     model, _ = train._init(cfg, ecfg, env, SEED, device)
@@ -2774,10 +2923,10 @@ def run_sync_launcher(kernels, device, card: str) -> dict:
     bad = subprocess.run([*cmd, *argv, "--mesh", "2,2"], env=penv,
                          capture_output=True, text=True,
                          timeout=LAUNCHER_TIMEOUT_S)
-    check(bad.returncode != 0 and "is not ported to repro_torch yet" in
-          bad.stderr and "sharding" in bad.stderr,
-          f"--mesh 2,2 exits non-zero naming sharding ({bad.returncode}: "
-          f"{bad.stderr[-400:]!r})")
+    check(bad.returncode != 0 and "marl mesh (2, 2) needs 4 devices, only "
+          "1 available" in bad.stderr,
+          f"--mesh 2,2 without a process group exits non-zero with the "
+          f"reference's message ({bad.returncode}: {bad.stderr[-400:]!r})")
     res = dict(argv=argv, launches=launches, assign=assign,
                bmm_rows=bmm_rows, in_process=in_proc, in_process_s=in_proc_s,
                process=proc, process_s=proc_s, process_stdout=ok.stdout,
@@ -2873,6 +3022,7 @@ def _expert_projs(p, plans) -> list:
             for name in ("up", "gate", "down")]
 
 
+@_timed
 def check_compact_kernels(projs, cfg, rows_list, bmm: bool,
                           fused: bool = True) -> list[dict]:
     """fused_bmm against its plain version at each of ``projs`` (``(name,
@@ -2951,6 +3101,7 @@ def check_compact_kernels(projs, cfg, rows_list, bmm: bool,
     return rows
 
 
+@_timed
 def moe_oracle(p, plans, cfg, device) -> dict:
     """One MoE layer's output for MOE_ORACLE_TOKENS tokens through
     ``moe`` (dropless, the plans' compact weights: one fused_bmm launch a
@@ -3160,6 +3311,7 @@ SSM_SEQ = 1024
 MAMBA_TARGETS = ("ssm",)
 MAMBA_PROJECTIONS = 2         # a Mamba2 layer's compact products: in, out
 MAMBA_REPLAY_BLOCKS = 2       # 2 layers replayed on the CPU
+MAMBA_LAYERS = 12             # of 48: the script's time limit
 SSM_TRAIN_BATCH = 4
 # jamba-1.5-large cut in depth to slots 0-1 of its 8-slot period (attention
 # + MLP, SSM + MoE: every kind of slot it has); one period is ~44 B params
@@ -3262,6 +3414,7 @@ def _train_launches(launches: dict, what: str, sides: int, bmm: int,
         check(launches[name] == 0, f"{name} not launched on {what}")
 
 
+@_timed
 def run_lm_train(kernels, device, arch: str, targets, batch: int,
                  layers: Optional[int] = None) -> tuple:
     """``train_lm`` at full width (cut to ``layers``), FLGW G=4 grouped
@@ -3287,7 +3440,7 @@ def run_lm_train(kernels, device, arch: str, targets, batch: int,
 
 
 def run_mamba2(kernels, device, card: str) -> dict:
-    """mamba2-1.3b at full width and depth (48 layers), FLGW G=4 grouped
+    """mamba2-1.3b at full width, MAMBA_LAYERS of 48, FLGW G=4 grouped
     on ``"ssm"`` (its in and out projections): plan_assign bitwise at
     every side, fused_bmm at a layer's 2 projections and grouped_bmm_bf16
     at their training products; with the counts at 0, a certify session,
@@ -3296,7 +3449,7 @@ def run_mamba2(kernels, device, card: str) -> dict:
     zeroes their SSM state) with exact launches; a 2-layer CPU replay; a
     profile of the prefill (the SSD scan's share of device time); then
     3 training steps."""
-    cfg = _ssm_cfg("mamba2_1_3b", MAMBA_TARGETS)
+    cfg = _ssm_cfg("mamba2_1_3b", MAMBA_TARGETS, n_layers=MAMBA_LAYERS)
     slack = flgw.FLGWConfig().capacity_slack
     params = serve_params(cfg, device)
     n_params = sum(t.numel() for t in _leaves(params))
@@ -3363,7 +3516,7 @@ def run_mamba2(kernels, device, card: str) -> dict:
     torch.cuda.empty_cache()
 
     tr, state = run_lm_train(kernels, device, "mamba2_1_3b", MAMBA_TARGETS,
-                             SSM_TRAIN_BATCH)
+                             SSM_TRAIN_BATCH, MAMBA_LAYERS)
     # the 2 projections a layer, in the forward and its remat replay
     _train_launches(tr["launches"], "mamba2 training",
                     2 * MAMBA_PROJECTIONS, 2 * MAMBA_PROJECTIONS
@@ -3393,6 +3546,7 @@ def _masked_dense(p, plans):
             for k, v in p.items()}
 
 
+@_timed
 def jamba_oracle(params, plans, cfg, device) -> list[dict]:
     """The cut's 2 layers on JAMBA_ORACLE_TOKENS tokens, layer by layer
     from the same input: ``_slot_apply`` on the grouped path (the plans'
@@ -4151,6 +4305,266 @@ def whisper_launches(wh, sym: str) -> dict:
             "whisper_large_v3_train": wh["train"]["launches"][sym]}
 
 
+# ---------------------------------------------------------------------------
+# The IC3Net learner on an (env, agent) process mesh
+# ---------------------------------------------------------------------------
+
+MESH_ITERS = 5                 # a plan refresh at the top of every one
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+MESH_PARAM_ATOL, MESH_LOSS_RTOL = 1e-5, 1e-4
+MESH_TIMEOUT_S = 180
+# the three shapes' 8 ranks run at once (each rank's start-up, ~8 s to
+# reach the card, is most of its time), one intra-op thread each
+MESH_RANK_THREADS = 1
+COMPRESS_RATIO = 0.25          # 1/G
+COMPRESS_TOL = 1e-6
+
+
+def _mesh_config():
+    env, ecfg = envs.make("predator_prey", **ENV)
+    cfg = dataclasses.replace(configs.config(), flgw_groups=4,
+                              flgw_path="grouped")
+    return env, ecfg, cfg, train.TrainConfig(batch=BATCH)
+
+
+def _state_np(model) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in
+            model.state_dict().items()}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_rank(shape: tuple, compress: bool, device: str) -> dict:
+    """One rank of a spawned mesh run on ``device`` (gloo): ``train`` with
+    ``mesh=shape`` and every launch count at 0 first; then its shard's
+    rollout shape, and with ``compress`` the compressed all-reduce of this
+    rank's own gradient tree."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim import compressed_allreduce, compression_init
+    from repro_torch.sharding import collectives
+    dev = resolve_device(device)
+    env, ecfg, cfg, tcfg = _mesh_config()
+    kernels = port_kernels()
+    rows = set()
+    bmm = fm_ops.grouped_bmm
+
+    def recording(xg, wc):
+        rows.add(int(xg.shape[1]))
+        return bmm(xg, wc)
+    fm_ops.grouped_bmm = recording
+    for k in kernels:
+        k.launches = 0
+    _sync(dev)
+    model, hist = train.train(cfg, ecfg, dataclasses.replace(tcfg, mesh=shape),
+                              iterations=MESH_ITERS, seed=SEED, env=env,
+                              device=dev)
+    _sync(dev)
+    launches = {k.symbol: k.launches for k in kernels}
+    fm_ops.grouped_bmm = bmm
+    calls = {"/".join(map(str, k)): v for k, v in collectives.CALLS.items()}
+    mesh = mesh_lib.make_marl_mesh(env=shape[0], agent=shape[1])
+    shard = train.shard_for(mesh, BATCH, ecfg.n_agents)
+    gen = train.make_generator(SEED + 30, dev)
+    with torch.no_grad():
+        plans = model.encode_plans()
+        state = shard.take_rows(env.reset(gen, ecfg, BATCH))
+        r = train.run_episode(model, env, ecfg, state,
+                              train.sampler(gen, shard), plans, shard=shard)
+    out = dict(rank=dist.get_rank(), params=_state_np(model),
+               history=hist, launches=launches, bmm_rows=sorted(rows),
+               rollout_shape=tuple(r.reward.shape), calls=calls,
+               plans_sig=int(plans.sig))
+    if compress:
+        # this rank's own gradients (its env rows, no mesh sum): the
+        # ranks' trees differ
+        local = dataclasses.replace(tcfg, batch=BATCH // shape[0])
+        g = train.make_generator(SEED + 31 + dist.get_rank(), dev)
+        _, grads = train._loss_grads(
+            model, env, ecfg, local, env.reset(g, ecfg, local.batch),
+            train.sampler(g), MESH_ITERS, None, plans)
+        reduced, st = compressed_allreduce(
+            grads, compression_init(grads), dist.group.WORLD,
+            ratio=COMPRESS_RATIO)
+        _sync(dev)
+        out["compress"] = dict(
+            grads=dict(_grad_leaves(grads)),
+            reduced=dict(_grad_leaves(reduced)),
+            error=dict(_grad_leaves(st.error)),
+            on_device=all(t.device == dev for _, t in
+                          _grad_leaves(reduced)))
+    return out
+
+
+def _compress_reference(ranks: list) -> dict:
+    """The compressed all-reduce of the ranks' gradient trees on the host:
+    each rank's top-k scatter, their mean, and each residual."""
+    from repro_torch.optim import topk_compress, topk_decompress
+    worst = dict(reduced=0.0, error=0.0)
+    for name in ranks[0]["grads"]:
+        sent = []
+        for r in ranks:
+            g = torch.from_numpy(r["grads"][name])
+            vals, idx, _ = topk_compress(g, COMPRESS_RATIO)
+            s = topk_decompress(vals, idx, g.shape)
+            sent.append(s)
+            worst["error"] = max(worst["error"], float(
+                (torch.from_numpy(r["error"][name]) - (g - s)).abs().max()))
+        want = torch.stack(sent).sum(0) / len(ranks)
+        for r in ranks:
+            worst["reduced"] = max(worst["reduced"], float(
+                (torch.from_numpy(r["reduced"][name]) - want).abs().max()))
+    return worst
+
+
+def mesh_launches(mesh, sym: str) -> dict:
+    """One kernel's launches on phase 16's paths: the (1, 1) mesh in this
+    process and every spawned rank of each shape."""
+    return {"ic3net_mesh_1x1": mesh["1x1"]["launches"][sym],
+            **{f"ic3net_mesh_{e}x{a}": sum(
+                r.get(sym, 0) for r in mesh[f"{e}x{a}"]["launches"])
+               for e, a in MESH_SHAPES}}
+
+
+def run_mesh(kernels, device, card: str) -> dict:
+    """Phase 16: (a) ``mesh=(1, 1)`` on a world-1 NCCL group in this
+    process, bitwise the run without a mesh, launches exact, the gradient
+    all-reduce on NCCL; (b) spawned ranks on this card (gloo) for each of
+    MESH_SHAPES, all at once, against the one-process run; (c) the
+    compressed all-reduce over the 2-rank group."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding import collectives
+    env, ecfg, cfg, tcfg = _mesh_config()
+    out = {}
+    model0, hist0 = train.train(cfg, ecfg, tcfg, iterations=MESH_ITERS,
+                                seed=SEED, env=env, device=device)
+    layers = len(list(grouped.iter_flgw_layers(model0.params)))
+    want = {k.symbol: 0 for k in kernels}
+    want.update(plan_assign=2 * layers * (MESH_ITERS + 1),
+                grouped_bmm_f32=MESH_ITERS * layers * ecfg.max_steps)
+    ref = _state_np(model0)
+    ref_loss = np.array([h["loss"] for h in hist0])
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(backend, init_method=f"file://{d}/rdv",
+                                world_size=1, rank=0)
+        try:
+            collectives.CALLS.clear()
+            _zero(kernels)
+            model1, hist1 = train.train(
+                cfg, ecfg, dataclasses.replace(tcfg, mesh=(1, 1)),
+                iterations=MESH_ITERS, seed=SEED, env=env, device=device)
+            torch.cuda.synchronize()
+            launches = {k.symbol: k.launches for k in kernels}
+            calls = dict(collectives.CALLS)
+        finally:
+            dist.destroy_process_group()
+    p1 = _state_np(model1)
+    check(all(np.array_equal(ref[k], p1[k]) for k in ref),
+          "mesh (1, 1) parameters bitwise the run without a mesh")
+    check([[h[k] for k in train._METRICS] for h in hist0]
+          == [[h[k] for k in train._METRICS] for h in hist1],
+          "mesh (1, 1) history bitwise the run without a mesh")
+    check(launches == want, f"mesh (1, 1) launches {launches} == {want}")
+    check(calls == {("all_reduce", "nccl"): 2 * MESH_ITERS},
+          f"mesh (1, 1): the gradient and metric all-reduces on NCCL, one "
+          f"each an iteration ({calls})")
+    sparse = hist1[1:]
+    out["1x1"] = dict(
+        launches=launches, calls={"/".join(map(str, k)): v
+                                  for k, v in calls.items()},
+        ms_per_iter=statistics.median(1e3 / h["steps_per_s"] for h in sparse),
+        env_steps_per_s=statistics.median(h["env_steps_per_s"]
+                                          for h in sparse),
+        losses=[h["loss"] for h in hist1])
+    print(f"  mesh (1, 1) on NCCL, one process: launches {launches}, "
+          f"{out['1x1']['ms_per_iter']:.2f} ms an iteration (median after "
+          f"the first), {out['1x1']['env_steps_per_s']:.1f} env-steps/s on "
+          f"{card}; bitwise the run without a mesh", flush=True)
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d, \
+            ThreadPoolExecutor(len(MESH_SHAPES)) as pool:
+        spawned = list(pool.map(lambda shape: mesh_lib.spawn(
+            mesh_rank, shape[0] * shape[1], shape, shape == (2, 1),
+            str(device), backend="gloo",
+            init_file=f"{d}/rdv{shape[0]}x{shape[1]}",
+            timeout_s=MESH_TIMEOUT_S, torch_threads=MESH_RANK_THREADS),
+            MESH_SHAPES))
+    wall_s = time.perf_counter() - t0
+    out["spawned_wall_s"] = wall_s
+    for shape, ranks in zip(MESH_SHAPES, spawned):
+        e, a = shape
+        world = e * a
+        name = f"{e}x{a}"
+        r0 = ranks[0]["params"]
+        check(all(all(np.array_equal(r["params"][k], r0[k]) for k in r0)
+                  for r in ranks),
+              f"mesh {shape}: every rank's parameters bitwise rank 0's")
+        check(len({r["plans_sig"] for r in ranks}) == 1,
+              f"mesh {shape}: every rank's plan signature equal")
+        err = max(float(np.abs(r0[k] - ref[k]).max()) for k in ref)
+        check(err <= MESH_PARAM_ATOL,
+              f"mesh {shape}: parameters within {MESH_PARAM_ATOL} of the "
+              f"one-process card run (max abs err {err})")
+        losses = np.array([h["loss"] for h in ranks[0]["history"]])
+        lrel = float(np.max(np.abs(losses - ref_loss) / np.abs(ref_loss)))
+        check(lrel <= MESH_LOSS_RTOL,
+              f"mesh {shape}: losses within rtol {MESH_LOSS_RTOL} ({lrel})")
+        check(all([[h[k] for k in train._METRICS] for h in r["history"]]
+                  == [[h[k] for k in train._METRICS]
+                      for h in ranks[0]["history"]] for r in ranks),
+              f"mesh {shape}: every rank's metrics equal")
+        rows = (BATCH // e) * (ecfg.n_agents // a)
+        for r in ranks:
+            check(r["launches"] == want,
+                  f"mesh {shape} rank {r['rank']}: launches "
+                  f"{r['launches']} == {want}")
+            check(r["bmm_rows"] == [rows],
+                  f"mesh {shape} rank {r['rank']}: grouped_bmm_f32 on "
+                  f"{rows} rows a call ({r['bmm_rows']})")
+            check(r["rollout_shape"] == (BATCH // e, ecfg.max_steps,
+                                         ecfg.n_agents // a),
+                  f"mesh {shape} rank {r['rank']}: rollout tensors "
+                  f"{r['rollout_shape']}")
+        hist = ranks[0]["history"][1:]
+        out[name] = dict(
+            max_abs_err=err, loss_rel=lrel,
+            launches=[r["launches"] for r in ranks], bmm_rows=rows,
+            calls=ranks[0]["calls"],
+            ms_per_iter=[statistics.median(1e3 / h["steps_per_s"]
+                                           for h in r["history"][1:])
+                         for r in ranks],
+            env_steps_per_s=statistics.median(h["env_steps_per_s"]
+                                              for h in hist),
+            losses=losses.tolist())
+        print(f"  mesh {shape}, {world} spawned ranks on {card} (gloo; "
+              f"the three shapes' ranks at once): "
+              f"launches {ranks[0]['launches']} a rank, grouped_bmm_f32 on "
+              f"{rows} rows; ms an iteration by rank "
+              f"{[round(x, 2) for x in out[name]['ms_per_iter']]}, "
+              f"{out[name]['env_steps_per_s']:.1f} env-steps/s; params max "
+              f"abs err {err:.3g}, losses rel {lrel:.3g}; collectives "
+              f"{ranks[0]['calls']}", flush=True)
+        if shape == (2, 1):
+            c = _compress_reference([r["compress"] for r in ranks])
+            check(all(r["compress"]["on_device"] for r in ranks)
+                  and c["reduced"] <= COMPRESS_TOL
+                  and c["error"] <= COMPRESS_TOL,
+                  f"compressed_allreduce (ratio {COMPRESS_RATIO}, 2 ranks, "
+                  f"CUDA tensors) equals its host reference ({c})")
+            out["compress"] = c
+            print(f"  compressed_allreduce over 2 ranks at ratio "
+                  f"{COMPRESS_RATIO}: max abs err {c}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4164,7 +4578,7 @@ def main() -> int:
 
     phase_s, t_phase = {}, [time.perf_counter()]
 
-    def phase_done(n: int, what: str) -> None:
+    def phase_done(n, what: str) -> None:
         """Print and record phase ``n``'s wall seconds."""
         now = time.perf_counter()
         phase_s[f"{n} {what}"] = now - t_phase[0]
@@ -4184,9 +4598,7 @@ def main() -> int:
     fa_usage = ptxas.get("flash_attention", {})
     fm_usage = ptxas.get("flgw_matmul", {})
     pe_usage = ptxas.get("plan_encode", {})
-    all_kernels = (pe_ops.ASSIGN, pe_ops.RANK, pe_ops.PLACE, fm_ops.BMM,
-                   fm_ops.BMM16, fm_ops.FUSED, fa_ops.FWD, fa_ops.DQ,
-                   fa_ops.DKV, os_ops.OSEL)
+    all_kernels = port_kernels()
 
     # -- path 1: the IC3Net actor -------------------------------------------
     env, ecfg = envs.make("predator_prey", **ENV)
@@ -4428,11 +4840,37 @@ def main() -> int:
     learner_out = {k: v for k, v in lr.items()
                    if k not in ("model", "env", "ecfg", "tcfg")}
     del lr
-    fig9 = learning_check(dev)
-    phase_done(7, "IC3Net learner and Fig. 9")
+    # phase 8 and the Fig. 9 runs go on in processes of their own (each
+    # host-bound) while phase 9 runs in this one
+    fig9_runs = start_learning_check(dev)
+    async_run = in_process(async_phase, str(dev), threads=ASYNC_THREADS,
+                           timeout_s=ASYNC_TIMEOUT_S)
+    phase_done(7, "IC3Net learner; phase 8 and the Fig. 9 runs started")
+
+    # -- path 6: checkpoints and the fault-tolerant LM loop ----------------
+    ck = run_checkpoint(all_kernels, dev)
+    print(f"slice 10: gemma2-2b at full width, {ck['cut']}, "
+          f"{ck['params']:,} params, {ck['ckpt_bytes']:,} bytes a "
+          f"checkpoint ({ck['leaves']} leaves); (a) losses {ck['a']['loss']}, "
+          f"(b) stopped at {ck['b']['end']} by SIGTERM, (c) resumed at "
+          f"{CKPT_SIGTERM_STEP}, loss {ck['c']['loss']}; (a)'s step-"
+          f"{CKPT_STEPS} state and (c)'s checkpoint equal hash for hash; "
+          f"launches (a) "
+          f"{ck['a']['launches']}, restore {ck['restore_launches']}, (c) "
+          f"{ck['c']['launches']}; a corrupted {ck['corrupted']} raised "
+          f"IOError, target untouched; the launcher process stopped at 3 "
+          f"by SIGTERM and resumed 3->6", flush=True)
+    print(f"checkpoint I/O on {card}: {ck['ckpt_bytes'] / 1e9:.3f} GB a "
+          f"checkpoint; save {ck['save_s']:.2f} s ({ck['save_gb_s']:.2f} "
+          f"GB/s); restore {ck['restore_s']:.2f} s ({ck['restore_gb_s']:.2f} "
+          f"GB/s; hashing a state alone {ck['hash_s']:.2f} s); "
+          f"phase {ck['wall_s']:.1f} s", flush=True)
+    plan_cache.clear()
+    torch.cuda.empty_cache()
+    phase_done(9, "checkpoints, beside phase 8 and the Fig. 9 runs")
 
     # -- path 5: the async actor/learner pipeline ---------------------------
-    asy = run_async(all_kernels, dev)
+    asy = async_run.result()
     an, op, th = asy["anchor"], asy["off_policy"], asy["threaded"]
     print(f"slice 9: async anchor (depth 1, no correction) losses "
           f"{[round(x, 6) for x in an['losses']]} against train's "
@@ -4454,28 +4892,14 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f}" for k, v in bd["ms"].items()),
           flush=True)
     print_profile("one async update cycle", bd["profile"])
-    phase_done(8, "async pipeline")
+    print(f"async pipeline (beside phase 9): {asy['wall_s']:.1f} s in its "
+          f"own process", flush=True)
+    phase_done(8, "async pipeline, joined after phase 9")
 
-    # -- path 6: checkpoints and the fault-tolerant LM loop ----------------
-    ck = run_checkpoint(all_kernels, dev)
-    print(f"slice 10: gemma2-2b at full width, {ck['cut']}, "
-          f"{ck['params']:,} params, {ck['ckpt_bytes']:,} bytes a "
-          f"checkpoint ({ck['leaves']} leaves); (a) losses {ck['a']['loss']}, "
-          f"(b) stopped at {ck['b']['end']} by SIGTERM, (c) resumed at "
-          f"{CKPT_SIGTERM_STEP}, loss {ck['c']['loss']}; step-{CKPT_STEPS} "
-          f"checkpoints of (a) and (c) equal hash for hash; launches (a) "
-          f"{ck['a']['launches']}, restore {ck['restore_launches']}, (c) "
-          f"{ck['c']['launches']}; a corrupted {ck['corrupted']} raised "
-          f"IOError, target untouched; the launcher process stopped at 3 "
-          f"by SIGTERM and resumed 3->6", flush=True)
-    print(f"checkpoint I/O on {card}: {ck['ckpt_bytes'] / 1e9:.3f} GB a "
-          f"checkpoint; save {ck['save_s']:.2f} s ({ck['save_gb_s']:.2f} "
-          f"GB/s); restore {ck['restore_s']:.2f} s ({ck['restore_gb_s']:.2f} "
-          f"GB/s; hashing the same bytes alone {ck['hash_s']:.2f} s); "
-          f"phase {ck['wall_s']:.1f} s", flush=True)
-    plan_cache.clear()
-    torch.cuda.empty_cache()
-    phase_done(9, "checkpoints")
+    fig9 = learning_check(fig9_runs)
+    print(f"Fig. 9 runs (beside phases 8 and 9) joined "
+          f"{fig9['wall_s']:.1f} s after they started", flush=True)
+    phase_done("7-9", "the Fig. 9 runs joined")
 
     # -- path 7: the rest of the dense family, served ----------------------
     fam, (g3_cfg, g3_params) = run_dense_family(all_kernels, dev, card)
@@ -4499,6 +4923,15 @@ def main() -> int:
     # -- path 12: whisper-large-v3, the encoder stack and cross-attention --
     wh = run_whisper(all_kernels, dev, card)
     phase_done(15, "whisper-large-v3")
+    # -- path 13: the IC3Net learner on an (env, agent) process mesh -------
+    torch.cuda.empty_cache()
+    mesh_out = run_mesh(all_kernels, dev, card)
+    phase_done(16, "IC3Net learner on a process mesh")
+    wall_by_function = {k: dict(calls=n, s=t) for k, (n, t) in sorted(
+        _WALL.items(), key=lambda kv: -kv[1][1])}
+    print("wall s by function (inclusive, this process): " + ", ".join(
+        f"{k} {v['s']:.1f} ({v['calls']}x)"
+        for k, v in wall_by_function.items()), flush=True)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -4514,7 +4947,7 @@ def main() -> int:
                 "gemma2_ckpt": ck["launches"][sym],
                 **family_launches(fam, pre, band, sync, sym),
                 **moe_launches(moe, sym), **ssm_launches(ssm_fam, sym),
-                **whisper_launches(wh, sym)}
+                **whisper_launches(wh, sym), **mesh_launches(mesh_out, sym)}
 
     def launches(sym):
         return sum(path_launches(sym).values())
@@ -4861,7 +5294,8 @@ def main() -> int:
         learner_replay=lrep, learner_profile=lprof, learning_check=fig9,
         async_pipeline=asy, checkpoint=ck, dense_family=fam,
         prefix_lm=pre, banded=band, sync_launcher=sync, moe_family=moe,
-        ssm_family=ssm_fam, whisper=wh, phase_s=phase_s,
+        ssm_family=ssm_fam, whisper=wh, mesh=mesh_out, phase_s=phase_s,
+        wall_by_function=wall_by_function,
         script_s=time.perf_counter() - t_script,
         **kernels_line), indent=1, default=str))
     print(json.dumps(kernels_line))

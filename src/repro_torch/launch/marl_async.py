@@ -1,6 +1,6 @@
 """Async actor/learner driver: decoupled IC3Net + FLGW training.
 
-Port of ``examples/marl_async.py`` on one device (the card unless
+Port of ``examples/marl_async.py`` (the card unless
 ``--device cpu``). The actor runs rollouts against the latest published
 ``(params, PlanState, version)`` bundle and pushes the windows into a
 device-resident ring; the learner drains it, applying an off-policy
@@ -11,10 +11,18 @@ correction (``--correction vtrace`` by default):
   PYTHONPATH=src python -m repro_torch.launch.marl_async --groups 4 \\
       --path grouped --threads
 
-The multi-host flags (``--distributed``, ``--coordinator``,
-``--processes``, ``--process-id``, ``--strict-distributed``) raise: the
-port has one device and no process group yet (ROADMAP, Queue 1:
-sharding).
+Multi-process bring-up (one process per host; the coordinator address
+and process ids may also come from ``JAX_COORDINATOR`` /
+``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` or torchrun's variables):
+
+  PYTHONPATH=src python -m repro_torch.launch.marl_async --distributed \
+      --coordinator host0:1234 --processes 2 --process-id 0 --batch 32
+
+``--batch`` stays the GLOBAL env batch; each process trains on its
+``host_local_batch`` slice. As in the JAX package, the processes do not
+exchange gradients: each runs its own actor/learner pipeline. A failed
+bring-up degrades to one process with a warning unless
+``--strict-distributed`` is set.
 """
 from __future__ import annotations
 
@@ -22,14 +30,11 @@ import argparse
 
 import numpy as np
 
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.marl import async_train as async_mod
 from repro_torch.marl import envs as envs_mod
 from repro_torch.marl import ic3net
 from repro_torch.marl import train as train_mod
-
-_NO_DISTRIBUTED = ("{} is not ported to repro_torch yet: the port has one "
-                   "device and no process group (ROADMAP, Queue 1: sharding, "
-                   "launch/mesh.py on torch.distributed)")
 
 
 def main(argv=None):
@@ -69,26 +74,37 @@ def main(argv=None):
                          "(eager PyTorch has no retrace)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
-    ap.add_argument("--distributed", action="store_true")
-    ap.add_argument("--coordinator", default=None)
+    ap.add_argument("--distributed", action="store_true",
+                    help="join a torch.distributed process group for "
+                         "multi-process runs")
+    ap.add_argument("--coordinator", default=None,
+                    help="coordinator host:port (or JAX_COORDINATOR, or "
+                         "torchrun's MASTER_ADDR/MASTER_PORT)")
     ap.add_argument("--processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
-    ap.add_argument("--strict-distributed", action="store_true")
+    ap.add_argument("--strict-distributed", action="store_true",
+                    help="fail instead of degrading to single-process "
+                         "when the bring-up cannot complete")
     args = ap.parse_args(argv)
 
-    for flag, value in (("--distributed", args.distributed),
-                        ("--coordinator", args.coordinator),
-                        ("--processes", args.processes),
-                        ("--process-id", args.process_id),
-                        ("--strict-distributed", args.strict_distributed)):
-        if value is not None and value is not False:
-            raise NotImplementedError(_NO_DISTRIBUTED.format(flag))
+    batch = args.batch
+    if args.distributed:
+        info = mesh_lib.init_distributed(
+            args.coordinator, args.processes, args.process_id,
+            strict=args.strict_distributed,
+            backend="gloo" if args.device == "cpu" else "nccl")
+        print(f"distributed: {info['distributed']} "
+              f"process {info['process_index']}/{info['process_count']} "
+              f"local_devices={info['local_devices']}")
+        if info["distributed"]:
+            batch, offset = mesh_lib.host_local_batch(args.batch)
+            print(f"host-local batch {batch} (env offset {offset})")
 
     cfg = ic3net.IC3NetConfig(hidden=args.hidden, flgw_groups=args.groups,
                               flgw_path=args.path)
     env, ecfg = envs_mod.make(args.env, n_agents=args.agents,
                               size=args.size, max_steps=3 * args.size)
-    tcfg = train_mod.TrainConfig(batch=args.batch)
+    tcfg = train_mod.TrainConfig(batch=batch)
     acfg = async_mod.AsyncConfig(
         capacity=args.capacity or max(4, args.cadence),
         actors=args.cadence, correction=args.correction,

@@ -1,7 +1,7 @@
 """End-to-end launcher: IC3Net + FLGW sparse training on any registered env.
 
-Port of ``examples/marl_ic3net.py`` on one device (the card unless
-``--device cpu``), with the same flags and defaults. The paper's own
+Port of ``examples/marl_ic3net.py`` (the card unless ``--device cpu``),
+with the same flags and defaults. The paper's own
 workload (section IV-A) is Predator-Prey; ``--env`` selects any scenario
 of the ``repro_torch.marl.envs`` registry. Prints the success-rate curve,
 the throughput and the sparsity the learned grouping matrices realise:
@@ -13,9 +13,17 @@ the throughput and the sparsity the learned grouping matrices realise:
 
 Training runs one host loop of ``repro_torch.marl.train.train``, so
 ``--host-loop`` is accepted and changes nothing, and ``--log-every`` sets
-how often a line is printed (the reference's log window). ``--mesh`` and
-``--parallel`` exit with an error: the port has one device (ROADMAP,
-Queue 1: sharding).
+how often a line is printed (the reference's log window).
+
+``--mesh ENV,AGENT`` (or ``auto``, or the deprecated ``--parallel``)
+trains on an ``("env", "agent")`` process mesh, one process a shard,
+after printing what shards where. Start one process per shard with
+torchrun; each joins the group through ``launch.mesh.init_distributed``
+on ``--backend`` (``nccl`` on the card, ``gloo`` with ``--device cpu``;
+several processes sharing one card need ``gloo``, NCCL refuses them):
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m \
+      repro_torch.launch.marl_ic3net --device cpu --mesh 2,2 --batch 4
 """
 from __future__ import annotations
 
@@ -25,24 +33,10 @@ import numpy as np
 
 from repro_torch.core import flgw
 from repro_torch.core.schedule import SparsitySchedule
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.marl import envs as envs_mod
 from repro_torch.marl import ic3net
 from repro_torch.marl import train as train_mod
-
-
-def _mesh_shape(spec: str) -> tuple:
-    """``"ENV,AGENT"`` (or ``auto``) -> (env, agent) shard counts, as the
-    reference's ``parse_marl_mesh``."""
-    if spec == "auto":
-        return (0, 1)
-    try:
-        shape = tuple(int(x) for x in spec.split(","))
-    except ValueError:
-        shape = ()
-    if len(shape) != 2:
-        raise ValueError(f"--mesh expects ENV,AGENT (two comma-separated "
-                         f"ints, e.g. 2,2), got {spec!r}")
-    return shape
 
 
 def main(argv=None):
@@ -70,9 +64,15 @@ def main(argv=None):
                          "change-driven from the ig/og argmax hash "
                          "(repro_torch.core.encoder)")
     ap.add_argument("--mesh", default=None,
-                    help="ENV,AGENT shard counts; not ported (one device)")
+                    help="ENV,AGENT shard counts of the (env, agent) process "
+                         "mesh ('auto': every process on the env axis); "
+                         "start one process a shard (torchrun)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="process-group backend of a mesh run (default: "
+                         "nccl on the card, gloo with --device cpu)")
     ap.add_argument("--parallel", action="store_true",
-                    help="DEPRECATED alias of --mesh auto; not ported")
+                    help="DEPRECATED alias of --mesh auto (the retired "
+                         "data-parallel path)")
     ap.add_argument("--log-every", type=int, default=0,
                     help="print a line every this many iterations "
                          "(0 = iterations/10)")
@@ -84,12 +84,26 @@ def main(argv=None):
                          "the plain PyTorch path)")
     args = ap.parse_args(argv)
 
-    try:
-        mesh_shape = _mesh_shape(args.mesh) if args.mesh else None
-        tcfg = train_mod.TrainConfig(batch=args.batch, parallel=args.parallel,
-                                     mesh=mesh_shape)
-    except (ValueError, NotImplementedError) as e:
-        ap.error(str(e))
+    mesh_shape = None
+    if args.mesh:
+        try:
+            mesh_shape = ((0, 1) if args.mesh == "auto"
+                          else mesh_lib.parse_marl_mesh(args.mesh))
+        except ValueError as e:
+            ap.error(str(e))
+    tcfg = train_mod.TrainConfig(batch=args.batch, parallel=args.parallel,
+                                 mesh=mesh_shape)
+    if mesh_shape is not None or args.parallel:
+        mesh_lib.init_distributed(strict=True, backend=args.backend or (
+            "gloo" if args.device == "cpu" else "nccl"))
+    if mesh_shape is not None:
+        try:
+            mesh = mesh_lib.make_marl_mesh(env=mesh_shape[0],
+                                           agent=mesh_shape[1])
+        except ValueError as e:
+            ap.error(str(e))
+        print(mesh_lib.describe_marl_mesh(mesh, batch=args.batch,
+                                          n_agents=args.agents))
     cfg = ic3net.IC3NetConfig(hidden=args.hidden, flgw_groups=args.groups,
                               flgw_path=args.path)
     env, ecfg = envs_mod.make(args.env, n_agents=args.agents,

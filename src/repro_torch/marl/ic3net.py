@@ -10,7 +10,10 @@ the value and gate heads carries IG/OG grouping matrices when
 Where the JAX function takes one env's (A, ...) arrays and is vmapped,
 :class:`IC3Net` takes (B, A, ...) tensors; its projections see the B*A
 rows flattened, and the communication mean runs over the agents of each
-env.
+env. On an agent-split mesh (``marl.train``'s ``Shard``) a rank holds
+some of each env's agents: its (B, A_local, ...) tensors are its shard,
+and the communication sum is the one collective, an all-reduce over the
+agent group.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch import resolve_device
 from repro_torch.core import encoder
 from repro_torch.core.flgw import FLGWConfig
 from repro_torch.models.layers import dense_init, plan_of, proj
+from repro_torch.sharding import collectives
 
 _PROJECTIONS = ("enc", "lstm_x", "lstm_h", "comm", "policy", "value", "gate")
 
@@ -104,12 +108,13 @@ class IC3Net(nn.Module):
             return encoder.empty_state(self.device)
         return encoder.encode_plans(self.params, fl)
 
-    def initial_state(self, batch: int):
-        """((h, c) zeros (B, A, H), gate ones (B, A))."""
-        z = torch.zeros((batch, self.cfg.n_agents, self.cfg.hidden),
-                        device=self.device)
-        return (z, z), torch.ones((batch, self.cfg.n_agents),
-                                  device=self.device)
+    def initial_state(self, batch: int, agents: int | None = None):
+        """((h, c) zeros (B, A, H), gate ones (B, A)); ``agents`` is a
+        rank's local agent count on an agent-split mesh (all of them by
+        default)."""
+        agents = self.cfg.n_agents if agents is None else agents
+        z = torch.zeros((batch, agents, self.cfg.hidden), device=self.device)
+        return (z, z), torch.ones((batch, agents), device=self.device)
 
     def _flgw(self, flgw_path=None):
         """The layers' FLGWConfig, its path overridden by ``flgw_path``
@@ -132,12 +137,16 @@ class IC3Net(nn.Module):
         h = torch.sigmoid(o) * torch.tanh(c)
         return h, c
 
-    def policy_step(self, obs, hc, gate_prev, plans=None, flgw_path=None):
+    def policy_step(self, obs, hc, gate_prev, plans=None, flgw_path=None,
+                    agent_group=None):
         """One communication + action step for every agent of B envs.
 
         obs: (B, A, obs_dim); hc: ((B, A, H), (B, A, H)); gate_prev:
         (B, A) float in [0, 1], the previous step's gate decisions.
-        ``flgw_path`` overrides ``cfg.flgw_path`` for this step.
+        ``flgw_path`` overrides ``cfg.flgw_path`` for this step. With an
+        ``agent_group`` (an agent-split mesh) A is this rank's agents and
+        the communication sum runs over the group's ranks; the mean still
+        divides by the env's ``cfg.n_agents - 1``.
         Returns (action_logits (B, A, n_act), value (B, A),
         gate_logits (B, A, 2), new_hc).
         """
@@ -149,7 +158,8 @@ class IC3Net(nn.Module):
         cvec = proj(p["comm"], comm_src, fl, plan=plan_of(plans, "comm"))
         cvec = cvec * gate_prev[..., None]
         # gated mean over the *other* agents of the same env
-        total = cvec.sum(1, keepdim=True)
+        total = collectives.all_reduce_sum(cvec.sum(1, keepdim=True),
+                                           agent_group)
         comm_in = (total - cvec) / max(cfg.n_agents - 1, 1)
         e = torch.tanh(proj(p["enc"], obs, fl, plan=plan_of(plans, "enc")))
         h, c = self.lstm_cell(e + comm_in, (h, c), plans, flgw_path)

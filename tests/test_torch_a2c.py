@@ -293,9 +293,12 @@ def test_train_history_keys_and_no_encode_off_the_grouped_path(monkeypatch):
 
 
 def test_train_config_matches_jax_and_refuses_sharding():
+    """The fields and defaults are JAX's, and the sharded paths' fields
+    are accepted as JAX's are (the mesh runs are in
+    ``test_torch_marl_mesh.py``)."""
     want = dataclasses.asdict(jtrain.TrainConfig())
     assert dataclasses.asdict(ttrain.TrainConfig()) == want
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.TrainConfig(mesh=(1, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.TrainConfig(parallel=True)
+    for kw in (dict(mesh=(1, 1)), dict(parallel=True),
+               dict(batch=8, mesh=(2, 2), parallel=True)):
+        assert dataclasses.asdict(ttrain.TrainConfig(**kw)) == \
+            dataclasses.asdict(jtrain.TrainConfig(**kw))

@@ -13,6 +13,7 @@ failure.
 """
 import dataclasses
 import functools
+import socket
 import threading
 
 import numpy as np
@@ -31,6 +32,7 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.core import encoder, grouped  # noqa: E402
 from repro_torch.core.schedule import REFRESH_MODES, SparsitySchedule  # noqa
 from repro_torch.launch import marl_async  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.marl import async_train as at  # noqa: E402
 from repro_torch.marl import envs  # noqa: E402
 from repro_torch.marl import ic3net, train  # noqa: E402
@@ -577,18 +579,40 @@ def test_async_config_validates_and_matches_jax():
         at.AsyncConfig(capacity=0)
 
 
-def test_launcher_runs_on_the_cpu_and_refuses_distributed(capsys):
+def test_launcher_runs_on_the_cpu_and_refuses_distributed(capsys,
+                                                          monkeypatch):
     _, hist = marl_async.main(["--device", "cpu", "--updates", "3",
                                "--agents", "2", "--size", "3", "--hidden",
                                "16", "--batch", "2", "--groups", "4",
                                "--path", "grouped", "--cadence", "2",
                                "--check-publication"])
     assert len(hist) == 3 and "env-steps/s" in capsys.readouterr().out
+    # --distributed without a coordinator runs as one process (the
+    # coordinator flags alone change nothing, as in the reference)
+    for var in ("JAX_COORDINATOR", "COORDINATOR_ADDRESS", "MASTER_ADDR",
+                "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    tiny = ["--device", "cpu", "--updates", "1", "--agents", "2", "--size",
+            "3", "--hidden", "16", "--batch", "2"]
     for flags in (["--distributed"], ["--coordinator", "h:1"],
                   ["--processes", "2"], ["--process-id", "0"],
                   ["--strict-distributed"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            marl_async.main(["--device", "cpu", *flags])
+        _, hist = marl_async.main([*tiny, *flags])
+        out = capsys.readouterr().out
+        assert len(hist) == 1
+        assert ("distributed: False process 0/1" in out) == \
+            (flags == ["--distributed"])
+    assert not torch.distributed.is_initialized()
+    # --strict-distributed with a coordinator nobody serves raises
+    monkeypatch.setattr(mesh_lib, "RENDEZVOUS_TIMEOUT_S", 1.0)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with pytest.raises(Exception):
+        marl_async.main([*tiny, "--distributed", "--coordinator",
+                         f"127.0.0.1:{port}", "--processes", "2",
+                         "--process-id", "1", "--strict-distributed"])
+    assert not torch.distributed.is_initialized()
 
 
 # -- the learner against JAX's on a window JAX's actor recorded ----------------

@@ -52,7 +52,10 @@ assert {"repro_torch.marl.async_train",
         "repro_torch.configs.mixtral_8x22b",
         "repro_torch.configs.arctic_480b", "repro_torch.models.ssm",
         "repro_torch.configs.mamba2_1_3b",
-        "repro_torch.configs.jamba_1_5_large"} <= set(names)
+        "repro_torch.configs.jamba_1_5_large", "repro_torch.launch.mesh",
+        "repro_torch.sharding", "repro_torch.sharding.partition",
+        "repro_torch.sharding.collectives", "repro_torch.optim.compression",
+        "repro_torch.runtime.elastic"} <= set(names)
 print(len(names))
 """
 

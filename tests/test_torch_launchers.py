@@ -2,6 +2,7 @@
 the ``marl/env.py`` back-compat shim, the sync IC3Net launcher
 (``launch/marl_ic3net.py``, over the runs the reference's CI gives
 ``examples/marl_ic3net.py``) and ``launch/quickstart.py``, on the CPU."""
+import functools
 import importlib
 import os
 import subprocess
@@ -173,13 +174,39 @@ def test_marl_ic3net_grouped_history_is_train(extra, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "2,2"], ["--parallel"],
-                                  ["--mesh", "auto"]])
+                                  ["--mesh", "1,1"]])
 def test_marl_ic3net_refuses_sharding(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        marl_ic3net.main([*CI_GROUPED, *flag])
-    assert e.value.code != 0
-    err = capsys.readouterr().err
-    assert "not ported to repro_torch yet" in err and "sharding" in err
+    """Without a process group: ``--mesh 2,2`` exits with the reference's
+    "needs 4 devices" message; ``--parallel`` warns and trains; ``--mesh
+    1,1`` prints the mesh and trains. Both runs are ``train``'s."""
+    if flag == ["--mesh", "2,2"]:
+        with pytest.raises(SystemExit) as e:
+            marl_ic3net.main([*CI_GROUPED, *flag])
+        assert e.value.code != 0
+        assert "marl mesh (2, 2) needs 4 devices, only 1 available" in \
+            capsys.readouterr().err
+        return
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        _, hist = marl_ic3net.main([*CI_GROUPED, *flag])
+    deprecated = [w for w in seen if w.category is DeprecationWarning
+                  and "TrainConfig.parallel is deprecated" in str(w.message)]
+    assert len(deprecated) == (flag == ["--parallel"])
+    out = capsys.readouterr().out
+    assert ("marl mesh (1x1): axes (env, agent) over 1 device(s)" in out) \
+        == (flag == ["--mesh", "1,1"])
+    _expect_lines(out)
+    assert [[h[k] for k in _METRICS] for h in hist] == _grouped_history()
+
+
+@functools.lru_cache(maxsize=None)
+def _grouped_history() -> list:
+    """``train``'s metrics for CI_GROUPED's run, computed once."""
+    env, ecfg = envs.make("predator_prey", n_agents=2, size=3, max_steps=9)
+    _, want = train.train(
+        ic3net.IC3NetConfig(hidden=32, flgw_groups=4, flgw_path="grouped"),
+        ecfg, train.TrainConfig(batch=2), 6, seed=0, env=env, device="cpu")
+    return [[h[k] for k in _METRICS] for h in want]
 
 
 def test_marl_ic3net_rejects_a_malformed_mesh(capsys):
@@ -199,7 +226,31 @@ def test_marl_ic3net_as_a_process():
     bad = subprocess.run([*cmd, *CI_GROUPED, "--mesh", "2,2"], env=env,
                          capture_output=True, text=True, timeout=300)
     assert bad.returncode != 0
-    assert "TrainConfig.mesh=(2, 2) is not ported" in bad.stderr
+    assert "marl mesh (2, 2) needs 4 devices, only 1 available" in bad.stderr
+
+
+def test_marl_ic3net_under_torchrun_trains_on_a_process_mesh():
+    """torchrun starts 2 processes; each joins the gloo group through
+    ``init_distributed``, prints the (2x1) mesh and trains its shard; the
+    two print the same metrics."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "--tee", "3", "-m",
+         "repro_torch.launch.marl_ic3net", *CI_GROUPED, "--mesh", "2,1"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    ranks = {r: [ln.split("]:", 1)[1] for ln in out.stdout.splitlines()
+                 if ln.startswith(f"[default{r}]:")] for r in (0, 1)}
+    for lines in ranks.values():
+        text = "\n".join(lines)
+        assert "marl mesh (2x1): axes (env, agent) over 2 device(s)" in text
+        assert "rollout batch    2 -> 1 envs/shard" in text
+        _expect_lines(text)
+    success = [[ln for ln in lines if ln.startswith("success:")]
+               for lines in ranks.values()]
+    assert success[0] == success[1] and len(success[0]) == 1
 
 
 # ---------------------------------------------------------------------------
