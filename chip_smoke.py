@@ -58,7 +58,11 @@ The port's paths, each at full width with random weights from a seed:
   attn, the cross projections too);
 * the IC3Net learner on an ``("env", "agent")`` process mesh: the
   actor's config and env, B=16, one process a shard (1, 2 or 4 processes
-  on the card).
+  on the card);
+* gemma2-2b trained on a ``(data, model)`` process mesh (FSDP over data,
+  the reference's TP layout over model): the training config at full
+  width, its depth cut to 2 layers, B=4 x S=1024, through ``train_lm``
+  on 1, 2 or 4 processes on the card.
 
 The script
 
@@ -279,7 +283,24 @@ The script
       all-reduce at ratio 1/G of two ranks' gradient trees as CUDA
       tensors against a host reference; prints ms an iteration and
       env-steps/s of each shape beside the card's name and power limit;
-  17. prints each phase's wall seconds as it ends, then one
+  17. trains gemma2-2b's training config (depth cut to 2 layers) 2 steps
+      through ``train_lm`` on ``(data, model)`` meshes: without a group
+      in this process (the reference), on a world-1 NCCL group in a
+      spawned process (bitwise the reference: losses, grad norms, final
+      params; launches equal), then (2, 1), (1, 2) and (2, 2) as spawned
+      gloo ranks sharing the card, in two waves ((a) beside (2, 2),
+      then (2, 1) beside (1, 2)): each rank's losses and grad norms
+      within 1e-2 of the reference and its step-2 loss change within
+      5e-2; the params (each rank's shards against the reference's
+      matching slices) within 5e-2, and what the 2 steps changed in them
+      within relative L2 0.3 of the reference's change, a limit that a
+      no-update and a neighbour's-slices control must fail; its state
+      bytes the whole state's over its ranks (1 %), its launches the
+      world-1 rank's; (2, 2) saves its final
+      state once and (2, 1) restores it with ``shardings=``, each
+      rank's shards the saved arrays' slices bitwise; prints ms a step,
+      each rank's peak GB and the collectives by operation and backend;
+  18. prints each phase's wall seconds as it ends, then one
       ``{"kernels": [...]}`` line, the card's name and power limit, and
       as the last line ``{"ok": true, "device": {...}}``.
 
@@ -393,9 +414,10 @@ def _timed(fn):
 
 
 @_timed
-def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     """Mean ms per call of ``fn`` over back-to-back calls, by CUDA events
-    (host enqueue included when it is slower than the device)."""
+    (host enqueue included when it is slower than the device). The script
+    takes ~1,000 such timings, so each is 100 calls, not more."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -1173,9 +1195,19 @@ def _decode_steps(session, cfg, prompt, steps, cache=None, feed=None,
     return torch.stack(logits), fed, snap
 
 
+# each CPU replay's second half runs in a spawned process of its own,
+# started when the card half ends and joined by join_replays() at the end
+# of the script, so the CPU's math runs beside the phases that follow; a
+# few intra-op threads each leave the main process its cores
+REPLAY_THREADS = 2
+REPLAY_TIMEOUT_S = 900
+_REPLAYS: list = []
+
+
 @_timed
 def cpu_replay(cfg, params, blocks: int = 2, seq: int = 256,
-               steps: int = 8, frames: Optional[torch.Tensor] = None) -> dict:
+               steps: int = 8, frames: Optional[torch.Tensor] = None,
+               then=None) -> dict:
     """The first ``blocks`` blocks (2: 4 layers of gemma2) of the served
     weights, full width and vocab, on the card and on the CPU: the same
     B=1 x S=``seq`` prefill and ``steps`` greedy decode steps (the CPU's
@@ -1184,38 +1216,71 @@ def cpu_replay(cfg, params, blocks: int = 2, seq: int = 256,
     exceeds that tolerance. An encoder-decoder keeps ``blocks`` encoder
     layers too and takes ``frames`` (1, T, d) on the card: in the
     prefill and in the first decode step, which writes the encoder's
-    output into the cache the CPU continues from."""
+    output into the cache the CPU continues from.
+
+    The card half runs here; the CPU half (its own encode, prefill and
+    decode, and the checks) in a spawned process (:func:`replay_cpu_half`)
+    that :func:`join_replays` joins at the end of the script. The dict
+    returned is filled in then, and ``then(dict)`` (the caller's checks
+    and prints) called."""
     cfg4 = cfg.with_updates(n_layers=blocks * cfg.period)
     card_p = dict(params, blocks=_blocks_slice(params["blocks"], blocks))
     if cfg.encoder_layers:
         cfg4 = cfg4.with_updates(encoder_layers=blocks)
         card_p["encoder"] = _blocks_slice(params["encoder"], blocks)
-    cpu_p = _to(card_p, "cpu")
     card = ServeSession(cfg4, card_p)
-    cpu = ServeSession(cfg4, cpu_p)
-    check(same_plans(card.plans.plans, cpu.plans.plans)
-          and int(card.plans.sig) == int(cpu.plans.sig),
-          f"plans encoded on the card == plans encoded on the CPU "
-          f"({cfg4.n_layers} layers)")
     prompt = np.random.default_rng(SEED + 5).integers(0, cfg.vocab, seq)
     batch = {"tokens": torch.as_tensor(prompt[None]),
              "positions": torch.arange(seq)[None]}
     if frames is not None:
         batch["frames"] = frames.cpu()
-    t0 = time.perf_counter()
-    want = cpu.prefill(batch)[0, 0]
-    cpu_prefill_s = time.perf_counter() - t0
     got = card.prefill(_to(batch, card.device))[0, 0].float().cpu()
-    errs = {"prefill": float((got - want).abs().max())}
-    check(torch.allclose(got, want, **REPLAY_BF16_TOL),
-          f"replay prefill logits within {REPLAY_BF16_TOL} (max abs err "
-          f"{errs['prefill']})")
     card_lg, fed, snap = _decode_steps(card, cfg4, prompt, steps,
                                        frames=frames)
-    cache = dict(snap, plans=cpu.new_cache(1, 1)["plans"])
+    d = tempfile.mkdtemp(prefix="repro-replay-")
+    torch.save(dict(params=_to(card_p, "cpu"), batch=batch, prompt=prompt,
+                    prefill=got, card_lg=card_lg, fed=fed, snap=snap,
+                    frames=None if frames is None else frames.cpu(),
+                    plans=_to_plans_cpu(card.plans.plans),
+                    sig=int(card.plans.sig)), f"{d}/replay.pt")
+    del card
+    out = dict(layers=cfg4.n_layers, seq=seq, steps=steps,
+               tol=REPLAY_BF16_TOL)
+    _REPLAYS.append((in_process(replay_cpu_half, cfg4, d, steps,
+                                threads=REPLAY_THREADS,
+                                timeout_s=REPLAY_TIMEOUT_S),
+                     out, then, d, time.perf_counter()))
+    return out
+
+
+def _to_plans_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_plans_cpu(v) for k, v in tree.items()}
+    return type(tree)(*(None if t is None else t.cpu() for t in tree))
+
+
+def replay_cpu_half(cfg4, d: str, steps: int) -> dict:
+    """The CPU half of :func:`cpu_replay`, from the card half's file in
+    ``d``: the CPU's own plans (== the card's), prefill and decode
+    against the card's."""
+    rec = torch.load(f"{d}/replay.pt", weights_only=False, mmap=True)
+    cpu = ServeSession(cfg4, rec["params"])
+    check(same_plans(rec["plans"], cpu.plans.plans)
+          and rec["sig"] == int(cpu.plans.sig),
+          f"plans encoded on the card == plans encoded on the CPU "
+          f"({cfg4.n_layers} layers)")
     t0 = time.perf_counter()
-    cpu_lg, _, _ = _decode_steps(cpu, cfg4, prompt, steps, cache=cache,
-                                 feed=fed)
+    want = cpu.prefill(rec["batch"])[0, 0]
+    cpu_prefill_s = time.perf_counter() - t0
+    errs = {"prefill": float((rec["prefill"] - want).abs().max())}
+    check(torch.allclose(rec["prefill"], want, **REPLAY_BF16_TOL),
+          f"replay prefill logits within {REPLAY_BF16_TOL} (max abs err "
+          f"{errs['prefill']})")
+    card_lg, fed = rec["card_lg"], rec["fed"]
+    cache = dict(rec["snap"], plans=cpu.new_cache(1, 1)["plans"])
+    t0 = time.perf_counter()
+    cpu_lg, _, _ = _decode_steps(cpu, cfg4, rec["prompt"], steps,
+                                 cache=cache, feed=fed)
     cpu_decode_s = time.perf_counter() - t0
     errs["decode"] = float((card_lg - cpu_lg).abs().max())
     check(torch.allclose(card_lg, cpu_lg, **REPLAY_BF16_TOL),
@@ -1228,10 +1293,25 @@ def cpu_replay(cfg, params, blocks: int = 2, seq: int = 256,
     same = card_lg.argmax(-1) == cpu_lg.argmax(-1)
     check(bool(same[clear].all()),
           "greedy tokens equal where the top-2 margin exceeds the tolerance")
-    return dict(layers=cfg4.n_layers, seq=seq, steps=steps,
-                max_abs_err=errs, greedy_tokens=fed, clear_steps=int(clear.sum()),
-                equal_tokens=int(same.sum()), cpu_prefill_s=cpu_prefill_s,
-                cpu_decode_s=cpu_decode_s, tol=REPLAY_BF16_TOL)
+    return dict(max_abs_err=errs, greedy_tokens=fed,
+                clear_steps=int(clear.sum()), equal_tokens=int(same.sum()),
+                cpu_prefill_s=cpu_prefill_s, cpu_decode_s=cpu_decode_s)
+
+
+def join_replays() -> float:
+    """Wait for every CPU replay's second half, fill in its dict, call
+    its ``then``; returns the seconds this waited."""
+    t0 = time.perf_counter()
+    while _REPLAYS:
+        job, out, then, d, started = _REPLAYS.pop(0)
+        try:
+            out.update(job.result())
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        out["cpu_half_wall_s"] = time.perf_counter() - started
+        if then is not None:
+            then(out)
+    return time.perf_counter() - t0
 
 
 @_timed
@@ -2367,9 +2447,13 @@ def _launcher(d: Path, stop_after: Optional[str]) -> dict:
 
 
 def _state_hashes(state) -> dict:
-    """Each leaf's hash, as ``save_checkpoint`` records it."""
-    return {p: store.hash_array(store.leaf_to_numpy(leaf)[0])
-            for p, leaf in store.tree_paths(state)}
+    """Each leaf's hash, as ``save_checkpoint`` records it (on
+    ``store.IO_THREADS`` threads, as it hashes)."""
+    flat = store.tree_paths(state)
+    with ThreadPoolExecutor(store.IO_THREADS) as pool:
+        futures = [pool.submit(store.hash_array, store.leaf_to_numpy(leaf)[0])
+                   for _, leaf in flat]
+        return {p: f.result() for (p, _), f in zip(flat, futures)}
 
 
 def run_checkpoint(kernels, device) -> dict:
@@ -2469,8 +2553,8 @@ def run_checkpoint(kernels, device) -> dict:
             _zero(kernels)
             t0 = time.perf_counter()
             state, start = runner.restore_or(
-                state, restore_fn=lambda s: state_lib.restore_state(
-                    dir_b, s, cfg))
+                state, restore_fn=lambda s, sh: state_lib.restore_state(
+                    dir_b, s, cfg, shardings=sh))
             torch.cuda.synchronize()
             out["restore_s"] = time.perf_counter() - t0
             out["restore_launches"] = _counts(kernels)
@@ -2668,11 +2752,12 @@ def run_dense_family(kernels, device, card: str) -> tuple[dict, dict]:
               f"({sv['prefill_tokens_per_s']:.0f} tokens/s); lockstep "
               f"{lk['tokens_per_s']:.1f} tokens/s, p50 {lk['p50_s']:.3f} s",
               flush=True)
-        rp = cpu_replay(cfg, params, blocks=DENSE_REPLAY_BLOCKS[arch],
-                        seq=REPLAY_SEQ, steps=REPLAY_STEPS)
-        print(f"  CPU replay ({rp['layers']} layers): max abs err "
-              f"{rp['max_abs_err']}, {rp['equal_tokens']}/{REPLAY_STEPS} "
-              f"greedy tokens equal", flush=True)
+        rp = cpu_replay(
+            cfg, params, blocks=DENSE_REPLAY_BLOCKS[arch], seq=REPLAY_SEQ,
+            steps=REPLAY_STEPS, then=lambda rp, arch=arch: print(
+                f"  phase 10 {arch}: CPU replay ({rp['layers']} layers): "
+                f"max abs err {rp['max_abs_err']}, {rp['equal_tokens']}/"
+                f"{REPLAY_STEPS} greedy tokens equal", flush=True))
         prof = profile_serve(session, cfg, seq)
         print_profile(f"{arch} prefill + 8 decode steps", prof)
         check_flash_routes(prof, f"the {arch} serve profile", ("flash_fwd",))
@@ -3281,8 +3366,12 @@ def run_moe(kernels, device, card: str) -> dict:
             res["off_policy"] = dict(launches=lo, ms=off_ms,
                                      max_abs_err=oerr)
             del off
-            rp = cpu_replay(cfg, params, blocks=1, seq=MOE_REPLAY_SEQ,
-                            steps=MOE_REPLAY_STEPS)
+            rp = cpu_replay(
+                cfg, params, blocks=1, seq=MOE_REPLAY_SEQ,
+                steps=MOE_REPLAY_STEPS, then=lambda rp, arch=arch: print(
+                    f"  phase 13 {arch}: CPU replay (1 layer): max abs err "
+                    f"{rp['max_abs_err']}, {rp['equal_tokens']}/"
+                    f"{MOE_REPLAY_STEPS} greedy tokens equal", flush=True))
             res["replay"] = rp
             prof = profile_serve(session, cfg, seq, MOE_KERNELS)
             print_profile(f"{arch} prefill + 8 decode steps", prof)
@@ -3291,10 +3380,7 @@ def run_moe(kernels, device, card: str) -> dict:
             check_fused_routes(prof)
             res["profile"] = prof
             print(f"  {arch} off-policy prefill {off_ms:.1f} ms, launches "
-                  f"{lo}, logits max abs err {oerr:.3g}; CPU replay (1 "
-                  f"layer): max abs err {rp['max_abs_err']}, "
-                  f"{rp['equal_tokens']}/{MOE_REPLAY_STEPS} greedy tokens "
-                  f"equal", flush=True)
+                  f"{lo}, logits max abs err {oerr:.3g}", flush=True)
         out[arch] = res
         del session, params, p_moe, inputs, certify_logits
         plan_cache.clear()
@@ -3487,10 +3573,14 @@ def run_mamba2(kernels, device, card: str) -> dict:
           f"mamba2: fused_bmm exactly {MAMBA_PROJECTIONS} a layer and "
           f"forward ({cfg.n_layers} layers, {calls[0]} forwards; {lc})")
     check(lc["flash_fwd"] == 0, f"mamba2: no flash_fwd ({lc})")
+    def replayed(rp):
+        check(rp["equal_tokens"] == REPLAY_STEPS,
+              f"mamba2 CPU replay: every greedy token equal ({rp})")
+        print(f"  phase 14 mamba2_1_3b: CPU replay ({rp['layers']} layers) "
+              f"max abs err {rp['max_abs_err']}, {rp['equal_tokens']}/"
+              f"{REPLAY_STEPS} greedy tokens equal", flush=True)
     rp = cpu_replay(cfg, params, blocks=MAMBA_REPLAY_BLOCKS, seq=REPLAY_SEQ,
-                    steps=REPLAY_STEPS)
-    check(rp["equal_tokens"] == REPLAY_STEPS,
-          f"mamba2 CPU replay: every greedy token equal ({rp})")
+                    steps=REPLAY_STEPS, then=replayed)
     scan = time_ssd_scan(cfg, SERVE_BATCH, SSM_SEQ, device)
     prof = profile_ssd_prefill(session, inputs, MAMBA_KERNELS)
     lk, ct = sv["lockstep"], sv["continuous"]
@@ -3500,9 +3590,7 @@ def run_mamba2(kernels, device, card: str) -> dict:
           f"({sv['prefill_tokens_per_s']:.0f} tokens/s); lockstep "
           f"{lk['tokens_per_s']:.1f} tokens/s, p50 {lk['p50_s']:.3f} s; "
           f"continuous {ct['tokens_per_s']:.1f} tokens/s, p50 "
-          f"{ct['p50_s']:.3f} s; CPU replay ({rp['layers']} layers) max abs "
-          f"err {rp['max_abs_err']}, {rp['equal_tokens']}/{REPLAY_STEPS} "
-          f"greedy tokens equal", flush=True)
+          f"{ct['p50_s']:.3f} s", flush=True)
     print(f"  SSD scan: {scan['ms']:.3f} ms a layer at B={SERVE_BATCH} x "
           f"S={SSM_SEQ} (x {cfg.n_layers} layers = "
           f"{scan['ms'] * cfg.n_layers:.1f} ms); prefill profile: busy "
@@ -4264,15 +4352,18 @@ def run_whisper(kernels, device, card: str) -> dict:
     sv = run_whisper_serve(cfg, params, kernels, card)
     session, inputs, cache = sv.pop("session"), sv.pop("inputs"), \
         sv.pop("cache")
+    def replayed(rp):
+        check(rp["equal_tokens"] == REPLAY_STEPS,
+              f"whisper CPU replay: every greedy token equal ({rp})")
+        print(f"  phase 15 whisper: CPU replay ({rp['layers']} + "
+              f"{WHISPER_REPLAY_BLOCKS} layers, {cfg.num_frames} frames, "
+              f"S={WHISPER_REPLAY_SEQ}): max abs err {rp['max_abs_err']}, "
+              f"{rp['equal_tokens']}/{REPLAY_STEPS} greedy tokens equal",
+              flush=True)
     rp = cpu_replay(cfg, params, blocks=WHISPER_REPLAY_BLOCKS,
                     seq=WHISPER_REPLAY_SEQ, steps=REPLAY_STEPS,
-                    frames=_whisper_frames(cfg, 1, device, SEED + 19))
-    check(rp["equal_tokens"] == REPLAY_STEPS,
-          f"whisper CPU replay: every greedy token equal ({rp})")
-    print(f"  CPU replay ({rp['layers']} + {WHISPER_REPLAY_BLOCKS} layers, "
-          f"{cfg.num_frames} frames, S={WHISPER_REPLAY_SEQ}): max abs err "
-          f"{rp['max_abs_err']}, {rp['equal_tokens']}/{REPLAY_STEPS} greedy "
-          f"tokens equal", flush=True)
+                    frames=_whisper_frames(cfg, 1, device, SEED + 19),
+                    then=replayed)
     prof = profile_whisper(session, inputs, cache)
     for what in ("prefill", "decode"):
         pr = prof[what]
@@ -4565,6 +4656,384 @@ def run_mesh(kernels, device, card: str) -> dict:
     return out
 
 
+LM_MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+LM_MESH_STEPS = 2
+# (b) against (a): the same bf16 steps with the gradients summed over the
+# ranks in other orders (float32) and each rank's rows in their own
+# products; stated before the first card run
+LM_MESH_RTOL = 1e-2
+# (b)'s step-2 loss change (loss 2 - loss 1, about 0.016 of 27.15)
+# against (a)'s, relative; stated before the first card run that read it
+LM_MESH_LOSS_DELTA_RTOL = 5e-2
+# (b)'s params by what the steps changed: the relative L2 error of each
+# rank's shards' change (final - init) against the matching slices of
+# (a)'s. A step that wrote nothing reads 1, one that wrote a neighbour's
+# slices about 1.4 (both controls are computed and must fail it); stated
+# before the first card run that read it
+LM_MESH_DELTA_TOL = 0.3
+LM_MESH_BYTES_RTOL = 0.01      # a rank's state bytes against whole / ranks
+LM_MESH_TIMEOUT_S = 420
+LM_MESH_RANK_THREADS = 1
+
+
+def _lm_mesh_cfg():
+    return registry.get_config("gemma2_2b", **TRAIN_FLGW).with_updates(
+        n_layers=CKPT_LAYERS)
+
+
+def _lm_mesh_train(dev, model: int = 0):
+    """phase 17's run: ``train_lm`` at the training config, its depth cut
+    to CKPT_LAYERS, LM_MESH_STEPS steps; every launch count at 0 first.
+    Returns (state, history, launches, collectives, peak GB)."""
+    from repro_torch.sharding import collectives
+    kernels = port_kernels()
+    _zero(kernels)
+    collectives.CALLS.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, hist = train_lm("gemma2_2b", smoke=False, steps=LM_MESH_STEPS,
+                           batch=TRAIN_BATCH, seq=TRAIN_SEQ, n_layers=CKPT_LAYERS,
+                           log_every=0, device=dev, model=model,
+                           **TRAIN_FLGW)
+    _sync(dev)
+    return (state, hist, {k.symbol: k.launches for k in kernels},
+            {"/".join(map(str, k)): v for k, v in collectives.CALLS.items()},
+            torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def _metrics(hist) -> dict:
+    return dict(losses=[float(h["loss"]) for h in hist],
+                grad_norms=[float(h["grad_norm"]) for h in hist],
+                step_ms=[h["step_s"] * 1e3 for h in hist])
+
+
+def lm_mesh_one(device: str, d: str) -> dict:
+    """(a): one rank of a world-1 group (NCCL on the card), ``train_lm``
+    on its (1, 1) mesh; its losses, grad norms and final params against
+    the run without a group (``{d}/ref.pt``), bitwise."""
+    from repro_torch.sharding import partition
+    dev = resolve_device(device)
+    state, hist, launches, calls, peak = _lm_mesh_train(dev)
+    ref = torch.load(f"{d}/ref.pt")
+    out = dict(_metrics(hist), launches=launches, calls=calls, peak_gb=peak,
+               mesh=tuple(partition.mesh_of(state).shape))
+    out["bitwise"] = (out["losses"] == ref["losses"]
+                      and out["grad_norms"] == ref["grad_norms"]
+                      and all(torch.equal(partition.gather(leaf).cpu(),
+                                          ref["params"][path])
+                              for path, leaf in store.tree_paths(
+                                  state.params)))
+    return out
+
+
+def _wait_for(path: Path, timeout_s: float) -> None:
+    t0 = time.monotonic()
+    while not path.exists():
+        if time.monotonic() - t0 > timeout_s:
+            raise TimeoutError(f"{path} did not appear in {timeout_s} s")
+        time.sleep(0.2)
+
+
+def _saved_slices_equal(state, d: Path) -> tuple[int, bool]:
+    """Each DTensor leaf's local shard against the matching slice of the
+    array saved at its path (bf16 as raw words), bitwise."""
+    from repro_torch.sharding import partition
+    files = {e["path"]: e for e in json.loads(
+        (d / "manifest.json").read_text())["leaves"]}
+    n, same = 0, True
+    for path, leaf in store.tree_paths(state):
+        if path.startswith(".plans"):
+            continue
+        e = files[path]
+        arr = np.load(d / e["file"], mmap_mode="r")
+        mesh = leaf.device_mesh
+        for size, c, p in zip(tuple(mesh.shape), partition.mesh_coords(mesh),
+                              leaf.placements):
+            if p.is_shard():           # this rank's slice, read alone
+                k = arr.shape[p.dim] // size
+                arr = arr[(slice(None),) * p.dim + (slice(c * k,
+                                                          (c + 1) * k),)]
+        arr = np.array(arr)                              # 0-d stays 0-d
+        want = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) \
+            if e["dtype"] == "bfloat16" else torch.from_numpy(arr)
+        same &= torch.equal(leaf.to_local().cpu(), want)
+        n += 1
+    return n, same
+
+
+def _neighbour_of(final, init, placement, mesh):
+    """(a)'s change (final - init) at the slice of the next rank along
+    the first mesh dimension that splits the leaf (this rank's slice
+    elsewhere), in float32; None for a replicated leaf."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.sharding import partition
+    first = True
+    for n, c, p in zip(tuple(mesh.shape), partition.mesh_coords(mesh),
+                       placement):
+        if isinstance(p, Shard) and n > 1:
+            c = (c + 1) % n if first else c
+            first = False
+            final, init = final.chunk(n, p.dim)[c], init.chunk(n, p.dim)[c]
+    return None if first else final.float() - init.float()
+
+
+def lm_mesh_rank(shape: tuple, device: str, d: str, role: str) -> dict:
+    """(b), one rank of a ``shape`` mesh on gloo: ``train_lm`` on the
+    mesh; its launches, collectives, peak memory and state bytes; its
+    params, shard by shard, against the run without a group's;
+    then (c): the (2, 2) shape saves its final state, the (2, 1) shape
+    restores it onto its own mesh with ``shardings=``."""
+    import torch.distributed as dist
+    from repro_torch.sharding import partition
+    dev = resolve_device(device)
+    state, hist, launches, calls, peak = _lm_mesh_train(dev, model=shape[1])
+    rank = dist.get_rank()
+    local, whole = partition.state_bytes(state)
+    out = dict(_metrics(hist), rank=rank, launches=launches, calls=calls,
+               peak_gb=peak, local_bytes=local, whole_bytes=whole)
+    # the params against (a)'s, slice by slice: each rank's shards against
+    # the matching slices (no gather), on the host; and what the steps
+    # changed, against (a)'s change, beside the two controls
+    torch.cuda.empty_cache()
+    ref = torch.load(f"{d}/ref.pt", mmap=True)
+    err, close = 0.0, True
+    sq = dict.fromkeys(("err", "ref", "none", "neighbour", "neighbour_ref"),
+                       0.0)
+    for path, leaf in store.tree_paths(state.params):
+        mesh, pl = leaf.device_mesh, leaf.placements
+        got = leaf.to_local().cpu().float()
+        init = partition.shard_of(ref["init"][path], pl, mesh).float()
+        want = partition.shard_of(ref["params"][path], pl, mesh).float()
+        err = max(err, float((got - want).abs().max()))
+        close &= torch.allclose(got, want, **REPLAY_TRAIN_TOL)
+        change = want - init
+        sq["err"] += float(((got - init) - change).square().sum())
+        sq["ref"] += float(change.square().sum())
+        sq["none"] += float(change.square().sum())   # got == init
+        other = _neighbour_of(ref["params"][path], ref["init"][path], pl,
+                              mesh)
+        if other is not None:
+            sq["neighbour"] += float((other - change).square().sum())
+            sq["neighbour_ref"] += float(change.square().sum())
+    out.update(params_max_abs_err=err, params_close=close,
+               change_err=(sq["err"] / sq["ref"]) ** 0.5,
+               no_update_err=(sq["none"] / sq["ref"]) ** 0.5,
+               neighbour_err=(sq["neighbour"] / sq["neighbour_ref"]) ** 0.5
+               if sq["neighbour_ref"] else None)
+    del ref
+    ckpt = Path(d) / "ckpt"
+    if role == "save":
+        torch.cuda.empty_cache()
+        _sync(dev)
+        t0 = time.perf_counter()
+        store.save_checkpoint(ckpt, LM_MESH_STEPS, state)
+        out["save_s"] = time.perf_counter() - t0
+    elif role == "restore":
+        saved = ckpt / f"step_{LM_MESH_STEPS:08d}"
+        _wait_for(saved / "manifest.json", LM_MESH_TIMEOUT_S)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, step = state_lib.restore_state(
+            ckpt, state, _lm_mesh_cfg(),
+            shardings=partition.shardings_of(state))
+        _sync(dev)
+        out["restore_s"] = time.perf_counter() - t0
+        out["restored_step"] = step
+        out["restored_leaves"], out["restored_bitwise"] = \
+            _saved_slices_equal(state, saved)
+    return out
+
+
+def lm_mesh_launches(lm, sym: str) -> dict:
+    """One kernel's launches on phase 17's paths: the run without a group
+    (this process), the world-1 NCCL rank and every rank of each shape."""
+    return {"gemma2_mesh_none": lm["none"]["launches"][sym],
+            "gemma2_mesh_1x1": lm["1x1"]["launches"][sym],
+            **{f"gemma2_mesh_{a}x{b}": sum(
+                r["launches"][sym] for r in lm[f"{a}x{b}"]["ranks"])
+               for a, b in LM_MESH_SHAPES}}
+
+
+def run_lm_mesh(device, card: str) -> dict:
+    """Phase 17: gemma2-2b's training config on a ``(data, model)`` mesh
+    through ``train_lm``: the run without a group in this process (the
+    reference), (a) a world-1 NCCL group in a spawned process, bitwise
+    it; (b) (2, 1), (1, 2) and (2, 2) as spawned gloo ranks sharing the
+    card, in two waves ((a) beside (2, 2), then (2, 1) beside (1, 2)),
+    within LM_MESH_RTOL (losses, grad norms), LM_MESH_LOSS_DELTA_RTOL (the
+    step-2 loss change), REPLAY_TRAIN_TOL (the params, shard by shard) and
+    LM_MESH_DELTA_TOL (what the steps changed in each rank's shards, which
+    a no-update and a neighbour's-slices control must fail) of it, each
+    rank's state bytes whole / ranks and its launches (a)'s; (c) (2, 2)'s
+    final state saved once and restored onto the (2, 1) mesh with
+    ``shardings=``, each rank's shards the saved arrays' slices
+    bitwise."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding import partition
+    cfg = _lm_mesh_cfg()
+    out = dict(cut=f"n_layers {CKPT_LAYERS} of 26 (one local, one global "
+                   f"slot)", params=param_count(cfg), steps=LM_MESH_STEPS,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, rtol=LM_MESH_RTOL)
+    with tempfile.TemporaryDirectory(prefix="repro-lm-mesh-") as d:
+        # the initial params every run starts from: train_lm's, no step
+        state, _ = train_lm("gemma2_2b", smoke=False, steps=0,
+                            batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                            n_layers=CKPT_LAYERS, log_every=0, device=device,
+                            **TRAIN_FLGW)
+        init = {p: t.cpu() for p, t in store.tree_paths(state.params)}
+        del state
+        torch.cuda.empty_cache()
+        state, hist, launches, calls, peak = _lm_mesh_train(device)
+        out["none"] = dict(_metrics(hist), launches=launches, peak_gb=peak)
+        torch.save(dict(losses=out["none"]["losses"],
+                        grad_norms=out["none"]["grad_norms"], init=init,
+                        params={p: t.cpu() for p, t in
+                                store.tree_paths(state.params)}),
+                   f"{d}/ref.pt")
+        del init
+        del state, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  lm mesh: no group, {out['params']:,} params ("
+              f"{out['cut']}), {TRAIN_BATCH} x {TRAIN_SEQ}: step ms "
+              f"{[round(x, 1) for x in out['none']['step_ms']]}, losses "
+              f"{out['none']['losses']}, launches {launches} on {card}",
+              flush=True)
+
+        backend = "nccl" if device.type == "cuda" else "gloo"
+
+        def run(shape, role=None):
+            """One spawned group: (1, 1) is (a), the others (b)."""
+            world = shape[0] * shape[1]
+            fn, args = ((lm_mesh_one, (str(device), d)) if role == "a" else
+                        (lm_mesh_rank, (shape, str(device), d, role)))
+            t = time.perf_counter()
+            ranks = mesh_lib.spawn(
+                fn, world, *args, backend=backend if role == "a" else "gloo",
+                init_file=f"{d}/rdv_{shape[0]}x{shape[1]}_{role}",
+                timeout_s=LM_MESH_TIMEOUT_S,
+                torch_threads=LM_MESH_RANK_THREADS)
+            return ranks, time.perf_counter() - t
+
+        # two waves of at most 5 processes: 8 ranks at once on one card
+        # and its host (8 cores, 96 GiB) ran out of the card's memory or
+        # stalled (PERF.md); (2, 2) saves in the first, (2, 1) restores
+        # in the second
+        waves = ((((1, 1), "a"), ((2, 2), "save")),
+                 (((2, 1), "restore"), ((1, 2), None)))
+        spawned, wall = {}, {}
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        try:
+            for wave in waves:
+                with ThreadPoolExecutor(len(wave)) as pool:
+                    futures = {shape: pool.submit(run, shape, role)
+                               for shape, role in wave}
+                    for shape, f in futures.items():
+                        spawned[shape], wall[shape] = f.result()
+        finally:
+            if alloc is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        (one,) = spawned.pop((1, 1))
+        one["wall_s"] = wall[(1, 1)]
+        out["1x1"] = one
+        check(one["bitwise"] and one["mesh"] == (1, 1),
+              "lm mesh (1, 1) on a world-1 NCCL group: losses, grad norms "
+              "and final params bitwise the run without a group")
+        check(one["launches"] == launches,
+              f"lm mesh (1, 1): launches {one['launches']} == the run "
+              f"without a group's {launches}")
+        check(set(one["calls"]) == {f"{op}/{backend}" for op in (
+            "all_gather", "reduce_scatter", "all_reduce")},
+              f"lm mesh (1, 1): its collectives on {backend} "
+              f"({one['calls']})")
+        print(f"  lm mesh (1, 1), world-1 NCCL group in a spawned process "
+              f"(beside (2, 2)): bitwise the run without a group; step ms "
+              f"{[round(x, 1) for x in one['step_ms']]}, peak "
+              f"{one['peak_gb']:.2f} GB, collectives {one['calls']} on "
+              f"{card}", flush=True)
+        spawned = [spawned[shape] for shape in LM_MESH_SHAPES]
+        out["wave_s"] = [max(wall[s] for s, _ in w) for w in waves]
+        out["spawned_wall_s"] = time.perf_counter() - t0
+    ref = out["none"]
+    for shape, ranks in zip(LM_MESH_SHAPES, spawned):
+        world = shape[0] * shape[1]
+        name = f"{shape[0]}x{shape[1]}"
+        for r in ranks:
+            for key in ("losses", "grad_norms"):
+                rel = max(abs(a - b) / abs(b) for a, b in zip(r[key],
+                                                              ref[key]))
+                check(rel <= LM_MESH_RTOL,
+                      f"lm mesh {shape} rank {r['rank']}: {key} within "
+                      f"rtol {LM_MESH_RTOL} of (a) ({rel:.3g})")
+            share = r["whole_bytes"] / world
+            check(abs(r["local_bytes"] - share) <= LM_MESH_BYTES_RTOL * share,
+                  f"lm mesh {shape} rank {r['rank']}: state bytes "
+                  f"{r['local_bytes']:,} within {LM_MESH_BYTES_RTOL} of "
+                  f"the whole {r['whole_bytes']:,} / {world}")
+            check(r["launches"] == one["launches"],
+                  f"lm mesh {shape} rank {r['rank']}: launches "
+                  f"{r['launches']} == (a)'s {one['launches']}")
+            check(r["losses"] == ranks[0]["losses"],
+                  f"lm mesh {shape}: every rank's losses equal")
+            step = [x[1] - x[0] for x in (r["losses"], ref["losses"])]
+            rel = abs(step[0] - step[1]) / abs(step[1])
+            check(rel <= LM_MESH_LOSS_DELTA_RTOL,
+                  f"lm mesh {shape} rank {r['rank']}: the step-2 loss "
+                  f"change {step[0]:.6g} within rtol "
+                  f"{LM_MESH_LOSS_DELTA_RTOL} of (a)'s {step[1]:.6g} "
+                  f"({rel:.3g})")
+            check(r["change_err"] <= LM_MESH_DELTA_TOL,
+                  f"lm mesh {shape} rank {r['rank']}: its shards' change "
+                  f"over the steps within relative L2 {LM_MESH_DELTA_TOL} "
+                  f"of (a)'s ({r['change_err']:.4g})")
+            controls = [r["no_update_err"]] + (
+                [r["neighbour_err"]] if r["neighbour_err"] is not None
+                else [])
+            check(all(c > LM_MESH_DELTA_TOL for c in controls),
+                  f"lm mesh {shape} rank {r['rank']}: the controls (no "
+                  f"update, a neighbour's slices) fail that limit "
+                  f"({controls})")
+        r0 = ranks[0]
+        err = max(r["params_max_abs_err"] for r in ranks)
+        check(all(r["params_close"] for r in ranks),
+              f"lm mesh {shape}: the params (each rank's shards against "
+              f"the matching slices of (a)'s) within {REPLAY_TRAIN_TOL} "
+              f"(max abs err {err:.3g})")
+        out[name] = dict(ranks=ranks)
+        print(f"  lm mesh {shape}, {world} gloo ranks on {card} (in two "
+              f"waves, (a) beside (2, 2), (2, 1) beside (1, 2)): step ms by rank "
+              f"{[[round(x, 1) for x in r['step_ms']] for r in ranks]}, peak "
+              f"GB by rank {[round(r['peak_gb'], 2) for r in ranks]}, state "
+              f"bytes a rank {r0['local_bytes']:,} of {r0['whole_bytes']:,}, "
+              f"launches {r0['launches']} a rank, losses {r0['losses']}, "
+              f"params max abs err {err:.3g}, their change's relative L2 "
+              f"error by rank {[round(r['change_err'], 5) for r in ranks]}"
+              f" (controls: no update "
+              f"{[round(r['no_update_err'], 4) for r in ranks]}, a "
+              f"neighbour's slices "
+              f"{[r['neighbour_err'] and round(r['neighbour_err'], 4) for r in ranks]}), "
+              f"collectives a rank {r0['calls']}", flush=True)
+    saver = out["2x2"]["ranks"]
+    loader = out["2x1"]["ranks"]
+    for r in loader:
+        check(r["restored_step"] == LM_MESH_STEPS and r["restored_bitwise"]
+              and r["restored_leaves"] > 0,
+              f"lm mesh: (2, 2)'s checkpoint restored onto (2, 1) rank "
+              f"{r['rank']}, its {r['restored_leaves']} shards the saved "
+              f"arrays' slices bitwise")
+    out["save_s"] = max(r["save_s"] for r in saver)
+    out["restore_s"] = max(r["restore_s"] for r in loader)
+    print(f"  lm mesh checkpoint: (2, 2) saved its state in "
+          f"{out['save_s']:.1f} s, (2, 1) restored it in "
+          f"{out['restore_s']:.1f} s (bitwise slices); the two waves "
+          f"{[round(x, 1) for x in out['wave_s']]} s of wall on {card}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4727,10 +5196,10 @@ def main() -> int:
           f"tokens/s, p50 {ct['p50_s']:.3f} s, p99 {ct['p99_s']:.3f} s; plan "
           f"cache {sv['plan_cache']['encodes']} encodes, "
           f"{sv['plan_cache']['hits']} hits", flush=True)
-    rp = cpu_replay(scfg, params)
-    print(f"CPU replay (4 layers): max abs err {rp['max_abs_err']}, "
-          f"{rp['equal_tokens']}/8 greedy tokens equal "
-          f"({rp['clear_steps']} with a clear top-2 margin)", flush=True)
+    rp = cpu_replay(scfg, params, then=lambda rp: print(
+        f"phase 4 gemma2-2b: CPU replay (4 layers): max abs err "
+        f"{rp['max_abs_err']}, {rp['equal_tokens']}/8 greedy tokens equal "
+        f"({rp['clear_steps']} with a clear top-2 margin)", flush=True))
     sprof = profile_serve(session, scfg)
     print_profile("prefill + 8 decode steps", sprof)
     check_flash_routes(sprof, "the serve profile", ("flash_fwd",))
@@ -4927,6 +5396,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_out = run_mesh(all_kernels, dev, card)
     phase_done(16, "IC3Net learner on a process mesh")
+    # -- path 14: gemma2-2b trained on a (data, model) process mesh --------
+    torch.cuda.empty_cache()
+    lm_mesh = run_lm_mesh(dev, card)
+    phase_done(17, "gemma2-2b on a (data, model) process mesh")
+    replay_wait_s = join_replays()
+    print(f"the CPU replays' second halves joined, {replay_wait_s:.1f} s "
+          f"after phase 17", flush=True)
     wall_by_function = {k: dict(calls=n, s=t) for k, (n, t) in sorted(
         _WALL.items(), key=lambda kv: -kv[1][1])}
     print("wall s by function (inclusive, this process): " + ", ".join(
@@ -4947,7 +5423,8 @@ def main() -> int:
                 "gemma2_ckpt": ck["launches"][sym],
                 **family_launches(fam, pre, band, sync, sym),
                 **moe_launches(moe, sym), **ssm_launches(ssm_fam, sym),
-                **whisper_launches(wh, sym), **mesh_launches(mesh_out, sym)}
+                **whisper_launches(wh, sym), **mesh_launches(mesh_out, sym),
+                **lm_mesh_launches(lm_mesh, sym)}
 
     def launches(sym):
         return sum(path_launches(sym).values())
@@ -5294,7 +5771,8 @@ def main() -> int:
         learner_replay=lrep, learner_profile=lprof, learning_check=fig9,
         async_pipeline=asy, checkpoint=ck, dense_family=fam,
         prefix_lm=pre, banded=band, sync_launcher=sync, moe_family=moe,
-        ssm_family=ssm_fam, whisper=wh, mesh=mesh_out, phase_s=phase_s,
+        ssm_family=ssm_fam, whisper=wh, mesh=mesh_out, lm_mesh=lm_mesh,
+        phase_s=phase_s,
         wall_by_function=wall_by_function,
         script_s=time.perf_counter() - t_script,
         **kernels_line), indent=1, default=str))

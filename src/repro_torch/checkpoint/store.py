@@ -12,7 +12,11 @@ checkpoint written by either package restores in the other:
   which restore ignores and the next save removes. The rename is the
   commit point.
 * **Integrity**: the manifest holds a sha256 of each leaf's bytes;
-  restore checks every leaf before it writes any.
+  restore checks every leaf before it writes any. The leaves are hashed
+  (and, on restore, read) on a pool of threads: ``hashlib`` and the file
+  reads release the interpreter lock, so a state's leaves hash on as
+  many cores (one core took 8.95 s for gemma2-2b's 2-layer 7.5 GB state
+  on the H100 host).
 * **Leaf paths** are ``jax.tree_util.keystr`` of each leaf, in JAX's
   flatten order (NamedTuple fields ``.name`` in declaration order, dict
   keys ``['key']`` in sorted order, sequence items ``[i]``; ``None`` and
@@ -21,8 +25,13 @@ checkpoint written by either package restores in the other:
   ``V2``) with the manifest dtype ``"bfloat16"``, and read back through
   an ``int16`` view, so neither package needs the other's bf16 type.
 
-There is no mesh in the port yet, so restore takes no ``shardings``:
-each leaf goes to its target leaf's device and dtype.
+* **Meshes**: a state of DTensors (``repro_torch.sharding.partition``)
+  is saved whole: each leaf is gathered from its shards onto the mesh's
+  first rank, which writes, while the other ranks wait at a barrier, so
+  the manifest is leaf for leaf the one-process layout and restores in
+  either package. A restore
+  into DTensors reads and verifies each whole leaf and keeps each rank's
+  shards, whatever mesh the checkpoint was saved on.
 """
 from __future__ import annotations
 
@@ -32,26 +41,43 @@ import os
 import pathlib
 import shutil
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding import partition
 
 
-def tree_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
+def _is_placements(x) -> bool:
+    return isinstance(x, tuple) and len(x) > 0 and all(
+        hasattr(p, "is_shard") for p in x)
+
+
+def tree_paths(tree, prefix: str = "", *, placements: bool = False
+               ) -> list[tuple[str, Any]]:
     """``(keystr path, leaf)`` of every leaf of ``tree`` (nested dicts,
-    lists, tuples and NamedTuples), in JAX's flatten order."""
+    lists, tuples and NamedTuples), in JAX's flatten order.
+    ``placements``: a placements tree, each tuple of placements a leaf."""
     if tree is None:
         return []
+    if placements and _is_placements(tree):
+        return [(prefix, tree)]
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return [pl for name in tree._fields
-                for pl in tree_paths(getattr(tree, name), f"{prefix}.{name}")]
+                for pl in tree_paths(getattr(tree, name), f"{prefix}.{name}",
+                                     placements=placements)]
     if isinstance(tree, (tuple, list)):
         return [pl for i, v in enumerate(tree)
-                for pl in tree_paths(v, f"{prefix}[{i}]")]
+                for pl in tree_paths(v, f"{prefix}[{i}]",
+                                     placements=placements)]
     if isinstance(tree, dict):
         return [pl for k in sorted(tree)
-                for pl in tree_paths(tree[k], f"{prefix}[{k!r}]")]
+                for pl in tree_paths(tree[k], f"{prefix}[{k!r}]",
+                                     placements=placements)]
     return [(prefix, tree)]
 
 
@@ -69,6 +95,10 @@ def leaf_to_numpy(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+# threads that hash and read leaves (module docstring)
+IO_THREADS = min(8, os.cpu_count() or 1)
+
+
 def hash_array(a: np.ndarray) -> str:
     """First 16 hex digits of the sha256 of the array's bytes in C order
     (the JAX package's ``_hash``)."""
@@ -77,7 +107,43 @@ def hash_array(a: np.ndarray) -> str:
 
 
 def save_checkpoint(ckpt_dir, step: int, tree, *, keep: int = 3) -> str:
-    """Write one checkpoint; atomic commit via rename. Returns final path."""
+    """Write one checkpoint; atomic commit via rename. Returns final path.
+    A tree of DTensors is saved whole by every rank of its mesh together
+    (module docstring)."""
+    flat = tree_paths(tree)
+    if any(isinstance(leaf, DTensor) for _, leaf in flat):
+        return _save_sharded(ckpt_dir, step, flat, keep)
+    return _write(ckpt_dir, step, flat, keep)
+
+
+def _save_sharded(ckpt_dir, step: int, flat, keep: int) -> str:
+    """A state of DTensors saved whole: each leaf in turn is gathered onto
+    the mesh's first rank (every rank takes part in the collectives),
+    that rank writes, and every rank waits at a barrier until the
+    checkpoint is committed."""
+    mesh = partition.mesh_of([leaf for _, leaf in flat])
+    first = not any(partition.mesh_coords(mesh))
+
+    def whole():
+        for path, leaf in flat:
+            full = partition.gather_to_first(leaf) \
+                if isinstance(leaf, DTensor) else leaf
+            yield path, (leaf_to_numpy(full) if first else None)
+
+    if first:
+        final = _write(ckpt_dir, step, whole(), keep)
+    else:
+        for _ in whole():
+            pass
+        final = str(pathlib.Path(ckpt_dir) / f"step_{step:08d}")
+    if dist.is_initialized():
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir, step: int, flat, keep: int) -> str:
+    """Write ``(path, leaf)`` pairs (a leaf a tensor or a ``(host array,
+    dtype name)`` pair) as one checkpoint; commit by rename."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
@@ -85,13 +151,19 @@ def save_checkpoint(ckpt_dir, step: int, tree, *, keep: int = 3) -> str:
     tmp.mkdir()
 
     manifest = {"step": step, "leaves": []}
-    for i, (path, leaf) in enumerate(tree_paths(tree)):
-        arr, dtype = leaf_to_numpy(leaf)
-        fname = f"arr_{i:06d}.npy"
-        np.save(tmp / fname, arr)
-        manifest["leaves"].append({
-            "path": path, "file": fname, "shape": list(arr.shape),
-            "dtype": dtype, "hash": hash_array(arr)})
+    with ThreadPoolExecutor(IO_THREADS) as pool:
+        hashes = []
+        for i, (path, leaf) in enumerate(flat):
+            arr, dtype = leaf if isinstance(leaf, tuple) \
+                else leaf_to_numpy(leaf)
+            fname = f"arr_{i:06d}.npy"
+            hashes.append(pool.submit(hash_array, arr))
+            np.save(tmp / fname, arr)
+            manifest["leaves"].append({
+                "path": path, "file": fname, "shape": list(arr.shape),
+                "dtype": dtype})
+        for e, h in zip(manifest["leaves"], hashes):
+            e["hash"] = h.result()
     (tmp / "manifest.json").write_text(json.dumps(manifest))
 
     if final.exists():                      # crash-retry of the same step
@@ -165,11 +237,19 @@ def _load_leaf(d: pathlib.Path, e: dict, like: torch.Tensor, path: str,
     return torch.from_numpy(arr.astype(want, copy=False))
 
 
-def restore_checkpoint(ckpt_dir, target_tree, *, step: Optional[int] = None,
-                       verify: bool = True, strict: bool = True):
+def restore_checkpoint(ckpt_dir, target_tree, *, shardings=None,
+                       step: Optional[int] = None, verify: bool = True,
+                       strict: bool = True):
     """Restore into ``target_tree``, whose tensors are overwritten in
     place (each keeps its device, dtype and shape). Returns
     ``(target_tree, step)``.
+
+    A DTensor leaf (a state on a mesh) takes this rank's shard of the
+    whole recorded leaf, whatever mesh the checkpoint was saved on (the
+    elastic reshard). ``shardings``, the reference's argument, is a
+    placements tree of the target's structure
+    (``partition.constrained_shardings``); it must be the target's own,
+    which the in-place restore keeps.
 
     In place, as the port's optimizers update their state: at gemma2-2b's
     size a second copy of the state on the card would cost up to 26 GB.
@@ -204,9 +284,25 @@ def restore_checkpoint(ckpt_dir, target_tree, *, step: Optional[int] = None,
             "strict=False and recompute the missing leaves, or use "
             "repro_torch.train.state.restore_state which migrates and "
             "re-encodes plans automatically.")
-    loaded = [(leaf, _load_leaf(d, by_path[p], leaf, p, verify))
-              for p, leaf in flat if p in by_path]
+    if shardings is not None:
+        want = dict(tree_paths(shardings, placements=True))
+        for p, leaf in flat:
+            have = tuple(leaf.placements) if isinstance(leaf, DTensor) \
+                else None
+            if want.get(p) is not None and tuple(want[p]) != have:
+                raise ValueError(f"restore target leaf {p} lies as {have}, "
+                                 f"shardings= asks for {tuple(want[p])}")
+    present = [(p, leaf) for p, leaf in flat if p in by_path]
+    with ThreadPoolExecutor(IO_THREADS) as pool:
+        values = list(pool.map(
+            lambda pl: _load_leaf(d, by_path[pl[0]], pl[1], pl[0], verify),
+            present))
+    loaded = [(leaf, v) for (_, leaf), v in zip(present, values)]
     with torch.no_grad():
         for leaf, value in loaded:
-            leaf.copy_(value)
+            if isinstance(leaf, DTensor):
+                leaf.to_local().copy_(partition.shard_of(
+                    value, leaf.placements, leaf.device_mesh))
+            else:
+                leaf.copy_(value)
     return target_tree, step

@@ -3,9 +3,11 @@
 Port of ``repro.data.pipeline``: the batch at step ``s`` is a pure
 function of ``(seed, s, rows)``, generated with numpy exactly as the JAX
 package does (so the two packages see bitwise the same tokens), then
-handed over as int64 tensors on the requested device. No sharding: the
-port runs on one card. A background thread prefetches ``prefetch`` steps
-ahead.
+handed over as int64 tensors on the requested device. On a mesh
+(``sharding=``) each rank takes its rows of every step's global batch
+(``sharding.partition.batch_rows``): the batch is the same global
+``batch_at(step)``, cut after it is made. A background thread prefetches
+``prefetch`` steps ahead.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import partition
 
 
 class SyntheticTokens:
@@ -54,17 +58,23 @@ class SyntheticTokens:
 
 
 def make_batch_iterator(ds: SyntheticTokens, *, start_step: int = 0,
-                        device=None, prefetch: int = 2) -> Iterator[dict]:
+                        device=None, prefetch: int = 2,
+                        sharding=None) -> Iterator[dict]:
     """Prefetching iterator over steps from ``start_step``; the batches
     are made on the host by a daemon thread and moved to ``device`` by
-    the consumer. Closing the iterator stops the thread."""
+    the consumer. ``sharding``: a ``(data, model)`` DeviceMesh; each batch
+    is then this rank's rows of the global one. Closing the iterator
+    stops the thread."""
     q: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
     stop = threading.Event()
+    rows = slice(None)
+    if sharding is not None:
+        rows = slice(*partition.batch_rows(sharding, ds.batch)[:2])
 
     def producer():
         step = start_step
         while not stop.is_set():
-            item = ds.batch_at(step)
+            item = {k: v[rows] for k, v in ds.batch_at(step).items()}
             while not stop.is_set():
                 try:
                     q.put(item, timeout=0.1)

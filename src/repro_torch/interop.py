@@ -17,7 +17,8 @@ from repro_torch.core.grouped import GroupPlan
 from repro_torch.marl.async_train import Trajectory
 from repro_torch.marl.ic3net import IC3Net, IC3NetConfig
 from repro_torch.optim.optimizers import AdamWState, rmsprop_init
-from repro_torch.train.state import TrainState
+from repro_torch.sharding import partition
+from repro_torch.train.state import TrainState, state_specs
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
@@ -72,11 +73,25 @@ def plans_from_numpy(plans, device=None):
     return plan_from_numpy(plans, device)
 
 
-def train_state_from_numpy(state, device=None) -> TrainState:
+def train_state_from_numpy(state, device=None, *, mesh=None,
+                           cfg=None) -> TrainState:
     """A JAX ``TrainState`` with numpy leaves -> the port's: params,
     the optimizer state (AdamW ``mu``/``nu``/``count``, or RMSprop's
     tree), ``step`` and, on the grouped path, the PlanState (``sig`` as
-    the port's int64 scalar)."""
+    the port's int64 scalar). ``mesh``: a ``(data, model)`` DeviceMesh;
+    the carried state is then sharded onto it by the placements of
+    ``partition.constrained_shardings`` of ``cfg``'s ``state_specs``
+    (every rank passes the same state and keeps its shards)."""
+    out = _train_state_from_numpy(state, device)
+    if mesh is None:
+        return out
+    opt = "adamw" if isinstance(out.opt, AdamWState) else "rmsprop"
+    shardings = partition.constrained_shardings(
+        state_specs(cfg, optimizer=opt), out, mesh)
+    return partition.distribute(out, shardings, mesh)
+
+
+def _train_state_from_numpy(state, device=None) -> TrainState:
     opt = state.opt
     if hasattr(opt, "mu"):
         opt = AdamWState(mu=lm_params_from_numpy(opt.mu, device),

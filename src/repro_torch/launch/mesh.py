@@ -14,6 +14,7 @@ in :func:`init_distributed` (or in the caller's own
 from __future__ import annotations
 
 import datetime
+import faulthandler
 import math
 import multiprocessing as mp
 import os
@@ -26,6 +27,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+from repro_torch.sharding import partition
 
 # seconds a rendezvous may wait for the other processes (JAX's
 # coordinator waits 300 s by default)
@@ -106,9 +109,14 @@ def init_distributed(coordinator: Optional[str] = None,
 
     if not dist.is_initialized() and coordinator \
             and num_processes and num_processes > 1:
+        backend = backend or default_backend()
         try:
+            if backend == "nccl" and env.get("LOCAL_RANK"):
+                # torchrun's rank on a host of several cards: its own card
+                # (NCCL refuses two ranks on one)
+                torch.cuda.set_device(int(env["LOCAL_RANK"]))
             dist.init_process_group(
-                backend or default_backend(),
+                backend,
                 init_method=_init_method(coordinator),
                 world_size=num_processes, rank=process_id or 0,
                 timeout=datetime.timedelta(seconds=RENDEZVOUS_TIMEOUT_S))
@@ -134,18 +142,34 @@ def host_local_batch(global_batch: int) -> tuple[int, int]:
     return local, process_index() * local
 
 
-def _mesh(shape: tuple, names: tuple, ranks=None) -> DeviceMesh:
+def _mesh(shape: tuple, names: tuple, ranks=None,
+          device_type: Optional[str] = None) -> DeviceMesh:
     """A ``DeviceMesh`` of ``shape`` named ``names`` over ``ranks`` (the
     group's, in order, by default). Without a process group a one-rank
-    mesh is built without one; its collectives are the identity."""
+    mesh is built without one; its collectives are the identity.
+
+    ``device_type``: where the mesh's DTensors live; by default ``cuda``
+    on an NCCL group and ``cpu`` on gloo (the MARL mesh's replicated
+    state). ``cuda`` on a gloo group keeps an LM's shards on the card
+    while several ranks share it: its dimension groups are gloo groups
+    (``backend_override``), which take CUDA tensors."""
     n = len(ranks) if ranks is not None else process_count()
     ranks = list(range(n)) if ranks is None else list(ranks)
     grid = torch.tensor(ranks, dtype=torch.int).reshape(shape)
     if not dist.is_initialized():
-        return DeviceMesh("cpu", grid, mesh_dim_names=names,
+        return DeviceMesh(device_type or "cpu", grid, mesh_dim_names=names,
                           _init_backend=False, _rank=0)
-    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device, grid, mesh_dim_names=names)
+    backend = dist.get_backend()
+    if device_type is None:
+        device_type = "cuda" if backend == "nccl" else "cpu"
+    if device_type == "cuda":
+        # the process's card is the current one (the mesh picks none)
+        torch.cuda.init()
+    kw = {}
+    if device_type == "cuda" and backend == "gloo":
+        # gloo for the card's tensors, whatever a cuda mesh would pick
+        kw["backend_override"] = (("gloo", None),) * len(shape)
+    return DeviceMesh(device_type, grid, mesh_dim_names=names, **kw)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
@@ -245,14 +269,31 @@ def model_width(n: int, model: int = 0) -> int:
     return model
 
 
-def make_mesh_from_devices(ranks=None, *, model: int = 0) -> DeviceMesh:
+def make_mesh_from_devices(ranks=None, *, model: int = 0,
+                           device_type: Optional[str] = None) -> DeviceMesh:
     """Elastic mesh: ``(data, model)`` over the live ranks (the group's
-    by default), ``model`` wide by :func:`model_width`'s rule.
-    ``runtime.elastic.remesh_state`` rebuilds its mesh with it after the
-    group shrinks."""
+    by default), ``model`` wide by :func:`model_width`'s rule; the LM
+    launcher's mesh. ``runtime.elastic.remesh_state`` rebuilds its mesh
+    with it after the group shrinks. ``device_type``: see :func:`_mesh`."""
     n = len(ranks) if ranks is not None else process_count()
     model = model_width(n, model)
-    return _mesh((n // model, model), ("data", "model"), ranks)
+    return _mesh((n // model, model), ("data", "model"), ranks, device_type)
+
+
+def describe_lm_mesh(mesh, *, batch: int, state=None) -> str:
+    """The LM mesh's line: its shape and axes, this rank's rows of the
+    global batch and, given a sharded ``state``, its bytes on this rank
+    against the whole state's."""
+    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    d, m = sizes["data"], sizes["model"]
+    lo, hi, split = partition.batch_rows(mesh, batch)
+    line = (f"lm mesh ({d}x{m}): axes (data, model) over {d * m} "
+            f"device(s); rows {lo}:{hi} of {batch} (split over "
+            f"{', '.join(split) or 'none'})")
+    if state is not None:
+        local, whole = partition.state_bytes(state)
+        line += f"; state {local} of {whole} bytes on this rank"
+    return line
 
 
 def _to_host(tree):
@@ -269,6 +310,9 @@ def _to_host(tree):
 
 def _rank_main(rank, world, backend, init_method, timeout_s, threads, fn,
                args, kwargs, results):
+    # a rank still running a few seconds before the parent kills it
+    # prints every thread's stack to stderr (where a collective hangs)
+    faulthandler.dump_traceback_later(max(timeout_s - 5, 1), exit=False)
     try:
         if threads:
             torch.set_num_threads(threads)

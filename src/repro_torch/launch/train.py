@@ -1,13 +1,21 @@
-"""LM training launcher: config, init, data and the step loop.
+"""LM training launcher: mesh, sharded init, data and the step loop.
 
-Port of ``repro.launch.train`` on one device (the card unless
-``--device cpu``):
+Port of ``repro.launch.train`` (the card unless ``--device cpu``):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2_2b \\
       --full --flgw-groups 4 --flgw-path grouped --steps 3 --batch 4 \\
       --seq 1024
 
-There is no mesh. With ``--ckpt-dir`` the loop runs under
+The launcher builds the reference's ``(data, model)`` mesh over the
+process group (``launch.mesh.make_mesh_from_devices``). Without a group
+it is a ``(1, 1)`` mesh in one process and the state is plain tensors.
+With one (``init_distributed`` joins torchrun's: ``torchrun
+--nproc-per-node N -m repro_torch.launch.train ...``) every rank draws
+the same initial state and keeps its shards of it, by the placements of
+``partition.constrained_shardings(state_specs, abstract_state)``, takes
+its rows of each global batch and runs the mesh step
+(``train.step.make_train_step(mesh=)``); several ranks on one card run
+on gloo (NCCL takes one rank a card). With ``--ckpt-dir`` the loop runs under
 ``repro_torch.runtime.StepRunner``: it resumes from the directory's
 latest checkpoint (plans re-encoded by ``restore_state``), saves every
 ``--save-every`` steps, and on SIGTERM or SIGINT saves at the next step
@@ -21,13 +29,16 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import registry
 from repro_torch.core.schedule import SparsitySchedule
 from repro_torch.data.pipeline import SyntheticTokens, make_batch_iterator
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer
 from repro_torch.runtime.fault import StepRunner
+from repro_torch.sharding import partition
 from repro_torch.train import state as state_lib
 from repro_torch.train import step as step_lib
 
@@ -39,13 +50,16 @@ def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
              n_layers: Optional[int] = None, refresh_every: int = 1, refresh: str = "period",
              optimizer: str = "adamw", ckpt_dir: str = None,
              save_every: int = 100, log_every: int = 10,
-             banded: bool = False, seed: int = 0, device=None):
+             banded: bool = False, seed: int = 0, device=None,
+             model: int = 0):
     """Train ``arch`` up to step ``steps`` on synthetic tokens (from the
     latest checkpoint in ``ckpt_dir``, when there is one).
     ``flgw_targets`` (default the config's) and ``n_layers`` (a depth
-    cut, a multiple of the pattern's period) override the config. Returns
-    ``(state, history)``: one metrics dict per step run (tensors, plus
-    the step's synchronised wall time ``step_s``)."""
+    cut, a multiple of the pattern's period) override the config.
+    ``model``: the mesh's model axis (``make_mesh_from_devices``; 0 by
+    its rule). Returns ``(state, history)``: one metrics dict per step
+    run (tensors, plus the step's synchronised wall time ``step_s``); on
+    a process group the state's leaves are this rank's DTensors."""
     dev = resolve_device(device)
     get = registry.get_smoke_config if smoke else registry.get_config
     overrides = {}
@@ -68,10 +82,25 @@ def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
                                     refresh_every=refresh_every,
                                     refresh=refresh)
 
-    state = state_lib.init_state(torch.Generator(device=dev).manual_seed(seed),
-                                 cfg, optimizer=optimizer)
-    train_step = step_lib.make_train_step(cfg, optimizer=optimizer, lr=lr,
-                                          banded=banded, schedule=schedule)
+    mesh = mesh_lib.make_mesh_from_devices(model=model,
+                                           device_type=dev.type)
+    sharded = dist.is_initialized()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shardings = None
+    if sharded:
+        shardings = partition.constrained_shardings(
+            state_lib.state_specs(cfg, optimizer=optimizer),
+            state_lib.abstract_state(cfg, optimizer=optimizer), mesh)
+        state = state_lib.init_sharded_state(gen, cfg, mesh, shardings,
+                                             optimizer=optimizer)
+    else:
+        state = state_lib.init_state(gen, cfg, optimizer=optimizer)
+    print(mesh_lib.describe_lm_mesh(mesh, batch=batch,
+                                    state=state if sharded else None),
+          flush=True)
+    train_step = step_lib.make_train_step(
+        cfg, optimizer=optimizer, lr=lr, banded=banded, schedule=schedule,
+        mesh=mesh if sharded else None, global_batch=batch)
 
     def sync():
         if dev.type == "cuda":
@@ -93,9 +122,11 @@ def train_lm(arch: str, *, smoke: bool = True, steps: int = 20,
     try:
         if runner is not None:
             state, start = runner.restore_or(
-                state, restore_fn=lambda s: state_lib.restore_state(
-                    ckpt_dir, s, cfg))
-        batches = make_batch_iterator(ds, start_step=start, device=dev)
+                state, shardings=shardings,
+                restore_fn=lambda s, sh: state_lib.restore_state(
+                    ckpt_dir, s, cfg, shardings=sh))
+        batches = make_batch_iterator(ds, start_step=start, device=dev,
+                                      sharding=mesh if sharded else None)
         t0 = time.perf_counter()
         try:
             if runner is not None:
@@ -158,6 +189,9 @@ def main(argv=None):
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain PyTorch path)")
     a = ap.parse_args(argv)
+    # under torchrun: join its group (no-op in one process)
+    mesh_lib.init_distributed(strict=True, backend="gloo"
+                              if a.device == "cpu" else "nccl")
     train_lm(a.arch, smoke=a.smoke, steps=a.steps, batch=a.batch,
              seq=a.seq, lr=a.lr, flgw_groups=a.flgw_groups,
              flgw_path=a.flgw_path,

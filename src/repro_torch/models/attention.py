@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.core.flgw import FLGWConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import dense_init, plan_of, proj, rope, softcap
+from repro_torch.models.layers import (dense_init, dense_specs, plan_of, proj,
+                                       rope, softcap)
 
 NEG_INF = -2.3819763e38
 
@@ -44,6 +45,15 @@ def attn_init(generator: torch.Generator, cfg, *,
             "k": dense_init(generator, d, cfg.n_kv_heads * h, **kw),
             "v": dense_init(generator, d, cfg.n_kv_heads * h, **kw),
             "o": dense_init(generator, cfg.n_heads * h, d, **kw)}
+
+
+def attn_specs(*, flgw: Optional[FLGWConfig] = None) -> dict:
+    """Spec tree of :func:`attn_init`: q ("embed", "heads"), k and v
+    ("embed", "kv_heads"), o ("heads", "embed")."""
+    return {"q": dense_specs(("embed", "heads"), flgw=flgw),
+            "k": dense_specs(("embed", "kv_heads"), flgw=flgw),
+            "v": dense_specs(("embed", "kv_heads"), flgw=flgw),
+            "o": dense_specs(("heads", "embed"), flgw=flgw)}
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,

@@ -3,6 +3,10 @@
 Parameters are plain dicts of tensors (``{"w", "ig", "og"}`` for an FLGW
 layer), as in the JAX package, so a param tree converts one to one.
 Initialisers draw from an explicit ``torch.Generator`` on its device.
+Where the JAX initialisers return ``(params, specs)``, the port's return
+the params, and a sibling ``*_specs`` function gives the spec tree: the
+same nesting with a tuple of *logical* axis names per leaf, consumed by
+``repro_torch.sharding.partition``.
 """
 from __future__ import annotations
 
@@ -34,6 +38,17 @@ def dense_init(generator: torch.Generator, m: int, n: int, *,
     if flgw is not None and flgw.groups > 1:
         params.update(init_grouping(generator, m, n, flgw.groups, lead=lead))
     return params
+
+
+def dense_specs(axes=("in", "out"), *,
+                flgw: Optional[FLGWConfig] = None) -> dict:
+    """Spec tree of :func:`dense_init`: W by ``axes``, IG (``axes[0]``,
+    None) and OG (None, ``axes[1]``) when FLGW is on."""
+    specs = {"w": tuple(axes)}
+    if flgw is not None and flgw.groups > 1:
+        specs["ig"] = (axes[0], None)
+        specs["og"] = (None, axes[1])
+    return specs
 
 
 def proj(p: dict, x: torch.Tensor, flgw: Optional[FLGWConfig] = None, *,
@@ -72,6 +87,10 @@ def rmsnorm_init(d: int, *, device=None, lead: tuple = ()) -> dict:
                                  device=device)}
 
 
+def rmsnorm_specs() -> dict:
+    return {"scale": (None,)}
+
+
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Gemma RMSNorm: normalised in float32, scaled by ``1 + scale``."""
     xf = x.float()
@@ -84,6 +103,10 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
     e = torch.randn((vocab, d), generator=generator,
                     device=generator.device) * 0.02
     return {"embedding": e.to(dtype)}
+
+
+def embed_specs() -> dict:
+    return {"embedding": ("vocab", "embed")}
 
 
 def embed(p: dict, tokens: torch.Tensor, d_model: int) -> torch.Tensor:
@@ -135,6 +158,17 @@ def mlp_init(generator: torch.Generator, d: int, ff: int, *,
     params["down"] = dense_init(generator, ff, d, flgw=flgw, dtype=dtype,
                                 lead=lead)
     return params
+
+
+def mlp_specs(*, gated: bool = True,
+              flgw: Optional[FLGWConfig] = None) -> dict:
+    """Spec tree of :func:`mlp_init`: ``up``/``gate`` ("embed", "ffn"),
+    ``down`` ("ffn", "embed")."""
+    specs = {"up": dense_specs(("embed", "ffn"), flgw=flgw)}
+    if gated:
+        specs["gate"] = dense_specs(("embed", "ffn"), flgw=flgw)
+    specs["down"] = dense_specs(("ffn", "embed"), flgw=flgw)
+    return specs
 
 
 def mlp(p: dict, x: torch.Tensor, flgw: Optional[FLGWConfig] = None,

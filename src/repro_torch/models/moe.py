@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.flgw import FLGWConfig, init_grouping
 from repro_torch.models.layers import plan_of, proj
+from repro_torch.sharding import collectives
 
 
 def _expert_weights(generator: torch.Generator, lead: tuple, e: int, m: int,
@@ -43,7 +44,7 @@ def moe_init(generator: torch.Generator, cfg, *,
     and ``gate`` (*lead, E, d, ff) and ``down`` (*lead, E, ff, d) in
     ``cfg.dtype``; with FLGW, each expert projection's own IG/OG
     (``init_grouping`` with the expert axis in ``lead``). The tree is the
-    JAX package's ``moe_init`` (without its sharding specs)."""
+    JAX package's ``moe_init``; :func:`moe_specs` gives its specs."""
     d = cfg.d_model
     ff = cfg.moe_d_ff or cfg.d_ff
     e = cfg.n_experts
@@ -61,6 +62,22 @@ def moe_init(generator: torch.Generator, cfg, *,
             params[name].update(init_grouping(generator, m, n, flgw.groups,
                                               lead=(*lead, e)))
     return params
+
+
+def moe_specs(*, flgw: Optional[FLGWConfig] = None) -> dict:
+    """Spec tree of :func:`moe_init`: the expert axis leads every expert
+    leaf (``"expert"``, replicated: the inner dims carry the sharding)."""
+    specs = {"router": ("embed", None),
+             "up": {"w": ("expert", "embed", "ffn")},
+             "gate": {"w": ("expert", "embed", "ffn")},
+             "down": {"w": ("expert", "ffn", "embed")}}
+    if flgw is not None and flgw.groups > 1:
+        for name, (m, n) in (("up", ("embed", "ffn")),
+                             ("gate", ("embed", "ffn")),
+                             ("down", ("ffn", "embed"))):
+            specs[name]["ig"] = ("expert", m, None)
+            specs[name]["og"] = ("expert", None, n)
+    return specs
 
 
 def _expert_ffn(p: dict, xe: torch.Tensor, flgw: Optional[FLGWConfig],
@@ -112,12 +129,12 @@ def moe(p: dict, x: torch.Tensor, cfg, *, flgw: Optional[FLGWConfig] = None,
     gate_w, gate_e = top_w[:, :k], top_e[:, :k]
     gate_w = gate_w / gate_w.sum(-1, keepdim=True)
 
-    # load-balancing auxiliary loss (Switch-style)
-    me = probs.mean(0)
-    ce = F.one_hot(gate_e[:, 0], e).float().mean(0)
+    # load-balancing auxiliary loss (Switch-style); in a mesh step the
+    # means are over the global batch, every rank's rows
+    me = collectives.batch_mean(probs)
+    ce = collectives.batch_mean(F.one_hot(gate_e[:, 0], e).float())
     aux = e * (me * ce).sum()
 
-    cap = capacity(t, cfg, dropless)
     # sort the (token, slot) assignments by expert; the first `cap` of each
     # expert's run are kept
     flat_e = gate_e.reshape(-1)                                # (T*k,)
@@ -127,21 +144,35 @@ def moe(p: dict, x: torch.Tensor, cfg, *, flgw: Optional[FLGWConfig] = None,
     se, st, sw = flat_e[order], flat_t[order], flat_w[order]
     pos_in_e = (torch.arange(t * k, device=x.device)
                 - torch.searchsorted(se, se, right=False))
-    slot = torch.where(pos_in_e < cap, se * cap + pos_in_e, e * cap)
+    # the capacity bounds an expert's run at `at`; `width`: its slots here
+    cap = width = capacity(t, cfg, dropless)
+    at = pos_in_e
+    _, blocks = collectives.row_block()
+    if blocks > 1 and not dropless:
+        # in a mesh step, the global batch's run, as the reference's one
+        # program bounds it: this rank's rows come after the earlier
+        # blocks' assignments to the expert, and fill at most t slots of
+        # it (top-k picks distinct experts)
+        cap = capacity(t * blocks, cfg, False)
+        width = min(cap, t)
+        at = pos_in_e + collectives.rows_before(
+            torch.zeros(e, dtype=torch.int64, device=x.device)
+            .scatter_add_(0, flat_e, torch.ones_like(flat_e)))[se]
+    slot = torch.where(at < cap, se * width + pos_in_e, e * width)
 
-    # slot e*cap is the drop sink, sliced off
-    tok_of_slot = torch.full((e * cap + 1,), t, dtype=torch.int64,
+    # slot e*width is the drop sink, sliced off
+    tok_of_slot = torch.full((e * width + 1,), t, dtype=torch.int64,
                              device=x.device)
     tok_of_slot[slot] = st
     tok_of_slot = tok_of_slot[:-1]                             # (E*C,)
-    w_of_slot = torch.zeros(e * cap + 1, dtype=torch.float32,
+    w_of_slot = torch.zeros(e * width + 1, dtype=torch.float32,
                             device=x.device)
     w_of_slot[slot] = sw
     w_of_slot = w_of_slot[:-1]
 
     xe = xf[tok_of_slot.clamp(max=t - 1)]
-    xe = torch.where((tok_of_slot < t)[:, None], xe, 0).reshape(e, cap, d)
-    ye = _expert_ffn(p, xe, flgw, plans).reshape(e * cap, d)
+    xe = torch.where((tok_of_slot < t)[:, None], xe, 0).reshape(e, width, d)
+    ye = _expert_ffn(p, xe, flgw, plans).reshape(e * width, d)
     ye = ye * w_of_slot[:, None].to(ye.dtype)
 
     # row t is the sink of the empty slots, sliced off

@@ -21,12 +21,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.flgw import FLGWConfig
-from repro_torch.models.layers import dense_init, plan_of, proj, rmsnorm
+from repro_torch.models.layers import (dense_init, dense_specs, plan_of, proj,
+                                       rmsnorm)
 
 
 def ssm_init(generator: torch.Generator, cfg, *,
              flgw: Optional[FLGWConfig] = None, lead: tuple = ()) -> dict:
-    """The JAX package's ``ssm_init`` tree (without its sharding specs):
+    """The JAX package's ``ssm_init`` tree (:func:`ssm_specs` its specs):
     ``in`` (d, 2·d_inner + 2N + H) and ``out`` (d_inner, d) projections
     in ``cfg.dtype`` (with IG/OG when FLGW is on), the depthwise
     ``conv_w`` (W, d_inner + 2N) N(0, 0.2²) in ``cfg.dtype``, and the
@@ -49,6 +50,14 @@ def ssm_init(generator: torch.Generator, cfg, *,
     p["dt_bias"] = torch.zeros((*lead, h), device=dev)
     p["norm"] = {"scale": torch.zeros((*lead, di), device=dev)}
     return p
+
+
+def ssm_specs(*, flgw: Optional[FLGWConfig] = None) -> dict:
+    """Spec tree of :func:`ssm_init`."""
+    return {"in": dense_specs(("embed", "ffn"), flgw=flgw),
+            "out": dense_specs(("ffn", "embed"), flgw=flgw),
+            "conv_w": (None, "ffn"), "A_log": ("heads",), "D": ("heads",),
+            "dt_bias": ("heads",), "norm": {"scale": (None,)}}
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -37,9 +37,10 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig, SlotSpec
-from repro_torch.models.layers import (embed, embed_init, mlp, mlp_init,
-                                       plan_of, rmsnorm, rmsnorm_init,
-                                       softcap, unembed)
+from repro_torch.models.layers import (embed, embed_init, embed_specs, mlp,
+                                       mlp_init, mlp_specs, plan_of, rmsnorm,
+                                       rmsnorm_init, rmsnorm_specs, softcap,
+                                       unembed)
 
 _UNPORTED = "is not ported to repro_torch yet (ROADMAP, Queue 1)"
 
@@ -132,7 +133,7 @@ def _slot_init(generator, cfg: ModelConfig, slot: SlotSpec, n: int) -> dict:
 
 def lm_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """Random params on ``generator``'s device, laid out as the JAX
-    package's ``lm_init`` tree (without its sharding specs). Weights are
+    package's ``lm_init`` tree (:func:`lm_specs` gives its specs). Weights are
     N(0, 1/fan_in) in ``cfg.dtype``; grouping matrices and norms f32. An
     encoder-decoder adds ``encoder`` (``encoder_layers`` stacked
     ENC_SLOT layers) and ``enc_norm``."""
@@ -149,6 +150,98 @@ def lm_init(generator: torch.Generator, cfg: ModelConfig) -> dict:
         params["enc_norm"] = rmsnorm_init(cfg.d_model,
                                           device=generator.device)
     return params
+
+
+def _slot_specs(cfg: ModelConfig, slot: SlotSpec) -> dict:
+    """One slot's spec tree, its leaves led by the stacking ``"layers"``
+    axis (the JAX package prepends it after the vmap)."""
+    s = {"norm1": rmsnorm_specs()}
+    if slot.mixer == "attn":
+        s["mixer"] = attn_mod.attn_specs(flgw=_flgw_cfg(cfg, "attn"))
+    else:
+        s["mixer"] = ssm_mod.ssm_specs(flgw=_flgw_cfg(cfg, "ssm"))
+    if slot.cross:
+        s["norm_x"] = rmsnorm_specs()
+        s["cross"] = attn_mod.attn_specs(flgw=_flgw_cfg(cfg, "attn"))
+    if slot.ffn != "none":
+        s["norm2"] = rmsnorm_specs()
+        if slot.ffn != "mlp":
+            s["moe"] = moe_mod.moe_specs(flgw=_flgw_cfg(cfg, "moe"))
+        if slot.ffn != "moe":
+            s["ffn"] = mlp_specs(gated=cfg.gated_mlp,
+                                 flgw=_flgw_cfg(cfg, "mlp"))
+    return _lead_specs(s, "layers")
+
+
+def _lead_specs(tree, axis):
+    if isinstance(tree, dict):
+        return {k: _lead_specs(v, axis) for k, v in tree.items()}
+    return (axis, *tree)
+
+
+def lm_specs(cfg: ModelConfig) -> dict:
+    """The logical-axis spec tree of :func:`lm_init`'s params (the JAX
+    package's ``lm_init`` specs), built without a tensor."""
+    _check_supported(cfg)
+    specs = {"embed": embed_specs(),
+             "blocks": {f"slot{i}": _slot_specs(cfg, slot)
+                        for i, slot in enumerate(cfg.pattern)},
+             "final_norm": rmsnorm_specs()}
+    if cfg.encoder_layers:
+        specs["encoder"] = {"slot0": _slot_specs(cfg, ENC_SLOT)}
+        specs["enc_norm"] = rmsnorm_specs()
+    return specs
+
+
+def _plan_specs_of(specs, compact: bool):
+    """A GroupPlan of replicated specs at every FLGW projection of a
+    param spec tree (a dict holding ``ig``), its other branches
+    dropped."""
+    out = {}
+    for name, s in specs.items():
+        if not isinstance(s, dict):
+            continue
+        if "ig" in s:
+            lead = len(s["ig"]) - 2
+            ids, per_item = (None,) * (lead + 2), (None,) * (lead + 1)
+            out[name] = GroupPlan(ids, ids, ids, ids, per_item, per_item,
+                                  (None,) * (lead + 3) if compact else None)
+        else:
+            sub = _plan_specs_of(s, compact)
+            if sub:
+                out[name] = sub
+    return out
+
+
+def plan_specs(cfg: ModelConfig, *, compact: bool = False):
+    """Spec tree of the stack's cached PlanState: every leaf replicated
+    (the compact metadata is small and consumed whole by every shard).
+    ``()`` off the grouped path. ``compact=True`` mirrors a state with
+    the compact weights attached (``init_cache(params=...)``'s)."""
+    if cfg.flgw_groups <= 1 or cfg.flgw_path != "grouped":
+        return ()
+    return planenc.PlanState(_plan_specs_of(lm_specs(cfg), compact), ())
+
+
+def cache_specs(cfg: ModelConfig, *, per_slot: bool = False) -> dict:
+    """Spec tree of :func:`init_cache`: KV buffers split over their
+    sequence dim on the model axis (``"seq_kv"``), SSM states by heads
+    and conv rings by channel; the plans' as :func:`plan_specs` with
+    compact weights."""
+    blocks = {}
+    for i, slot in enumerate(cfg.pattern):
+        if slot.mixer == "attn":
+            kv = ("layers", "batch", "seq_kv", "kv_heads", None)
+            blocks[f"slot{i}"] = {"k": kv, "v": kv}
+        else:
+            blocks[f"slot{i}"] = {
+                "state": ("layers", "batch", "heads", None, None),
+                "conv": ("layers", "batch", None, "ffn")}
+    specs = {"pos": ("batch",) if per_slot else (), "blocks": blocks,
+             "plans": plan_specs(cfg, compact=True)}
+    if cfg.encoder_layers:
+        specs["encoder_out"] = ("batch", None, None)
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -221,12 +314,22 @@ def _slot_apply(p, x, positions, cfg: ModelConfig, slot: SlotSpec, *,
     return x + out, aux
 
 
+def _gathered_slot_apply(p, x, positions, cfg: ModelConfig, slot: SlotSpec,
+                         *, gather=None, path=(), **kw):
+    """:func:`_slot_apply` on ``p`` built whole by ``gather`` first (a
+    mesh step's weights, see ``lm_apply``)."""
+    if gather is not None:
+        p = gather(p, path, lead=1)
+    return _slot_apply(p, x, positions, cfg, slot, **kw)
+
+
 def _apply_blocks(blocks, cfg: ModelConfig, pattern, n_blocks: int, x,
                   positions, *, block_plans=None, caches=None, remat=False,
-                  **kw):
+                  gather=None, path=("blocks",), **kw):
     """The stack of ``n_blocks`` blocks of ``pattern``'s slots over x ->
     (x, aux summed over the MoE slots). ``caches``: the decode caches'
-    ``blocks``; ``kw`` goes to every ``_slot_apply``."""
+    ``blocks``; ``gather``, ``path``: see ``lm_apply``; ``kw`` goes to
+    every ``_slot_apply``."""
     aux = torch.zeros((), device=x.device)
     per_block = _unstack(blocks, n_blocks)
     for i in range(n_blocks):
@@ -235,15 +338,18 @@ def _apply_blocks(blocks, cfg: ModelConfig, pattern, n_blocks: int, x,
             name = f"slot{j}"
             c = None if caches is None else _index(caches[name], i)
             kw_j = dict(kw, cache=c, plans=plan_of(block_pl, name))
+            if gather is not None:
+                kw_j.update(gather=gather, path=(*path, name))
             if remat:
                 # the plans are inputs: the recompute consumes them as the
-                # forward did, never re-encoding
-                x, a = checkpoint(_slot_apply, per_block[i][name], x,
+                # forward did, never re-encoding; a mesh step's gather runs
+                # again in the recompute
+                x, a = checkpoint(_gathered_slot_apply, per_block[i][name], x,
                                   positions, cfg, slot, use_reentrant=False,
                                   **kw_j)
             else:
-                x, a = _slot_apply(per_block[i][name], x, positions, cfg,
-                                   slot, **kw_j)
+                x, a = _gathered_slot_apply(per_block[i][name], x, positions,
+                                            cfg, slot, **kw_j)
             if a is not None:
                 aux = aux + a
     return x, aux
@@ -254,7 +360,7 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
              return_hidden: bool = False, unroll_blocks: bool = False,
              attn_identity: bool = False, plans=None,
              patch_embeds=None, frames=None, moe_dropless: bool = False,
-             ssd_unroll: bool = False):
+             ssd_unroll: bool = False, gather=None):
     """Forward pass. Returns (logits, aux_loss, new_cache).
 
     tokens, positions: (B, S) integer. ``patch_embeds``: (B, P, d) VLM
@@ -277,6 +383,11 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
     load-balancing losses summed over the stack (0 without MoE).
     ``moe_dropless``: every expert takes t·k rows, so no token is dropped
     (the serving prefill); a decode step (a cache) is dropless always.
+    ``gather(tree, path, lead)``: a mesh step's (``repro_torch.train.step``),
+    called on each layer slot's params, one block's slice of the stacked
+    shards at ``path`` (``lead=1``: the block axis is gone), just before
+    the slot computes and inside its remat; it returns them whole. The
+    top-level leaves (``embed``, the norms) the caller passes whole.
     """
     _check_supported(cfg)
     if unroll_blocks or attn_identity or ssd_unroll:
@@ -305,7 +416,8 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
             params["encoder"], cfg, (ENC_SLOT,), cfg.encoder_layers,
             frames.to(cfg.dtype),
             torch.arange(t, device=x.device).expand(frames.shape[0], t),
-            block_plans=plans.get("encoder"), remat=remat, q_chunk=q_chunk)
+            block_plans=plans.get("encoder"), remat=remat, q_chunk=q_chunk,
+            gather=gather, path=("encoder",))
         encoder_out = rmsnorm(params["enc_norm"], eo, cfg.norm_eps)
     elif cfg.encoder_layers and cache is not None:
         encoder_out = cache["encoder_out"]
@@ -319,7 +431,8 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
         params["blocks"], cfg, cfg.pattern, cfg.n_blocks, x, positions,
         block_plans=plans.get("blocks"),
         caches=None if cache is None else cache["blocks"],
-        remat=remat and cache is None, pos=pos, encoder_out=encoder_out,
+        remat=remat and cache is None, gather=gather, pos=pos,
+        encoder_out=encoder_out,
         prefix_len=prefix_len, q_chunk=q_chunk, banded=banded,
         moe_dropless=moe_dropless)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

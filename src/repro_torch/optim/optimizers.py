@@ -20,6 +20,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.sharding import collectives
+
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of nested dicts (``rest`` of the same
@@ -42,15 +44,26 @@ def tree_leaves(tree) -> list:
 # Utilities
 # ---------------------------------------------------------------------------
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32."""
-    return torch.sqrt(sum(l.float().square().sum() for l in tree_leaves(tree)))
+def global_norm(tree, *, owned=None, group=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32. On a mesh
+    ``tree`` holds this rank's shards, ``owned`` (a tree of bools like
+    it) the leaves this rank counts (a replicated leaf is counted by one
+    rank), and the sum is all-reduced over ``group``, one scalar."""
+    leaves = tree_leaves(tree)
+    if owned is not None:
+        leaves = [l for l, o in zip(leaves, tree_leaves(owned)) if o]
+    sq = sum(l.float().square().sum() for l in leaves)
+    if group is not None:
+        sq = collectives.all_reduce(torch.as_tensor(sq).reshape(1),
+                                    group)[0]
+    return torch.sqrt(sq)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, owned=None, group=None):
     """Scale the whole gradient tree so its global norm is <= max_norm.
-    Returns (clipped tree, the norm before clipping)."""
-    norm = global_norm(grads)
+    Returns (clipped tree, the norm before clipping). ``owned`` and
+    ``group``: a mesh's shards, see :func:`global_norm`."""
+    norm = global_norm(grads, owned=owned, group=group)
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 

@@ -10,23 +10,23 @@ grow is a restart that loses no optimizer state.
 """
 from __future__ import annotations
 
-from torch.distributed.tensor import distribute_tensor
-
 from repro_torch.launch.mesh import make_mesh_from_devices
 from repro_torch.sharding import partition
 
 
 def remesh_state(state, specs, *, ranks=None, model: int = 0):
-    """Reshard ``state`` (nested dicts of tensors matching ``specs``) onto
-    a fresh ``(data, model)`` mesh over ``ranks`` (the group's by
-    default). Every rank passes its full copy of each leaf.
+    """Reshard ``state`` (a tree of tensors matching ``specs``) onto a
+    fresh ``(data, model)`` mesh over ``ranks`` (the group's by default),
+    on the state's device type. Every rank passes either its full copy of
+    each leaf or the state sharded on another mesh (DTensors), which is
+    gathered whole first, with the counted collectives.
 
     Returns (new_state, new_mesh): the leaves are ``DTensor``s with the
     placements of ``partition.constrained_shardings``.
     """
-    mesh = make_mesh_from_devices(ranks, model=model)
-    placements = partition.constrained_shardings(specs, state, mesh)
-    new_state = partition.map_specs(
-        lambda _, x, p: distribute_tensor(x, mesh, list(p)), specs, state,
-        placements)
-    return new_state, mesh
+    whole = partition.gather(state)
+    mesh = make_mesh_from_devices(
+        ranks, model=model,
+        device_type=partition.leaves(whole)[0].device.type)
+    placements = partition.constrained_shardings(specs, whole, mesh)
+    return partition.distribute(whole, placements, mesh), mesh

@@ -10,7 +10,9 @@ the step, so fault tolerance reduces to three small mechanisms:
 * ``retry_transient``: re-runs a call on errors whose message looks
   transient (a collective timeout, a connection reset).
 * ``StepRunner``: wires them together with periodic and on-preemption
-  checkpoints; on restart it resumes from the latest manifest.
+  checkpoints; on restart it resumes from the latest manifest. A state
+  on a mesh (DTensors) stops and saves at the same step boundary on
+  every rank: the stop flag is agreed by an all-reduce each step.
 
 Unlike the JAX package's, the port's train step writes the params and
 optimizer moments in place (``repro_torch.train.step``). A step that
@@ -27,7 +29,11 @@ import signal
 import time
 from typing import Callable, Optional
 
+import torch
+import torch.distributed as dist
+
 from repro_torch import checkpoint as ckpt
+from repro_torch.sharding import collectives, partition
 
 TRANSIENT_MARKERS = ("DEADLINE_EXCEEDED", "UNAVAILABLE", "ABORTED",
                      "RESOURCE_EXHAUSTED: Socket", "connection reset")
@@ -89,20 +95,34 @@ class StepRunner:
         self.keep = keep
         self.guard = guard or PreemptionGuard()
 
-    def restore_or(self, state, restore_fn=None):
+    def restore_or(self, state, shardings=None, restore_fn=None):
         """Resume from the latest checkpoint if one exists.
 
-        ``restore_fn(state) -> (state, step)`` overrides the plain
-        full-tree restore: the TrainState path passes
+        ``restore_fn(state, shardings) -> (state, step)`` overrides the
+        plain full-tree restore: the TrainState path passes
         ``repro_torch.train.state.restore_state`` here so derived leaves
         (cached FLGW plans) are re-encoded from the restored params
         rather than loaded stale, and pre-plans manifests migrate.
+        ``shardings``: the placements tree of a state on a mesh (see
+        ``checkpoint.restore_checkpoint``).
         """
         if ckpt.latest_step(self.ckpt_dir) is None:
             return state, 0
         if restore_fn is not None:
-            return restore_fn(state)
-        return ckpt.restore_checkpoint(self.ckpt_dir, state)
+            return restore_fn(state, shardings)
+        return ckpt.restore_checkpoint(self.ckpt_dir, state,
+                                       shardings=shardings)
+
+    @staticmethod
+    def _agreed(stop: bool, state) -> bool:
+        """A state on a mesh stops (and saves) on every rank together:
+        the flag is the maximum over the ranks, one scalar all-reduce."""
+        mesh = partition.mesh_of(state)
+        if mesh is None or not dist.is_initialized():
+            return stop
+        dev = partition.leaves(state)[0].device
+        flag = torch.tensor([float(stop)], device=dev)
+        return bool(collectives.all_reduce(flag, dist.group.WORLD)[0] > 0)
 
     def run(self, state, batches, *, start_step: int = 0,
             max_steps: Optional[int] = None, log_every: int = 0):
@@ -120,7 +140,7 @@ class StepRunner:
             history.append(metrics)
             # read before the log line: a signal sent on seeing "step N:"
             # stops the loop at the next boundary, never at N's
-            stop = self.guard.should_stop
+            stop = self._agreed(self.guard.should_stop, state)
             if log_every and step % log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 print(f"step {step}: {m}", flush=True)

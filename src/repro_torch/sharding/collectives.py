@@ -9,14 +9,22 @@ process).
 
 The tensors stay on their device. Several ranks on one card run on gloo
 (NCCL refuses two ranks on one device), and gloo takes CUDA tensors for
-both collectives used here: torch 2.11's gloo ran all_reduce,
+every collective used here: torch 2.11's gloo ran all_reduce,
 all_gather, broadcast, reduce, reduce_scatter_tensor and
 all_to_all_single on an H100's tensors (``chip_smoke.py`` phase 16), so
-nothing is staged through host memory.
+nothing is staged through host memory by the port.
+
+The LM on a ``(data, model)`` mesh (``repro_torch.train.step``) keeps
+each weight as its shards and computes with it whole: :func:`gather_shards`
+all-gathers a leaf in the forward and reduce-scatters its float32
+gradient back onto the leaf's placements in the backward (the FSDP pair),
+and :func:`batch_mean` takes a mean over the batch rows of every rank.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import warnings
 from typing import Optional, Sequence
 
 import torch
@@ -41,7 +49,12 @@ def all_reduce(tensor: torch.Tensor, group) -> torch.Tensor:
     if not active(group):
         return tensor
     CALLS[("all_reduce", dist.get_backend(group))] += 1
-    dist.all_reduce(tensor, group=group)
+    if tensor.is_contiguous():
+        dist.all_reduce(tensor, group=group)
+    else:                       # NCCL and gloo's CUDA path take dense ones
+        buf = tensor.contiguous()
+        dist.all_reduce(buf, group=group)
+        tensor.copy_(buf)
     return tensor
 
 
@@ -90,3 +103,146 @@ def all_reduce_sum(x: torch.Tensor, group: Optional[object]) -> torch.Tensor:
     if not active(group):
         return x
     return _AllReduceSum.apply(x, group)
+
+
+def reduce_scatter(tensor: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Sum ``tensor`` over ``group`` and keep this rank's chunk of the sum
+    along ``dim`` (equal chunks in rank order)."""
+    if not active(group):
+        return tensor
+    n = dist.get_world_size(group)
+    if tensor.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(tensor.shape)}"
+                         f" does not divide over {n} ranks")
+    CALLS[("reduce_scatter", dist.get_backend(group))] += 1
+    src = tensor.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    with warnings.catch_warnings():     # renamed reduce_scatter_single later
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def gather_to_first(tensor: torch.Tensor, group, dim: int):
+    """Concatenate every rank's ``tensor`` along ``dim``, in rank order, on
+    the group's first rank; ``None`` on the others (whose part only
+    leaves them)."""
+    if not active(group):
+        return tensor
+    CALLS[("gather", dist.get_backend(group))] += 1
+    src = tensor.contiguous()
+    first = dist.get_rank(group) == 0
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(
+        group))] if first else None
+    dist.gather(src, parts, dst=dist.get_global_rank(group, 0), group=group)
+    return torch.cat(parts, dim) if first else None
+
+
+def gather_whole(local: torch.Tensor, layout) -> torch.Tensor:
+    """The whole tensor from this rank's shard. ``layout``: one ``(group,
+    dim)`` a mesh dimension, outermost first, ``dim`` the tensor dimension
+    that mesh dimension splits or None; the innermost split is gathered
+    first."""
+    t = local
+    for group, d in reversed(layout):
+        if d is not None:
+            t = all_gather(t, group, d)
+    return t
+
+
+def reduce_to_shard(grad: torch.Tensor, layout) -> torch.Tensor:
+    """``grad`` summed over every rank of the mesh, this rank keeping its
+    shard (``layout`` as :func:`gather_whole`'s): reduce-scattered over
+    the mesh dimensions that split the tensor, those that split its dim 0
+    first (no transposed copy), then all-reduced over the others, on the
+    smallest tensor left. Mesh dimensions that split one tensor dimension
+    keep their order, outermost first."""
+    order = sorted(layout, key=lambda gd: (gd[1] is None, gd[1] != 0))
+    for group, d in order:
+        grad = all_reduce(grad, group) if d is None else \
+            reduce_scatter(grad, group, d)
+    return grad
+
+
+class _GatherShards(torch.autograd.Function):
+    """Forward: the whole weight from its shards (:func:`gather_whole`).
+    Backward: the whole weight's gradient, in float32, summed over every
+    rank of the mesh onto this rank's shard (:func:`reduce_to_shard`),
+    times ``scale``, cast back to the gradient's dtype."""
+
+    @staticmethod
+    def forward(ctx, local, layout, scale):
+        ctx.layout, ctx.scale = layout, scale
+        return gather_whole(local, layout)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = reduce_to_shard(grad.float(), ctx.layout)
+        return (g * ctx.scale).to(grad.dtype), None, None
+
+
+def gather_shards(local: torch.Tensor, layout, scale: float = 1.0
+                  ) -> torch.Tensor:
+    """Differentiable :func:`gather_whole` (see :class:`_GatherShards`).
+    ``scale`` weighs the summed gradient (1 / the ranks of the mesh, whose
+    losses are each a mean over their own rows)."""
+    return _GatherShards.apply(local, layout, scale)
+
+
+# The groups the batch rows are split over while a mesh step runs its
+# forward (see ``rows_over``); empty outside one.
+_ROW_GROUPS: list = []
+
+
+@contextlib.contextmanager
+def rows_over(groups: Sequence):
+    """Within the block, :func:`batch_mean` averages over the rows of
+    every rank of ``groups`` (the mesh dimensions whose ranks hold
+    distinct rows of the global batch, outermost first, as
+    ``partition.batch_rows`` splits the rows over them)."""
+    _ROW_GROUPS.append(tuple(g for g in groups if g is not None))
+    try:
+        yield
+    finally:
+        _ROW_GROUPS.pop()
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean of ``x`` over dim 0, its rows, and over the rows of the other
+    ranks of :func:`rows_over`'s groups (differentiable: the sums go
+    through :func:`all_reduce_sum`); ``x.mean(0)`` outside a mesh step."""
+    groups = _ROW_GROUPS[-1] if _ROW_GROUPS else ()
+    if all(size(g) == 1 for g in groups):
+        return x.mean(0)
+    total, n = x.sum(0), x.shape[0]
+    for g in groups:
+        total = all_reduce_sum(total, g)
+        n *= size(g)
+    return total / n
+
+
+def row_block() -> tuple[int, int]:
+    """``(index, count)``: this rank's block of rows among the distinct
+    blocks of the global batch within :func:`rows_over`'s groups, in the
+    batch's order; ``(0, 1)`` outside a mesh step."""
+    index, count = 0, 1
+    for g in (_ROW_GROUPS[-1] if _ROW_GROUPS else ()):
+        n = size(g)
+        index = index * n + (dist.get_rank(g) if n > 1 else 0)
+        count *= n
+    return index, count
+
+
+def rows_before(counts: torch.Tensor) -> torch.Tensor:
+    """``counts`` of this rank's rows summed over the row blocks that come
+    before its own in the global batch (:func:`row_block`): each rank
+    writes its counts into a table of every block's, summed over each
+    group of :func:`rows_over`. Zeros outside a mesh step."""
+    index, count = row_block()
+    if count == 1:
+        return torch.zeros_like(counts)
+    table = counts.new_zeros((count, *counts.shape))
+    table[index] = counts
+    for g in _ROW_GROUPS[-1]:
+        all_reduce(table, g)
+    return table[:index].sum(0)

@@ -18,13 +18,24 @@ a ``NamedSharding`` the port gives the ``DeviceMesh``'s placements, one
 
 A mesh here is a ``DeviceMesh`` or any object with ``axis_names`` and
 ``devices.shape`` (the JAX ``Mesh``'s attributes).
+
+A state on a mesh (the LM's weights, moments and plans) holds one
+``DTensor`` a leaf, each rank only its shards: :func:`distribute` cuts
+every rank's shards out of the same global tree, :func:`gather` puts
+the whole tensors back together with the counted collectives of
+``repro_torch.sharding.collectives``, and :func:`layout` tells a
+mesh step which collectives build each leaf whole.
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Any, Mapping, Optional, Sequence
 
-from torch.distributed.tensor import Replicate, Shard
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.sharding import collectives
 
 # Logical name -> mesh axis (or tuple of mesh axes, or None = replicate):
 # the JAX package's table, FSDP(data) x TP(model) for the weights, the
@@ -140,15 +151,19 @@ def _is_spec(x) -> bool:
 
 
 def map_specs(fn, specs, *rest):
-    """``fn`` over the spec leaves of nested dicts, lists and tuples
-    (``rest`` of the same structure)."""
+    """``fn`` over the spec leaves of nested dicts, lists, tuples and
+    NamedTuples (``rest`` of the same structure); ``None`` stays."""
+    if specs is None:
+        return None
     if _is_spec(specs):
         return fn(specs, *rest)
     if isinstance(specs, dict):
         return {k: map_specs(fn, v, *(r[k] for r in rest))
                 for k, v in specs.items()}
-    return type(specs)(map_specs(fn, v, *(r[i] for r in rest))
-                       for i, v in enumerate(specs))
+    parts = [map_specs(fn, v, *(r[i] for r in rest))
+             for i, v in enumerate(specs)]
+    return type(specs)(*parts) if hasattr(specs, "_fields") \
+        else type(specs)(parts)
 
 
 def shardings_for(specs, mesh, rules: Optional[Mapping[str, Any]] = None):
@@ -165,11 +180,222 @@ def param_shardings(specs, mesh, rules: Optional[Mapping[str, Any]] = None):
 def constrained_shardings(specs, shaped, mesh,
                           rules: Optional[Mapping[str, Any]] = None):
     """(spec tree, tree of anything with ``.shape``) -> placements tree,
-    each from :func:`constrained_pspec`."""
-    return map_specs(
-        lambda s, a: placements(
-            constrained_pspec(s, tuple(a.shape), mesh, rules), mesh),
-        specs, shaped)
+    each from :func:`constrained_pspec`. An empty spec whose counterpart
+    holds no tensor (the plans of a state off the grouped path) stays
+    empty."""
+    def one(s, a):
+        if not hasattr(a, "shape"):
+            return a
+        return placements(constrained_pspec(s, tuple(a.shape), mesh, rules),
+                          mesh)
+    return map_specs(one, specs, shaped)
+
+
+# ---------------------------------------------------------------------------
+# State trees on a mesh
+# ---------------------------------------------------------------------------
+
+def map_tree(fn, tree, *rest):
+    """``fn`` over the tensor leaves of nested dicts, lists, tuples and
+    NamedTuples, ``rest`` indexed alongside (so a placements tree's
+    tuples reach ``fn`` whole); ``None`` and other leaves stay."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        parts = [map_tree(fn, v, *(r[i] for r in rest))
+                 for i, v in enumerate(tree)]
+        return type(tree)(*parts) if hasattr(tree, "_fields") \
+            else type(tree)(parts)
+    return tree
+
+
+def leaves(tree) -> list:
+    """The tensor leaves of a state tree, in :func:`map_tree`'s order."""
+    out = []
+    map_tree(out.append, tree)
+    return out
+
+
+def mesh_groups(mesh) -> tuple:
+    """The process group of each mesh dimension (``None`` each without a
+    process group: a one-process mesh, whose collectives are the
+    identity)."""
+    names = mesh.mesh_dim_names
+    if not dist.is_initialized():
+        return (None,) * len(names)
+    return tuple(mesh.get_group(n) for n in names)
+
+
+def mesh_coords(mesh) -> tuple:
+    """This rank's coordinate along each mesh dimension."""
+    c = mesh.get_coordinate()
+    if c is None:
+        raise ValueError("this rank is not in the mesh")
+    return tuple(c)
+
+
+def shard_of(full: torch.Tensor, placement, mesh) -> torch.Tensor:
+    """This rank's shard of ``full`` under ``placement`` (a view): mesh
+    dimension by mesh dimension, outermost first, the chunk of the
+    dimension it splits."""
+    t = full
+    for n, c, p in zip(tuple(mesh.shape), mesh_coords(mesh), placement):
+        if isinstance(p, Shard):
+            if t.shape[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(full.shape)} does "
+                                 f"not divide over {n} ranks")
+            t = t.chunk(n, p.dim)[c]
+    return t
+
+
+def distribute(tree, shardings, mesh):
+    """``tree`` (every rank's copy of the same global values) -> DTensors
+    of ``shardings``' placements on ``mesh``, each holding a copy of this
+    rank's shard only (no collective)."""
+    def one(x, placement):
+        if placement is None:
+            placement = (Replicate(),) * len(tuple(mesh.shape))
+        local = shard_of(x.detach(), placement, mesh).clone()
+        return DTensor.from_local(local, mesh, list(placement),
+                                  run_check=False, shape=x.shape,
+                                  stride=x.contiguous().stride())
+    return map_tree(one, tree, shardings)
+
+
+def from_local(tree, shardings, mesh):
+    """Local shards (this rank's, already cut) -> DTensors of
+    ``shardings``' placements on ``mesh`` (even shards: the whole shape
+    follows from the local one)."""
+    return map_tree(lambda x, p: DTensor.from_local(
+        x, mesh, list(p), run_check=False), tree, shardings)
+
+
+def replicate(tree, mesh):
+    """``tree`` as DTensors replicated over ``mesh``."""
+    rep = (Replicate(),) * len(tuple(mesh.shape))
+    return map_tree(lambda x: DTensor.from_local(x, mesh, list(rep),
+                                                 run_check=False), tree)
+
+
+def mesh_of(tree):
+    """The mesh of the first DTensor of ``tree`` (None without one)."""
+    for x in leaves(tree):
+        if isinstance(x, DTensor):
+            return x.device_mesh
+    return None
+
+
+def shardings_of(tree):
+    """The placements of every DTensor leaf (other leaves: None)."""
+    return map_tree(lambda x: tuple(x.placements)
+                    if isinstance(x, DTensor) else None, tree)
+
+
+def layout(x: DTensor, lead: int = 0) -> tuple:
+    """``((group, dim), ...)``, one a mesh dimension: the tensor dimension
+    it splits (less ``lead``, for a slice that drops leading dims) or
+    None. What ``collectives.gather_whole`` takes."""
+    return tuple((g, p.dim - lead if isinstance(p, Shard) else None)
+                 for g, p in zip(mesh_groups(x.device_mesh), x.placements))
+
+
+def local(tree):
+    """Each DTensor leaf's local shard (a view that shares its storage:
+    writes to it write the DTensor); other leaves as they are."""
+    return map_tree(lambda x: x.to_local() if isinstance(x, DTensor) else x,
+                    tree)
+
+
+def gather(tree):
+    """Each DTensor leaf whole on every rank, built from the shards with
+    the counted collectives (every rank of the mesh must call it); other
+    leaves as they are."""
+    def one(x):
+        if not isinstance(x, DTensor):
+            return x
+        with torch.no_grad():
+            return collectives.gather_whole(x.to_local(), layout(x))
+    return map_tree(one, tree)
+
+
+def gather_to_first(x: DTensor):
+    """One DTensor leaf whole on the mesh's first rank (coordinate 0 on
+    every dimension), on the host; ``None`` on every other rank. The
+    innermost split is gathered first, onto the ranks at coordinate 0 of
+    its dimension, which then gather the next (every rank of the mesh must
+    call it). Less traffic than :func:`gather`, where every rank receives
+    the whole; a checkpoint save needs it on one rank."""
+    lay = layout(x)
+    part = x.to_local()
+    if all(g is None or dist.get_backend(g) == "gloo" for g, _ in lay):
+        part = part.cpu()              # gloo gathers host tensors directly
+    with torch.no_grad():
+        for group, d in reversed(lay):
+            if d is not None and part is not None:
+                part = collectives.gather_to_first(part, group, d)
+    if part is None or any(c for c in mesh_coords(x.device_mesh)):
+        return None
+    return part.cpu()
+
+
+def gather_grouping(params) -> dict:
+    """The FLGW grouping matrices of a (sharded) param tree, whole: a tree
+    of the params' nesting holding only each FLGW layer's ``ig`` and
+    ``og``, which is what a plan encode reads."""
+    out = {}
+    for name, p in params.items():
+        if not isinstance(p, dict):
+            continue
+        if "ig" in p:
+            out[name] = gather({"ig": p["ig"], "og": p["og"]})
+        else:
+            sub = gather_grouping(p)
+            if sub:
+                out[name] = sub
+    return out
+
+
+def state_bytes(tree) -> tuple[int, int]:
+    """(bytes of this rank's shards, bytes of the whole tensors) of a
+    state tree; a replicated leaf counts whole in both."""
+    local = whole = 0
+    for x in leaves(tree):
+        n = x.element_size()
+        whole += x.numel() * n
+        local += (x.to_local().numel() if isinstance(x, DTensor)
+                  else x.numel()) * n
+    return local, whole
+
+
+def batch_rows(mesh, batch: int, rules: Optional[Mapping[str, Any]] = None
+               ) -> tuple[int, int, tuple]:
+    """This rank's rows ``[lo, hi)`` of a global batch of ``batch`` rows,
+    and the names of the mesh dimensions whose ranks hold distinct rows.
+
+    The rows split over the batch's mesh axes (:func:`batch_pspec`, the
+    reference's ``batch_sharding``; they must divide the batch), then
+    again over each other mesh dimension that divides what is left, so
+    that no rank repeats another's rows; a dimension that does not
+    divide leaves its ranks the same rows."""
+    sizes = axis_sizes(mesh)
+    coords = dict(zip(sizes, mesh_coords(mesh)))
+    data = batch_pspec(mesh, 1, rules)
+    data_axes = [a for e in data for a in (e if isinstance(e, tuple)
+                                             else (e,)) if a is not None]
+    lo, rows, split = 0, batch, []
+    for a in data_axes + [a for a in sizes if a not in data_axes]:
+        if rows % sizes[a]:
+            if a in data_axes:
+                raise ValueError(f"global batch {batch} does not divide "
+                                 f"over the {a!r} axis ({sizes[a]})")
+            continue
+        rows //= sizes[a]
+        lo += coords[a] * rows
+        split.append(a)
+    return lo, lo + rows, tuple(split)
 
 
 def batch_pspec(mesh, ndim: int = 2,

@@ -248,8 +248,8 @@ def test_runner_stops_at_the_sigterm_boundary_and_resumes_bitwise(tmp_path):
         runner = fault.StepRunner(step_fn, d, save_every=save_every)
         try:
             state, start = runner.restore_or(
-                state, restore_fn=lambda s: state_lib.restore_state(d, s,
-                                                                     cfg))
+                state, restore_fn=lambda s, sh: state_lib.restore_state(
+                    d, s, cfg, shardings=sh))
             return runner.run(state, batches(start), start_step=start,
                               max_steps=4)
         finally:

@@ -863,3 +863,39 @@ def test_threaded_async_run_never_reads_a_half_written_bundle(cuda,
                              check_publication=True, device=cuda)
     assert len(hist) == 12 and max(h["staleness"] for h in hist) <= 4
     assert len(set(checked)) >= 2       # the actor adopted new versions
+
+
+def _lm_mesh_run(device: str):
+    """``train_lm`` at gemma2-2b's grouped bf16 smoke config, 2 steps on
+    ``device``: (losses, grad norms, the final params whole as host
+    arrays, bf16 as their raw 16-bit words)."""
+    from repro_torch.checkpoint import store
+    from repro_torch.launch import train as launch
+    from repro_torch.sharding import partition
+    state, hist = launch.train_lm("gemma2_2b", steps=2, batch=4, seq=64,
+                                  flgw_groups=4, flgw_path="grouped",
+                                  log_every=0, device=device)
+
+    def host(t):
+        t = partition.gather(t).cpu()
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16
+                else t).numpy()
+    return ([float(h["loss"]) for h in hist],
+            [float(h["grad_norm"]) for h in hist],
+            {p: host(t) for p, t in store.tree_paths(state.params)})
+
+
+def test_lm_mesh_step_on_a_world_1_nccl_group_is_bitwise_the_step_without(
+        cuda, tmp_path):
+    """The LM launcher's (1, 1) mesh on a one-rank NCCL group (its
+    weights as DTensors, every collective on NCCL) trains bitwise as the
+    launcher without a group."""
+    from repro_torch.launch import mesh as mesh_lib
+    plain = _lm_mesh_run(str(cuda))
+    (meshed,) = mesh_lib.spawn(_lm_mesh_run, 1, str(cuda), backend="nccl",
+                               init_file=str(tmp_path / "rdv"),
+                               timeout_s=300)
+    assert meshed[0] == plain[0] and meshed[1] == plain[1]
+    assert meshed[2].keys() == plain[2].keys()
+    for p, a in plain[2].items():
+        np.testing.assert_array_equal(meshed[2][p], a, err_msg=p)

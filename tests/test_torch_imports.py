@@ -55,7 +55,11 @@ assert {"repro_torch.marl.async_train",
         "repro_torch.configs.jamba_1_5_large", "repro_torch.launch.mesh",
         "repro_torch.sharding", "repro_torch.sharding.partition",
         "repro_torch.sharding.collectives", "repro_torch.optim.compression",
-        "repro_torch.runtime.elastic"} <= set(names)
+        "repro_torch.runtime.elastic", "repro_torch.models.layers",
+        "repro_torch.models.attention", "repro_torch.models.transformer",
+        "repro_torch.optim.optimizers", "repro_torch.data.pipeline",
+        "repro_torch.train.step", "repro_torch.launch.train",
+        "repro_torch.interop"} <= set(names)
 print(len(names))
 """
 

@@ -5,6 +5,7 @@ the ``marl/env.py`` back-compat shim, the sync IC3Net launcher
 import functools
 import importlib
 import os
+import socket
 import subprocess
 import sys
 import warnings
@@ -229,18 +230,35 @@ def test_marl_ic3net_as_a_process():
     assert "marl mesh (2, 2) needs 4 devices, only 1 available" in bad.stderr
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def test_marl_ic3net_under_torchrun_trains_on_a_process_mesh():
     """torchrun starts 2 processes; each joins the gloo group through
     ``init_distributed``, prints the (2x1) mesh and trains its shard; the
-    two print the same metrics."""
+    two print the same metrics.
+
+    The rendezvous is pinned to 127.0.0.1 on a free port. ``--standalone``
+    hands the workers ``socket.getfqdn()`` as their master address, and
+    on a host whose own name does not resolve the workers wait for it
+    until the time limit (an unresolvable ``--local-addr`` reproduces the
+    hang), so the test depended on the host's name service."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
     out = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+         "--rdzv-backend", "c10d",
+         "--rdzv-endpoint", f"127.0.0.1:{_free_port()}",
+         "--local-addr", "127.0.0.1",
          "--nproc-per-node", "2", "--tee", "3", "-m",
          "repro_torch.launch.marl_ic3net", *CI_GROUPED, "--mesh", "2,1"],
         env=env, capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.returncode == 0, (
+        f"torchrun exited {out.returncode}\n--- stdout (tail) ---\n"
+        f"{out.stdout[-3000:]}\n--- stderr (tail) ---\n{out.stderr[-3000:]}")
     ranks = {r: [ln.split("]:", 1)[1] for ln in out.stdout.splitlines()
                  if ln.startswith(f"[default{r}]:")] for r in (0, 1)}
     for lines in ranks.values():

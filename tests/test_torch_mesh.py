@@ -13,12 +13,13 @@ jax = pytest.importorskip("jax")
 
 from jax.sharding import Mesh  # noqa: E402
 from repro.launch import mesh as jmesh  # noqa: E402
+from repro_torch import resolve_device  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from torch.distributed.device_mesh import DeviceMesh  # noqa: E402
 
 _DIST_VARS = ("JAX_COORDINATOR", "COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
               "JAX_PROCESS_ID", "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
-              "RANK")
+              "RANK", "LOCAL_RANK")
 
 
 def _no_dist_env(monkeypatch):
@@ -53,6 +54,37 @@ def test_init_distributed_falls_back_to_single_process(monkeypatch):
     assert info["process_count"] == 1 and info["process_index"] == 0
     assert info["global_devices"] >= info["local_devices"] >= 1
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_init_distributed_binds_a_torchrun_rank_to_its_card(monkeypatch,
+                                                            backend):
+    """torchrun's rank 1 of 2 on a host of several cards (``LOCAL_RANK``
+    1): on NCCL it takes card 1 before the group comes up, so the
+    launcher's default device (``resolve_device``, the current card) is
+    its own; gloo leaves the current card alone. The card and the group
+    are faked: only the calls are recorded."""
+    _no_dist_env(monkeypatch)
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_dead_port()),
+                     WORLD_SIZE="2", RANK="1", LOCAL_RANK="1").items():
+        monkeypatch.setenv(k, v)
+    calls, card = [], [0]
+
+    def set_device(i):
+        calls.append(("set_device", i))
+        card[0] = i
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "set_device", set_device)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: card[0])
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda b, **kw: calls.append(
+                            ("init", b, kw["rank"], kw["world_size"])))
+    mesh_lib.init_distributed(strict=True, backend=backend)
+    bound = [("set_device", 1)] if backend == "nccl" else []
+    assert calls == [*bound, ("init", backend, 1, 2)]
+    assert resolve_device() == torch.device(
+        "cuda", 1 if backend == "nccl" else 0)
 
 
 def test_host_local_batch_slices_evenly(monkeypatch):
