@@ -300,7 +300,25 @@ The script
       state once and (2, 1) restores it with ``shardings=``, each
       rank's shards the saved arrays' slices bitwise; prints ms a step,
       each rank's peak GB and the collectives by operation and backend;
-  18. prints each phase's wall seconds as it ends, then one
+  18. holds the analysis layer against the card: (a) the launch audit
+      (``repro_torch.analysis.kernel_audit``): every profile the phases
+      take records each kernel call's arguments, and each recorded launch
+      of a port kernel in the exported trace must be the audit's
+      prediction for those calls (kernel, grid, block, static + dynamic
+      shared memory); it prints the (entry, shape) pairs matched and the
+      launches without a record, and fails on any mismatch or on an
+      entry launched inside a profile with no match; (b) the dry run
+      (``repro_torch.launch.dryrun``) of phase 17's config on ``meta``
+      over fake groups of (2, 1), (1, 2) and (2, 2), in a CPU process
+      started after phase 12: each phase 17 rank's all-gathers,
+      reduce-scatters and all-reduces and their bytes equal the
+      prediction for 2 steps, its state bytes the predicted; the
+      one-process step's time against the dry run's roofline bound;
+      (c) the runtime contracts: a lockstep serve run (gemma2-2b at 2
+      layers) with ``debug_contracts=True`` at one decode signature, a
+      decode loop of batch 1 then 2 raising ``RetraceError``, and phase
+      8's threaded async run under ``debug_contracts=True``;
+  19. prints each phase's wall seconds as it ends, then one
       ``{"kernels": [...]}`` line, the card's name and power limit, and
       as the last line ``{"ok": true, "device": {...}}``.
 
@@ -309,6 +327,7 @@ result line. Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -370,10 +389,13 @@ from repro_torch.models.config import param_count  # noqa: E402
 from repro_torch.runtime import StepRunner  # noqa: E402
 from repro_torch.launch import marl_ic3net  # noqa: E402
 from repro_torch.models.layers import softcap, unembed  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
-BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+# the card's numbers and the bound live in launch/roofline.py
+HBM_BYTES_PER_S = roofline.HBM_BW
+F32_OPS_PER_S = roofline.F32_FLOPS
+BF16_OPS_PER_S = roofline.PEAK_FLOPS
+bound_ms = roofline.bound_ms
 BATCH = 16
 SEED = 0
 ENV = dict(n_agents=8, size=10, vision=1, max_steps=30)
@@ -457,13 +479,6 @@ def device_us(fn, calls: int = 20) -> float:
     top = profile(lambda: [fn() for _ in range(calls)], {})["top"]
     return sum(t["device_us"] / t["count"]
                * max(1, round(t["count"] / calls)) for t in top)
-
-
-def bound_ms(nbytes: float, ops: float,
-             peak: float = F32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -803,13 +818,19 @@ def profile(fn, names, spans=()) -> dict:
     inflates the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
+    from repro_torch.kernels import KernelEntry
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    KernelEntry.RECORD = []          # the launch audit's calls (phase 18)
+    try:
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        recorded, KernelEntry.RECORD = KernelEntry.RECORD, None
+    _audit_profile(recorded, prof)
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
            and e.name not in spans]
     busy_us = sum(e.time_range.elapsed_us() for e in evs)
@@ -2227,7 +2248,8 @@ def run_async(kernels, device) -> dict:
     with _CountWindows() as counted_t:
         model_t, hist_t = async_train.async_train(
             cfg, ecfg, tcfg, acfg, updates=ASYNC_UPDATES, seed=SEED,
-            env=env, threads=True, check_publication=True, device=device)
+            env=env, threads=True, check_publication=True,
+            debug_contracts=True, device=device)
     threaded_launches = _counts(kernels)
     stale_t = [h["staleness"] for h in hist_t]
     check(max(stale_t) <= acfg.max_staleness,
@@ -2240,6 +2262,7 @@ def run_async(kernels, device) -> dict:
     check(not any(t.name == ACTOR_THREAD for t in threading.enumerate()),
           "threaded async run: the actor thread joined")
     out["threaded"] = dict(
+        debug_contracts=True,
         launches=threaded_launches, windows=counted_t.windows,
         staleness=stale_t,
         losses=[h["loss"] for h in hist_t],
@@ -4688,7 +4711,7 @@ def _lm_mesh_train(dev, model: int = 0):
     from repro_torch.sharding import collectives
     kernels = port_kernels()
     _zero(kernels)
-    collectives.CALLS.clear()
+    collectives.clear()
     torch.cuda.reset_peak_memory_stats(dev)
     state, hist = train_lm("gemma2_2b", smoke=False, steps=LM_MESH_STEPS,
                            batch=TRAIN_BATCH, seq=TRAIN_SEQ, n_layers=CKPT_LAYERS,
@@ -4784,12 +4807,16 @@ def lm_mesh_rank(shape: tuple, device: str, d: str, role: str) -> dict:
     restores it onto its own mesh with ``shardings=``."""
     import torch.distributed as dist
     from repro_torch.sharding import partition
+    from repro_torch.sharding import collectives
     dev = resolve_device(device)
     state, hist, launches, calls, peak = _lm_mesh_train(dev, model=shape[1])
+    coll_bytes = {"/".join(map(str, k)): v
+                  for k, v in collectives.BYTES.items()}
     rank = dist.get_rank()
     local, whole = partition.state_bytes(state)
     out = dict(_metrics(hist), rank=rank, launches=launches, calls=calls,
-               peak_gb=peak, local_bytes=local, whole_bytes=whole)
+               coll_bytes=coll_bytes, peak_gb=peak, local_bytes=local,
+               whole_bytes=whole)
     # the params against (a)'s, slice by slice: each rank's shards against
     # the matching slices (no gather), on the host; and what the steps
     # changed, against (a)'s change, beside the two controls
@@ -5031,6 +5058,259 @@ def run_lm_mesh(device, card: str) -> dict:
           f"{out['restore_s']:.1f} s (bitwise slices); the two waves "
           f"{[round(x, 1) for x in out['wave_s']]} s of wall on {card}",
           flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the analysis layer against the card
+# ---------------------------------------------------------------------------
+
+# the launch audit over every profile the script takes: (entry, case)
+# pairs matched, launches the profiler did not record, records that
+# match no prediction
+_LAUNCH_AUDIT = dict(profiles=0, matched=collections.Counter(),
+                     unrecorded=collections.Counter(), mismatches=[])
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_THREADS = 2
+ANALYSIS_SERVE_LAYERS = 2     # the contracts' serve run: 2 of 26 layers
+
+
+def _kineto_name(name: str) -> str:
+    """A demangled kernel name as the audit and ptxas name it:
+    ``void (anonymous namespace)::plan_assign_kernel<128, 4>(float
+    const*, ...)`` -> ``plan_assign_kernel<128, 4>``; bf16 as ``bf16``."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.removeprefix("void ").strip()
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if ch == "(" and depth == 0:
+            name = name[:i]
+            break
+    return name.replace("__nv_bfloat16", "bf16").split("::")[-1]
+
+
+def _recorded_kernels(prof) -> list:
+    """Every kernel launch the profiler recorded: its name, grid, block
+    and shared memory (static + dynamic), from the exported trace's
+    kernel events (the in-memory events carry no launch config)."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)
+    finally:
+        os.unlink(path)
+    out = []
+    for ev in trace.get("traceEvents", []):
+        a = ev.get("args") or {}
+        if ev.get("cat") != "kernel" or "grid" not in a:
+            continue
+        out.append(dict(name=_kineto_name(ev["name"]), grid=tuple(a["grid"]),
+                        block=tuple(a["block"]),
+                        smem=a.get("shared memory")))
+    return out
+
+
+def _audit_profile(recorded: list, prof) -> None:
+    """Each recorded port-kernel launch against the launch audit's
+    prediction of the calls made in the same profile: the same kernel,
+    grid, block and shared memory (the audit's static + dynamic). A
+    profile whose (entry, shape) pairs all matched in earlier profiles
+    is not read again (its trace export costs time)."""
+    from repro_torch.analysis import kernel_audit
+    ours = {k for s in kernel_audit.load_registry().values()
+            for k in s.kernels}
+    pred = collections.Counter()
+    labels: dict = {}
+    for sym, args in recorded:
+        for c in kernel_audit.predict_recorded(sym, args):
+            key = (c.kernel, c.grid, c.block, c.smem)
+            pred[key] += 1
+            labels.setdefault(key, []).append((sym, c.label))
+    if all(pair in _LAUNCH_AUDIT["matched"] for ls in labels.values()
+           for pair in ls):
+        return
+    for ev in _recorded_kernels(prof):
+        if ev["name"].split("<")[0] not in ours:
+            continue
+        key = (ev["name"], ev["grid"], ev["block"], ev["smem"])
+        if pred[key] > 0:
+            pred[key] -= 1
+            _LAUNCH_AUDIT["matched"][labels[key].pop()] += 1
+        else:
+            near = [k for k in pred if k[0] == ev["name"]][:3]
+            _LAUNCH_AUDIT["mismatches"].append(dict(recorded=ev,
+                                                    predicted=near))
+    for key, n in pred.items():
+        for sym, label in labels[key][:n]:
+            _LAUNCH_AUDIT["unrecorded"][(sym, label)] += 1
+    _LAUNCH_AUDIT["profiles"] += 1
+
+
+def dryrun_phase17() -> dict:
+    """Phase 18 (b), in a CPU process of its own: the dry run of phase
+    17's config (gemma2-2b at full width, CKPT_LAYERS layers, B=4 x
+    S=1024) on ``meta`` over fake groups of each of phase 17's mesh
+    shapes and of one rank (the one-process step's roofline)."""
+    from repro_torch.launch import dryrun
+    cfg = _lm_mesh_cfg()
+    out = {}
+    for shape in ((1, 1), *LM_MESH_SHAPES):
+        t0 = time.perf_counter()
+        r = dryrun.run_cell("gemma2_2b", "train_4k", cfg=cfg,
+                            seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                            mesh_shape=shape, save=False, **TRAIN_FLGW)
+        r["wall_s"] = time.perf_counter() - t0
+        out[f"{shape[0]}x{shape[1]}"] = r
+    return out
+
+
+def start_dryrun():
+    """Starts :func:`dryrun_phase17` in a spawned CPU process (no card,
+    no process group: the dry run makes its own fake one)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+        "spawn"), initializer=torch.set_num_threads,
+        initargs=(DRYRUN_THREADS,))
+    return pool, pool.submit(dryrun_phase17), time.perf_counter()
+
+
+def contracts_on_card(dev, card: str) -> dict:
+    """Phase 18 (c): a lockstep serve run with ``debug_contracts=True``
+    passes (one decode signature), and a decode loop whose batch grows
+    raises ``RetraceError``."""
+    from repro_torch.analysis import contracts
+    from repro_torch.serving.scheduler import Engine, Request
+    from repro_torch.serving.session import ServeSession
+    cfg = registry.get_config("gemma2_2b", n_layers=ANALYSIS_SERVE_LAYERS,
+                              **SERVE_FLGW)
+    params = serve_params(cfg, dev)
+    sess = ServeSession(cfg, params, debug_contracts=True)
+    eng = Engine(sess, SERVE_BATCH, 32, admission="lockstep")
+    reqs = [Request(rid=i, prompt=np.arange(1, 9, dtype=np.int32) + i,
+                    max_new_tokens=8) for i in range(SERVE_BATCH)]
+    with contracts.no_retrace(label="phase 18") as mon:
+        rep = eng.run(reqs)
+    check(eng.debug_contracts and mon.counts() == {"decode_step": 1},
+          f"contracts: the lockstep run with debug_contracts=True ran its "
+          f"decode step at one signature ({mon.counts()})")
+    check(all(len(r.tokens) == 8 for r in rep.records),
+          "contracts: every request generated its 8 tokens")
+    raised = ""
+    try:
+        with contracts.no_retrace(label="a shape-unstable decode loop"):
+            for b in (1, 2):
+                cache = sess.new_cache(b, 16)
+                tok = torch.ones((b, 1), dtype=torch.int64, device=dev)
+                sess.decode(cache, tok, torch.zeros_like(tok))
+    except contracts.RetraceError as e:
+        raised = str(e).splitlines()[0]
+    check(bool(raised), "contracts: a decode loop fed batch 1 then 2 "
+          "raises RetraceError on the card")
+    del params, sess, eng
+    torch.cuda.empty_cache()
+    print(f"  contracts on {card}: a lockstep run (gemma2-2b at "
+          f"{ANALYSIS_SERVE_LAYERS} layers, {SERVE_BATCH} requests) under "
+          f"debug_contracts=True ran decode_step at one signature; a decode "
+          f"loop of batch 1 then 2 raised RetraceError ({raised})",
+          flush=True)
+    return dict(lockstep_signatures=mon.counts(), unstable_raised=raised)
+
+
+def run_analysis(dev, card: str, lm_mesh: dict, dry, asy: dict) -> dict:
+    """Phase 18: (a) the launch audit against every profile's records;
+    (b) the dry run (started beside the card phases) against phase 17's
+    counted collectives and state bytes, and the roofline fraction of
+    its one-process step; (c) the runtime contracts on the card (and
+    phase 8's threaded async run, which ran with ``debug_contracts``)."""
+    from repro_torch.analysis import kernel_audit
+    out = {}
+    # (a)
+    la = _LAUNCH_AUDIT
+    entries = sorted(kernel_audit.load_registry())
+    matched = {e: sum(n for (s, _), n in la["matched"].items() if s == e)
+               for e in entries}
+    pairs = {e: sorted({c for (s, c) in la["matched"] if s == e})
+             for e in entries}
+    unrecorded = sum(la["unrecorded"].values())
+    out["launch_audit"] = dict(
+        profiles=la["profiles"], matched_launches=matched,
+        matched_pairs={e: len(p) for e, p in pairs.items()},
+        unrecorded_launches=unrecorded,
+        unrecorded_pairs=len(set(la["unrecorded"]) - set(la["matched"])),
+        mismatches=la["mismatches"][:20], n_mismatches=len(la["mismatches"]))
+    print(f"  launch audit over {la['profiles']} profiles on {card}: "
+          f"(entry, shape) pairs matched "
+          f"{out['launch_audit']['matched_pairs']} "
+          f"({sum(matched.values())} launches); {unrecorded} launches "
+          f"without a record; {len(la['mismatches'])} mismatches", flush=True)
+    for m in la["mismatches"][:5]:
+        print(f"  launch audit mismatch: {m}", flush=True)
+    check(not la["mismatches"],
+          f"launch audit: every recorded launch is the audit's prediction "
+          f"({len(la['mismatches'])} mismatches)")
+    profiled = {s for s, _ in la["matched"]} | {s for s, _ in
+                                                 la["unrecorded"]}
+    out["launch_audit"]["never_profiled"] = sorted(set(entries) - profiled)
+    check(all(pairs[e] for e in profiled),
+          f"launch audit: every entry launched inside a profile has a "
+          f"matched record ({ {e: len(pairs[e]) for e in profiled} })")
+    # (b)
+    pool, future, t0 = dry
+    try:
+        dr = future.result(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    out["dryrun_wait_s"] = time.perf_counter() - t0
+    rows = {}
+    for shape in LM_MESH_SHAPES:
+        name = f"{shape[0]}x{shape[1]}"
+        pred = dr[name]
+        want = {op: (LM_MESH_STEPS * c["calls"], LM_MESH_STEPS * c["bytes"])
+                for op, c in pred["collectives"].items()}
+        for r in lm_mesh[name]["ranks"]:
+            got = {k.split("/")[0]: (n, r["coll_bytes"][k])
+                   for k, n in r["calls"].items()}
+            check(got == want,
+                  f"dry run {name}: rank {r['rank']}'s collectives of "
+                  f"{LM_MESH_STEPS} steps {got} == the prediction {want}")
+            check(r["local_bytes"] == pred["state_bytes_per_chip"],
+                  f"dry run {name}: rank {r['rank']}'s state bytes "
+                  f"{r['local_bytes']:,} == the prediction "
+                  f"{pred['state_bytes_per_chip']:,}")
+        rows[name] = dict(collectives=pred["collectives"],
+                          state_bytes=pred["state_bytes_per_chip"],
+                          roofline=pred["roofline"], wall_s=pred["wall_s"])
+        print(f"  dry run {name} (a fake group on the CPU, beside the card "
+              f"phases): a step's collectives {pred['collectives']}, state "
+              f"{pred['state_bytes_per_chip']:,} bytes a rank: phase 17's "
+              f"ranks counted {LM_MESH_STEPS}x those, equal", flush=True)
+    one = dr["1x1"]
+    step_ms = min(lm_mesh["none"]["step_ms"])
+    bound_s = one["roofline"]["step_time_lower_bound_s"]
+    out["dryrun"] = dict(rows, one_process=dict(
+        roofline=one["roofline"], flops=one["cost"]["flops_per_chip"],
+        bytes=one["cost"]["bytes_per_chip"], step_ms=step_ms,
+        roofline_fraction=bound_s * 1e3 / step_ms))
+    print(f"  roofline of phase 17's one-process step on {card}: dry-run "
+          f"bound {bound_s * 1e3:.2f} ms ({one['roofline']['dominant']}; "
+          f"compute {one['roofline']['compute_s'] * 1e3:.2f}, memory "
+          f"{one['roofline']['memory_s'] * 1e3:.2f} ms by unfused bytes), "
+          f"the step {step_ms:.1f} ms: {bound_s * 1e3 / step_ms:.3f} of the "
+          f"bound's time; the dry runs took "
+          f"{sum(r['wall_s'] for r in dr.values()):.1f} s in their process, "
+          f"joined {out['dryrun_wait_s']:.1f} s after it started", flush=True)
+    # (c)
+    out["contracts"] = contracts_on_card(dev, card)
+    check(asy["threaded"]["debug_contracts"],
+          "contracts: phase 8's threaded async run ran with "
+          "debug_contracts=True")
+    print(f"  contracts: phase 8's threaded async run "
+          f"({len(asy['threaded']['losses'])} updates) passed under "
+          f"debug_contracts=True on {card}", flush=True)
     return out
 
 
@@ -5382,7 +5662,9 @@ def main() -> int:
     phase_done(11, "prefix-LM and banded prefills")
     # -- path 9: the sync IC3Net launcher ------------------------------------
     sync = run_sync_launcher(all_kernels, dev, card)
-    phase_done(12, "sync launcher")
+    # phase 18 (b)'s dry run goes on on the CPU beside phases 13-17
+    dry = start_dryrun()
+    phase_done(12, "sync launcher; the dry run started")
     # -- path 10: the MoE family served -------------------------------------
     moe = run_moe(all_kernels, dev, card)
     phase_done(13, "MoE family")
@@ -5400,9 +5682,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_mesh = run_lm_mesh(dev, card)
     phase_done(17, "gemma2-2b on a (data, model) process mesh")
+    # -- phase 18: the analysis layer against the card ---------------------
+    analysis = run_analysis(dev, card, lm_mesh, dry, asy)
+    phase_done(18, "analysis: launch audit, dry run, contracts")
     replay_wait_s = join_replays()
     print(f"the CPU replays' second halves joined, {replay_wait_s:.1f} s "
-          f"after phase 17", flush=True)
+          f"after phase 18", flush=True)
     wall_by_function = {k: dict(calls=n, s=t) for k, (n, t) in sorted(
         _WALL.items(), key=lambda kv: -kv[1][1])}
     print("wall s by function (inclusive, this process): " + ", ".join(
@@ -5772,6 +6057,7 @@ def main() -> int:
         async_pipeline=asy, checkpoint=ck, dense_family=fam,
         prefix_lm=pre, banded=band, sync_launcher=sync, moe_family=moe,
         ssm_family=ssm_fam, whisper=wh, mesh=mesh_out, lm_mesh=lm_mesh,
+        analysis=analysis,
         phase_s=phase_s,
         wall_by_function=wall_by_function,
         script_s=time.perf_counter() - t_script,

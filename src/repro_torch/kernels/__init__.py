@@ -22,8 +22,15 @@ class KernelEntry:
     returns ``cudaGetLastError()``; a non-zero code raises here with the
     library's ``repro_cuda_error_string`` of it.
     ``launches`` counts the launches that went through, so a run can
-    show that its path really reached the kernel.
+    show that its path really reached the kernel. While
+    ``KernelEntry.RECORD`` is a list, every launch also appends its
+    ``(symbol, args)`` to it: the launch audit
+    (``repro_torch.analysis.kernel_audit``) predicts each recorded call's
+    kernel, grid, block and shared memory, which ``chip_smoke.py`` holds
+    against the profiler's records.
     """
+
+    RECORD = None
 
     def __init__(self, library: str, symbol: str, argtypes: list):
         self.library = library
@@ -59,14 +66,18 @@ class KernelEntry:
             raise RuntimeError(f"{self.symbol}: CUDA launch failed with "
                                f"error {err} ({describe(err).decode()})")
         self.launches += 1
+        if KernelEntry.RECORD is not None:
+            KernelEntry.RECORD.append((self.symbol, args))
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU (the plain path); False
-    when every one lies on a CUDA device (the kernel path). Raises on a
-    mix or on any other device."""
+    """True when every tensor lies on the CPU, or every one on the
+    ``meta`` device (the plain path: on ``meta`` it computes the output's
+    shape only, as the dry run's step does); False when every one lies on
+    a CUDA device (the kernel path). Raises on a mix or on any other
+    device."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return True
     if kinds == {"cuda"}:
         return False

@@ -55,6 +55,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis import contracts
 from repro_torch.core import encoder
 from repro_torch.marl import envs as envs_mod
 from repro_torch.marl import train as train_mod
@@ -418,6 +419,8 @@ def actor_rollout(bundle: ParamBundle, generator: torch.Generator, ecfg,
     1 and ``correction="none"`` the pipeline trains on the very episodes
     the synchronous loop would have.
     """
+    contracts.record("actor_rollout", bundle.params.params, bundle.plans,
+                     static=(tcfg.batch, ecfg.max_steps))
     _read_on_current_stream(bundle)
     r = train_mod.rollout(bundle.params, env, ecfg, generator, tcfg.batch,
                           bundle.plans, collect=True)
@@ -521,6 +524,8 @@ def learner_update(model: IC3Net, opt_state, traj: Trajectory,
     RMSprop step at ``tcfg.lr``, applied to the model's parameters and
     ``opt_state`` in place. Returns (opt_state, metrics), the metrics as
     0-d tensors on the model's device."""
+    contracts.record("learner_update", model.params, opt_state, traj, plans,
+                     static=(tcfg.batch,))
     loss, metrics = learner_loss(model, traj, tcfg, acfg, plans)
     grads = train_mod.param_grads(model, loss)
     metrics = {k: v.detach() for k, v in metrics.items()}
@@ -566,13 +571,19 @@ def async_train(cfg: IC3NetConfig, ecfg=None,
     its exception.
 
     ``schedule.warmup_steps`` (the dense G-ramp) is a synchronous-loop
-    feature and is rejected. ``debug_contracts`` (JAX's retrace guard)
-    raises: eager PyTorch has no retrace to guard.
+    feature and is rejected. ``debug_contracts=True`` runs the whole
+    pipeline under :func:`repro_torch.analysis.contracts.no_retrace`: the
+    actor rollout and the learner update may each run at one signature;
+    a second (a shape instability) raises ``RetraceError``, on either
+    thread.
     """
     if debug_contracts:
-        raise NotImplementedError(
-            "debug_contracts guards jax retraces; eager PyTorch has no "
-            "retrace to guard (ROADMAP, Queue 1: analysis/contracts)")
+        with contracts.no_retrace(label="async_train"):
+            return async_train(
+                cfg, ecfg, tcfg, acfg, updates=updates, seed=seed,
+                log_every=log_every, env=env, schedule=schedule,
+                threads=threads, check_publication=check_publication,
+                device=device)
     if isinstance(env, str):
         env = envs_mod.get(env)
     if ecfg is None:

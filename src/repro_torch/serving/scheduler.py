@@ -25,6 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import contracts
 from repro_torch.models import transformer
 
 ADMISSION_MODES = ("continuous", "lockstep")
@@ -127,10 +128,15 @@ class _Slot:
 class Engine:
     """Slot-based serving engine over one :class:`~repro_torch.serving.
     session.ServeSession`. ``capacity`` is the decode-batch width;
-    ``max_seq`` bounds one request's prompt plus generation."""
+    ``max_seq`` bounds one request's prompt plus generation.
+    ``debug_contracts`` (None: the session's) runs each :meth:`run` under
+    ``repro_torch.analysis.contracts.no_retrace``: the decode step may
+    run at one signature; a second (a shape instability in the tick
+    loop) raises ``RetraceError``."""
 
     def __init__(self, session, capacity: int, max_seq: int, *,
-                 admission: str = "continuous"):
+                 admission: str = "continuous",
+                 debug_contracts: Optional[bool] = None):
         if admission not in ADMISSION_MODES:
             raise ValueError(
                 f"admission must be one of {ADMISSION_MODES}, "
@@ -141,11 +147,20 @@ class Engine:
         self.capacity = capacity
         self.max_seq = max_seq
         self.admission = admission
+        self.debug_contracts = (
+            getattr(session, "debug_contracts", False)
+            if debug_contracts is None else debug_contracts)
 
-    @torch.inference_mode()
     def run(self, requests: Sequence[Request]) -> ServeReport:
         """Serve ``requests`` to completion; deterministic given the
         session's params and the request list."""
+        if self.debug_contracts:
+            with contracts.no_retrace(label="Engine.run"):
+                return self._run(requests)
+        return self._run(requests)
+
+    @torch.inference_mode()
+    def _run(self, requests: Sequence[Request]) -> ServeReport:
         for r in requests:
             need = len(r.prompt) + r.max_new_tokens
             if need > self.max_seq:

@@ -7,9 +7,10 @@ knob (``certify`` | ``trust`` | ``off``, see ``repro_torch.serving.steps``).
 Plans resolve through the process-wide cache
 (``repro_torch.serving.plan_cache``); the compact weights (``GroupPlan.wc``,
 the fused kernel's operand) are attached session-locally, never stored
-in the shared cache. The JAX session's ``jit`` and ``debug_contracts``
-switches guard jit retraces, which eager PyTorch does not have, so they
-are not ported.
+in the shared cache. ``debug_contracts=True`` makes every ``Engine`` on
+the session run under ``repro_torch.analysis.contracts.no_retrace``. The
+JAX session's ``jit`` switch has nothing to switch in eager PyTorch and
+is not ported.
 """
 from __future__ import annotations
 
@@ -34,12 +35,15 @@ class ServeSession:
     path (``grouped_bmm``).
     ``banded``: the prefill's chunked attention core attends each chunk's
     KV band only (decode is unchanged).
+    ``debug_contracts``: engines built on this session run their tick
+    loop under ``contracts.no_retrace`` (one signature a step, ever).
     """
 
     def __init__(self, cfg, params, *, plan_policy: str = "certify",
-                 banded: bool = False):
+                 banded: bool = False, debug_contracts: bool = False):
         self.cfg = cfg
         self.params = params
+        self.debug_contracts = debug_contracts
         self.plan_policy = check_plan_policy(plan_policy)
         self._grouped = cfg.flgw_groups > 1 and cfg.flgw_path == "grouped"
         self._slack = FLGWConfig(groups=cfg.flgw_groups,

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import contracts
+
 from repro_torch.core import encoder as planenc
 from repro_torch.models import transformer
 from repro_torch.models.layers import softcap, unembed
@@ -49,6 +51,7 @@ def make_decode_step(cfg, *, banded: bool = False):
 
     @torch.inference_mode()
     def decode_step(params, cache, tokens, positions):
+        contracts.record("decode_step", params, cache, tokens, positions)
         logits, _, cache = transformer.lm_apply(
             params, cfg, tokens, positions, cache=cache, banded=banded)
         next_tok = logits[:, -1:].argmax(-1).to(torch.int32)
@@ -81,6 +84,7 @@ def make_prefill_step(cfg, *, plan_policy: str = "certify",
 
     @torch.inference_mode()
     def prefill_step(params, batch, plans=None):
+        contracts.record("prefill_step", params, batch, plans)
         qc = q_chunk or pick_q_chunk(batch["tokens"].shape[1])
         if plan_policy == "off":
             plans = None

@@ -2,10 +2,15 @@
 
 Each helper runs one collective over ``group``, a ``ProcessGroup``
 (``dist.group.WORLD`` for the whole mesh), and counts it in
-:data:`CALLS` by operation and backend. A ``group`` of ``None`` stands
-for an axis that is not split, and then the helper is the identity; so
-is every helper without a process group (a one-rank mesh in one
-process).
+:data:`CALLS` by operation and backend, its bytes in :data:`BYTES` (the
+whole tensor: what an all-reduce sums, what an all-gather or gather
+builds, what a reduce-scatter reduces) and the bytes a rank sends over
+its links in a ring in :data:`LINK_BYTES` ((n - 1) / n of the whole
+tensor, twice for an all-reduce). The dry run
+(``repro_torch.launch.dryrun``) reads the same counters. A ``group`` of
+``None`` stands for an axis that is not split, and then the helper is the
+identity; so is every helper without a process group (a one-rank mesh in
+one process).
 
 The tensors stay on their device. Several ranks on one card run on gloo
 (NCCL refuses two ranks on one device), and gloo takes CUDA tensors for
@@ -30,8 +35,27 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-# (operation, backend) -> calls
+# (operation, backend) -> calls, whole bytes, ring link bytes a rank
 CALLS: collections.Counter = collections.Counter()
+BYTES: collections.Counter = collections.Counter()
+LINK_BYTES: collections.Counter = collections.Counter()
+
+
+def clear() -> None:
+    """Set every counter to 0."""
+    CALLS.clear()
+    BYTES.clear()
+    LINK_BYTES.clear()
+
+
+def _count(op: str, group, whole: torch.Tensor, n: int) -> None:
+    key = (op, dist.get_backend(group))
+    nbytes = whole.numel() * whole.element_size() * (
+        n if op in ("all_gather", "gather") else 1)
+    CALLS[key] += 1
+    BYTES[key] += nbytes
+    LINK_BYTES[key] += nbytes * (n - 1) / n * (2 if op == "all_reduce"
+                                               else 1)
 
 
 def active(group) -> bool:
@@ -48,7 +72,7 @@ def all_reduce(tensor: torch.Tensor, group) -> torch.Tensor:
     """Sum ``tensor`` over ``group`` in place; returns it."""
     if not active(group):
         return tensor
-    CALLS[("all_reduce", dist.get_backend(group))] += 1
+    _count("all_reduce", group, tensor, dist.get_world_size(group))
     if tensor.is_contiguous():
         dist.all_reduce(tensor, group=group)
     else:                       # NCCL and gloo's CUDA path take dense ones
@@ -75,8 +99,8 @@ def all_gather(tensor: torch.Tensor, group, dim: int) -> torch.Tensor:
     within ``group``."""
     if not active(group):
         return tensor
-    CALLS[("all_gather", dist.get_backend(group))] += 1
     src = tensor.contiguous()
+    _count("all_gather", group, src, dist.get_world_size(group))
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim)
@@ -114,7 +138,7 @@ def reduce_scatter(tensor: torch.Tensor, group, dim: int) -> torch.Tensor:
     if tensor.shape[dim] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(tensor.shape)}"
                          f" does not divide over {n} ranks")
-    CALLS[("reduce_scatter", dist.get_backend(group))] += 1
+    _count("reduce_scatter", group, tensor, n)
     src = tensor.movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
     with warnings.catch_warnings():     # renamed reduce_scatter_single later
@@ -129,8 +153,8 @@ def gather_to_first(tensor: torch.Tensor, group, dim: int):
     leaves them)."""
     if not active(group):
         return tensor
-    CALLS[("gather", dist.get_backend(group))] += 1
     src = tensor.contiguous()
+    _count("gather", group, src, dist.get_world_size(group))
     first = dist.get_rank(group) == 0
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(
         group))] if first else None

@@ -398,6 +398,26 @@ def batch_rows(mesh, batch: int, rules: Optional[Mapping[str, Any]] = None
     return lo, lo + rows, tuple(split)
 
 
+def step_rows(mesh, batch: int, microbatches: int = 1,
+              rules: Optional[Mapping[str, Any]] = None
+              ) -> tuple[list[int], tuple]:
+    """This rank's rows of a global batch of ``batch`` rows for a step in
+    ``microbatches`` microbatches, and the names of the mesh dimensions
+    whose ranks hold distinct rows. Global microbatch i is rows ``[i·m,
+    (i+1)·m)``, ``m = batch // microbatches``, as the reference slices
+    it; the rank holds :func:`batch_rows` of ``m`` of each, in
+    microbatch order, so that chunk i of its rows is its share of global
+    microbatch i (an MoE layer's capacity then counts over the global
+    microbatch). One microbatch: ``range(*batch_rows(mesh, batch))``."""
+    if batch % microbatches:
+        raise ValueError(f"global batch {batch} does not split into "
+                         f"{microbatches} microbatches")
+    per = batch // microbatches
+    lo, hi, split = batch_rows(mesh, per, rules)
+    return [i * per + r for i in range(microbatches)
+            for r in range(lo, hi)], split
+
+
 def batch_pspec(mesh, ndim: int = 2,
                 rules: Optional[Mapping[str, Any]] = None) -> P:
     """(batch, seq, ...) activation spec: batch over all data axes."""

@@ -11,7 +11,9 @@ consume one encode.
 On a ``(data, model)`` mesh (``mesh=``) the state's leaves are DTensors,
 each rank holding its shards (``sharding.partition.distribute``), and
 the step runs on each rank's rows of the global batch
-(``partition.batch_rows``) with explicit, counted collectives
+(``partition.step_rows``: with microbatches, its rows of each global
+microbatch, so an MoE layer's capacity and aux count over the global
+microbatch as the reference's do) with explicit, counted collectives
 (``sharding.collectives``): the grouping matrices are gathered whole for
 the plan encode, so every rank encodes the same replicated plans; each
 layer slot's weights are all-gathered just before the slot computes,
@@ -39,6 +41,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import contracts
 from repro_torch.core import encoder as planenc
 from repro_torch.core.flgw import FLGWConfig
 from repro_torch.models import transformer
@@ -165,8 +168,8 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adamw",
     ``microbatches`` splits the batch and averages float32-accumulated
     grads. ``mesh``: a ``(data, model)`` DeviceMesh; ``state`` then holds
     DTensors (``partition.distribute``) and ``batch`` this rank's rows
-    (``partition.batch_rows`` of ``global_batch``, which a mesh step
-    needs), see the module docstring. The step
+    (``partition.step_rows`` of ``global_batch`` and ``microbatches``,
+    which a mesh step needs), see the module docstring. The step
     consumes ``state``: its params and optimizer tensors are updated in
     place and shared with the returned state.
     """
@@ -180,11 +183,12 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adamw",
         if global_batch is None:
             raise ValueError("a mesh step needs global_batch")
         world = _world(mesh)
-        lo, hi, split = partition.batch_rows(mesh, global_batch)
+        rows, split = partition.step_rows(mesh, global_batch, microbatches)
         groups = dict(zip(mesh.mesh_dim_names, partition.mesh_groups(mesh)))
         row_groups = [groups[a] for a in split]     # in batch_rows' order
 
     def train_step(state: TrainState, batch):
+        contracts.record("train_step", state, batch)
         s = batch["tokens"].shape[1]
         qc = q_chunk or pick_q_chunk(s)
         sharded = state
@@ -201,9 +205,9 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adamw",
                                           fl_cfg, schedule)
         kw = dict(q_chunk=qc, banded=banded, ce_chunk=ce_chunk,
                   plans=plans if uses_plans else None, gather=gather)
-        if mesh is not None and batch["tokens"].shape[0] != hi - lo:
-            raise ValueError(f"a mesh step takes this rank's {hi - lo} rows "
-                             f"of the global batch, got "
+        if mesh is not None and batch["tokens"].shape[0] != len(rows):
+            raise ValueError(f"a mesh step takes this rank's {len(rows)} "
+                             f"rows of the global batch, got "
                              f"{batch['tokens'].shape[0]}")
 
         if microbatches == 1:

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite's workers share the host's cores
 
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
@@ -29,6 +30,7 @@ from repro.marl import envs as jenvs  # noqa: E402
 from repro.marl import ic3net as jic3net  # noqa: E402
 from repro.marl import train as jtrain  # noqa: E402
 from repro_torch import interop  # noqa: E402
+from repro_torch.analysis import contracts  # noqa: E402
 from repro_torch.core import encoder, grouped  # noqa: E402
 from repro_torch.core.schedule import REFRESH_MODES, SparsitySchedule  # noqa
 from repro_torch.launch import marl_async  # noqa: E402
@@ -523,13 +525,34 @@ def test_async_train_check_publication_holds_across_versions(monkeypatch):
 
 
 def test_async_rejects_warmup_and_debug_contracts():
+    """The warmup G-ramp is rejected. ``debug_contracts`` no longer is
+    (the name is kept from when it raised): the run goes under
+    ``contracts.no_retrace``, gives the unguarded run's history, and a
+    window of another batch size mid-run raises ``RetraceError``."""
     sched = SparsitySchedule(groups=4, refresh_every=1, warmup_steps=5)
     with pytest.raises(NotImplementedError, match="warm up"):
         at.async_train(_cfg(4), _ecfg(), train.TrainConfig(batch=2),
                        schedule=sched, updates=1, device=CPU)
-    with pytest.raises(NotImplementedError, match="retrace"):
-        at.async_train(_cfg(4), _ecfg(), train.TrainConfig(batch=2),
-                       updates=1, debug_contracts=True, device=CPU)
+    with contracts.no_retrace() as mon:
+        guarded = at.async_train(_cfg(4), _ecfg(), train.TrainConfig(batch=2),
+                                 updates=2, debug_contracts=True,
+                                 device=CPU)[1]
+    assert mon.counts() == {"actor_rollout": 1, "learner_update": 1}
+    plain = at.async_train(_cfg(4), _ecfg(), train.TrainConfig(batch=2),
+                           updates=2, device=CPU)[1]
+    assert [h["loss"] for h in guarded] == [h["loss"] for h in plain]
+    real = at.actor_rollout
+    calls = []
+
+    def unstable(*a):
+        calls.append(1)       # a step whose signature moves every call
+        contracts.record("actor_rollout", static=(len(calls),))
+        return real(*a)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(at, "actor_rollout", unstable)
+        with pytest.raises(contracts.RetraceError, match="actor_rollout"):
+            at.async_train(_cfg(4), _ecfg(), train.TrainConfig(batch=2),
+                           updates=3, debug_contracts=True, device=CPU)
 
 
 # -- the threaded driver -------------------------------------------------------

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite's workers share the host's cores
 
 from repro_torch.configs import ic3net as configs  # noqa: E402
 from repro_torch.kernels.flgw_matmul import ops as fm_ops  # noqa: E402

@@ -4,10 +4,12 @@ tensors."""
 import os
 import subprocess
 import sys
+import types
 
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite's workers share the host's cores
 
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
@@ -124,20 +126,33 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
 
 
 def test_kernel_wrappers_refuse_other_devices_and_mixes():
+    """A mix of devices, or a device other than the CPU, a CUDA card and
+    ``meta``, raises. ``meta`` alone takes the plain path, by shape only
+    (the dry run's step); before the dry run it was refused too."""
     meta = torch.empty((2, 3, 4), device="meta")
+    assert on_cpu(meta)
+    other = types.SimpleNamespace(device=torch.device("mps"))
     with pytest.raises(ValueError, match="all lie on the CPU"):
-        on_cpu(meta)
+        on_cpu(other)
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        on_cpu(meta, torch.empty(1))
     with pytest.raises(ValueError, match="all lie on the CPU"):
         fm_ops.grouped_bmm(meta, torch.empty((2, 4, 5)))
     with pytest.raises(ValueError, match="all lie on the CPU"):
         fm_ops.fused_bmm(meta[0], torch.empty((2, 4, 5)),
                          torch.zeros((2, 4), dtype=torch.int32))
     with pytest.raises(ValueError, match="all lie on the CPU"):
-        fa_ops.flash_fwd(meta[None], meta[None], meta[None])
+        fa_ops.flash_fwd(meta[None], meta[None], torch.empty((1, 2, 3, 4)))
     with pytest.raises(ValueError, match="all lie on the CPU"):
-        fa_ops.flash_bwd(*[meta[None]] * 4, meta, meta[None])
+        fa_ops.flash_bwd(*[meta[None]] * 3, torch.empty((1, 2, 3, 4)),
+                         meta, meta[None])
     with pytest.raises(ValueError, match="all lie on the CPU"):
         os_ops.osel_mask(meta[0, 0], torch.zeros(3, dtype=torch.int64))
+    out, lse = fa_ops.flash_fwd(meta[None], meta[None], meta[None])
+    assert out.device.type == lse.device.type == "meta"
+    assert out.shape == (1, 2, 3, 4) and lse.shape == (1, 2, 3)
+    y = fm_ops.grouped_bmm(meta, torch.empty((2, 4, 5), device="meta"))
+    assert y.device.type == "meta" and y.shape == (2, 3, 5)
 
 
 def test_kernel_cache_stays_inside_the_checkout(monkeypatch, tmp_path):

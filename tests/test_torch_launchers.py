@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite's workers share the host's cores
 
 from repro_torch.core import flgw  # noqa: E402
 from repro_torch.core.schedule import SparsitySchedule  # noqa: E402

@@ -9,7 +9,8 @@ config as JAX's ``make_train_step`` does on the whole batch, within
 ``test_torch_train.py``'s tolerances (the reference's STE fault entries
 excluded, ROADMAP Queue 3); each rank holds only its shards; a MoE config
 on (2, 1) gives JAX's loss, its capacity and load-balancing aux from the
-global batch; a (2, 2) checkpoint restores onto (2, 1) bitwise, its
+global batch, and in two microbatches JAX's microbatched step (each rank
+holds its rows of every global microbatch); a (2, 2) checkpoint restores onto (2, 1) bitwise, its
 manifest that of a one-process save; ``remesh_state`` moves a sharded
 state between shapes bitwise; ``train_lm`` runs on (2, 1). In one
 process, a one-rank group's mesh step is bitwise the step without one.
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite's workers share the host's cores
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
@@ -55,6 +57,9 @@ F32_LOSS_RTOL, F32_GNORM_RTOL = 1e-5, 1e-4
 PARAM_ATOL = LR / 15
 SHAPES = ((2, 1), (1, 2), (2, 2))
 MOE_STEPS = 2
+# the microbatched MoE run: 2 microbatches of a 4-row global batch, so
+# each of the (2, 1) mesh's ranks holds one row of each
+MB, MB_BATCH = 2, 4
 RANK_TIMEOUT_S = 120
 
 
@@ -98,15 +103,16 @@ def _jax_state(state):
                                  step=jnp.zeros((), jnp.int32), plans=plans)
 
 
-def _reference(cfgs, steps):
+def _reference(cfgs, steps, batch=BATCH, microbatches=1):
     """JAX's single-device run from the port's init: (the initial state
     as numpy, per-step metrics, the final params)."""
     jcfg, tcfg = cfgs
     state = state_lib.init_state(torch.Generator().manual_seed(0), tcfg)
     jstate = _jax_state(state)
     init = jax.tree.map(np.asarray, jstate)
-    jstep = jax.jit(jstep_lib.make_train_step(jcfg, **CHUNKS))
-    ds = pipeline.SyntheticTokens(tcfg.vocab, BATCH, SEQ, seed=0)
+    jstep = jax.jit(jstep_lib.make_train_step(
+        jcfg, microbatches=microbatches, **CHUNKS))
+    ds = pipeline.SyntheticTokens(tcfg.vocab, batch, SEQ, seed=0)
     metrics = []
     for i in range(steps):
         jstate, m = jstep(jstate, {k: jnp.asarray(v)
@@ -116,29 +122,34 @@ def _reference(cfgs, steps):
         interop.tree_to_numpy(state.params)
 
 
-def _train_on_mesh(mesh, cfg, init, steps):
+def _train_on_mesh(mesh, cfg, init, steps, batch=BATCH, microbatches=1):
     """``steps`` mesh steps from the carried ``init``: (the sharded
     state, per-step metrics)."""
     state = interop.train_state_from_numpy(init, "cpu", mesh=mesh, cfg=cfg)
-    step = step_lib.make_train_step(cfg, mesh=mesh, global_batch=BATCH,
-                                    **CHUNKS)
-    ds = pipeline.SyntheticTokens(cfg.vocab, BATCH, SEQ, seed=0)
-    lo, hi, _ = partition.batch_rows(mesh, BATCH)
+    step = step_lib.make_train_step(cfg, mesh=mesh, global_batch=batch,
+                                    microbatches=microbatches, **CHUNKS)
+    ds = pipeline.SyntheticTokens(cfg.vocab, batch, SEQ, seed=0)
+    rows = partition.step_rows(mesh, batch, microbatches)[0]
     metrics = []
     for i in range(steps):
-        state, m = step(state, {k: v[lo:hi]
+        state, m = step(state, {k: v[rows]
                                 for k, v in ds.tensors_at(i).items()})
         metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:      # the first step's collectives, by operation
+            _train_on_mesh.first = {
+                op: (n, collectives.BYTES[(op, be)])
+                for (op, be), n in collectives.CALLS.items()}
     return state, metrics
 
 
-def _rank(shape, init, moe_init, ckpt, role):
+def _rank(shape, init, moe_init, moe_mb_init, ckpt, role):
     """Everything one spawned rank of a ``shape`` mesh runs."""
     mesh = mesh_lib.make_mesh_from_devices(model=shape[1])
     _, cfg = _gemma()
     collectives.CALLS.clear()
     state, metrics = _train_on_mesh(mesh, cfg, init, STEPS)
     out = {"metrics": metrics, "calls": dict(collectives.CALLS),
+           "step1": _train_on_mesh.first,
            "params": interop.tree_to_numpy(partition.gather(state.params)),
            "bytes": partition.state_bytes(state),
            "local_shapes": [tuple(x.to_local().shape) for x in
@@ -184,6 +195,10 @@ def _rank(shape, init, moe_init, ckpt, role):
         _, mcfg = _moe()
         _, mm = _train_on_mesh(mesh, mcfg, moe_init, MOE_STEPS)
         out["moe"] = mm
+        mstate, mm = _train_on_mesh(mesh, mcfg, moe_mb_init, MOE_STEPS,
+                                    batch=MB_BATCH, microbatches=MB)
+        out["moe_mb"] = {"metrics": mm, "params": interop.tree_to_numpy(
+            partition.gather(mstate.params))}
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             launch.train_lm("gemma2_2b", steps=1, batch=BATCH, seq=16,
@@ -196,7 +211,8 @@ def _rank(shape, init, moe_init, ckpt, role):
 @functools.lru_cache(maxsize=None)
 def _references():
     return {"gemma": _reference(_gemma(), STEPS),
-            "moe": _reference(_moe(), MOE_STEPS)}
+            "moe": _reference(_moe(), MOE_STEPS),
+            "moe_mb": _reference(_moe(), MOE_STEPS, MB_BATCH, MB)}
 
 
 @pytest.fixture(scope="module")
@@ -209,7 +225,8 @@ def runs(tmp_path_factory):
 
     def go(shape, role):
         return mesh_lib.spawn(
-            _rank, shape[0] * shape[1], shape, init, moe_init, str(d), role,
+            _rank, shape[0] * shape[1], shape, init, moe_init,
+            ref["moe_mb"][0], str(d), role,
             backend="gloo", init_file=str(d / f"rdv_{shape[0]}{shape[1]}"),
             timeout_s=RANK_TIMEOUT_S, torch_threads=1)
 
@@ -296,6 +313,26 @@ def test_each_rank_holds_only_its_shards(runs, shape):
         assert r["local_shapes"] == want_shapes
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_dry_run_predicts_each_rank_collectives_and_state_bytes(runs, shape):
+    """``launch.dryrun`` of the same step on ``meta`` over a fake group of
+    the same shape predicts every rank's collectives of a step (calls and
+    bytes by operation) and its state bytes, as the spawned gloo run
+    counted them."""
+    from repro_torch.launch import dryrun
+    _, out = runs
+    _, cfg = _gemma()
+    res = dryrun.run_cell("gemma2_2b", "train_4k", flgw_groups=4,
+                          flgw_path="grouped", save=False, cfg=cfg, seq=SEQ,
+                          batch=BATCH, mesh_shape=shape, step_kw=CHUNKS)
+    got = {op: (c["calls"], c["bytes"]) for op, c in
+           res["collectives"].items()}
+    for r in out[shape]:
+        assert r["step1"] == got
+        assert r["bytes"][0] == res["state_bytes_per_chip"]
+        assert r["bytes"][1] == res["state_bytes_whole"]
+
+
 def test_moe_on_a_mesh_matches_jax_loss_with_a_global_aux(runs):
     ref, out = runs
     jm = ref["moe"][1]
@@ -307,6 +344,29 @@ def test_moe_on_a_mesh_matches_jax_loss_with_a_global_aux(runs):
                                        rtol=F32_LOSS_RTOL)
             np.testing.assert_allclose(t["grad_norm"], j["grad_norm"],
                                        rtol=F32_GNORM_RTOL)
+
+
+def test_moe_microbatches_on_a_mesh_match_jax_microbatched_step(runs):
+    """mixtral's smoke config at its capacity factor 1.25 (which drops
+    tokens), 2 microbatches of a 4-row batch on (2, 1): each rank holds
+    its row of each global microbatch, so the capacity counts over the
+    global microbatch, and loss, aux, gradient norm and the updated
+    params are JAX's microbatched step's."""
+    ref, out = runs
+    _, jm, jparams, _ = ref["moe_mb"]
+    for r in out[(2, 1)]:
+        got = r["moe_mb"]
+        assert got["metrics"] == out[(2, 1)][0]["moe_mb"]["metrics"]
+        for t, j in zip(got["metrics"], jm):
+            np.testing.assert_allclose(t["aux"], j["aux"], rtol=F32_LOSS_RTOL)
+            np.testing.assert_allclose(t["loss"], j["loss"],
+                                       rtol=F32_LOSS_RTOL)
+            np.testing.assert_allclose(t["grad_norm"], j["grad_norm"],
+                                       rtol=F32_GNORM_RTOL)
+        flat = jax.tree_util.tree_flatten_with_path(got["params"])[0]
+        for (kp, a), b in zip(flat, jax.tree.leaves(jparams)):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=0,
+                                       atol=PARAM_ATOL, err_msg=str(kp))
 
 
 def test_mesh_checkpoint_restores_onto_another_shape_bitwise(runs):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite's workers share the host's cores
 jax = pytest.importorskip("jax")
 
 from repro import kernels as jkernels  # noqa: E402

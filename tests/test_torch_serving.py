@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite's workers share the host's cores
 
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
