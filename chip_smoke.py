@@ -62,7 +62,12 @@ The port's paths, each at full width with random weights from a seed:
 * gemma2-2b trained on a ``(data, model)`` process mesh (FSDP over data,
   the reference's TP layout over model): the training config at full
   width, its depth cut to 2 layers, B=4 x S=1024, through ``train_lm``
-  on 1, 2 or 4 processes on the card.
+  on 1, 2 or 4 processes on the card;
+* gemma2-2b served on a ``(data, model)`` process mesh: the serve config
+  at full width, its depth cut to 2 layers, B=4, a 1,024-token prompt in
+  a 2,048-slot cache and 8 decode steps, through the mesh prefill and
+  decode steps (the KV sequence and the compact products' columns split
+  over model) on 1, 2 or 4 processes on the card.
 
 The script
 
@@ -137,9 +142,9 @@ The script
      head's gradient exactly 0 on both); profiles one sparse iteration;
      then starts the Fig. 9 learning check on the masked and the grouped
      path, each run in a spawned process of its own that goes on through
-     phases 8 and 9 (host-bound, the card ~5 % busy), and checks them
-     against bands around the JAX package's success rates once phase 8
-     is joined;
+     phases 8-11 (host-bound, the card ~5 % busy), and checks them
+     against bands around the JAX package's success rates once phase 11
+     ends;
   8. in a spawned process of its own, started with the Fig. 9 runs and
      joined after phase 9 (it is host-bound too; its numbers are taken
      beside phase 9's and those runs' work), with every launch count at
@@ -310,15 +315,37 @@ The script
       entry launched inside a profile with no match; (b) the dry run
       (``repro_torch.launch.dryrun``) of phase 17's config on ``meta``
       over fake groups of (2, 1), (1, 2) and (2, 2), in a CPU process
-      started after phase 12: each phase 17 rank's all-gathers,
-      reduce-scatters and all-reduces and their bytes equal the
+      started after phase 12 (which also dry-runs phase 19's calls):
+      each phase 17 rank's all-gathers, reduce-scatters and all-reduces
+      and their bytes equal the
       prediction for 2 steps, its state bytes the predicted; the
       one-process step's time against the dry run's roofline bound;
       (c) the runtime contracts: a lockstep serve run (gemma2-2b at 2
       layers) with ``debug_contracts=True`` at one decode signature, a
       decode loop of batch 1 then 2 raising ``RetraceError``, and phase
       8's threaded async run under ``debug_contracts=True``;
-  19. prints each phase's wall seconds as it ends, then one
+  19. serves gemma2-2b's serve config (depth cut to 2 layers, bf16, G=4
+      on mlp and attn, ``use_flash``) on ``(data, model)`` meshes
+      through ``make_prefill_step``/``make_decode_step(mesh=)`` and
+      ``init_cache(mesh=)``: ``fused_bmm`` held against its plain version
+      and timed on a model rank's capN/2 columns of every tile at the
+      ranks' rows (4,096, 2,048, 4, 2); then with every launch count at
+      0 the run without a group in this process (the reference: a B=4 x
+      1,024 prefill under ``trust``, the prompt written into a
+      2,048-slot cache by one lockstep decode step, 8 decode steps; 28
+      ``plan_assign``, 140 ``fused_bmm``, 2 ``flash_fwd`` exactly); then
+      in one wave of spawned processes a world-1 NCCL rank (bitwise the
+      reference in logits, tokens and cache) and (2, 1), (1, 2), (2, 2)
+      as gloo ranks sharing the card, teacher-forced with the
+      reference's tokens: every logit within 5e-2, the greedy tokens
+      equal, each KV shard within 5e-2 of its slice's largest value,
+      where a neighbour's slices and a step with the model ranks'
+      combine skipped must fail; each rank's launches the reference's;
+      each call's collectives by operation and bytes and the state plus
+      cache bytes the dry run's (phase 18's CPU process, over fake
+      groups of the same shapes); prints ms a prefill and a step, peak
+      GB and the collectives by operation and backend;
+  20. prints each phase's wall seconds as it ends, then one
       ``{"kernels": [...]}`` line, the card's name and power limit, and
       as the last line ``{"ok": true, "device": {...}}``.
 
@@ -815,15 +842,21 @@ def profile(fn, names, spans=()) -> dict:
     CUDA kernel's name); for each of ``spans`` (``record_function``
     names that ``fn`` opens) the device time of the kernels launched
     inside it and its share of the busy time. The profiler's own cost
-    inflates the wall."""
+    inflates the wall. Without ``spans`` the host's ops are not recorded
+    (CUDA activity only: the same device events, and a third of the
+    post-processing of a serve profile's, which took ~5 s a profile with
+    the host's ops on an NVIDIA H100 80GB HBM3, 700 W; section 5 of
+    PERF.md)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     from repro_torch.kernels import KernelEntry
     torch.cuda.synchronize()
     KernelEntry.RECORD = []          # the launch audit's calls (phase 18)
+    acts = [ProfilerActivity.CUDA]
+    if spans:
+        acts.insert(0, ProfilerActivity.CPU)
     try:
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
+        with torch_profile(activities=acts) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -5149,11 +5182,13 @@ def _audit_profile(recorded: list, prof) -> None:
     _LAUNCH_AUDIT["profiles"] += 1
 
 
-def dryrun_phase17() -> dict:
+def dryrun_phases() -> dict:
     """Phase 18 (b), in a CPU process of its own: the dry run of phase
     17's config (gemma2-2b at full width, CKPT_LAYERS layers, B=4 x
     S=1024) on ``meta`` over fake groups of each of phase 17's mesh
-    shapes and of one rank (the one-process step's roofline)."""
+    shapes and of one rank (the one-process step's roofline); and under
+    ``"serve"`` phase 19's calls (its prefill, the fill and a decode
+    step) over fake groups of each of its mesh shapes."""
     from repro_torch.launch import dryrun
     cfg = _lm_mesh_cfg()
     out = {}
@@ -5164,18 +5199,42 @@ def dryrun_phase17() -> dict:
                             mesh_shape=shape, save=False, **TRAIN_FLGW)
         r["wall_s"] = time.perf_counter() - t0
         out[f"{shape[0]}x{shape[1]}"] = r
+    out["serve"] = dryrun_serve_cells()
+    return out
+
+
+def dryrun_serve_cells() -> dict:
+    """The dry run of phase 19's calls (its prefill, the fill and a
+    decode step) on ``meta`` over fake groups of each of its mesh
+    shapes."""
+    from repro_torch.launch import dryrun
+    kw = dict(cfg=_serve_mesh_cfg(), batch=SERVE_BATCH, save=False,
+              flgw_groups=4, flgw_path="grouped")
+    out = {}
+    for shape in SERVE_MESH_SHAPES:
+        t0 = time.perf_counter()
+        out[f"{shape[0]}x{shape[1]}"] = dict(
+            prefill=dryrun.run_cell("gemma2_2b", "prefill_32k",
+                                    seq=PREFILL_SEQ, mesh_shape=shape, **kw),
+            fill=dryrun.run_cell("gemma2_2b", "decode_32k",
+                                 seq=SERVE_MESH_MAX_SEQ, mesh_shape=shape,
+                                 new_tokens=PREFILL_SEQ, **kw),
+            step=dryrun.run_cell("gemma2_2b", "decode_32k",
+                                 seq=SERVE_MESH_MAX_SEQ, mesh_shape=shape,
+                                 **kw),
+            wall_s=time.perf_counter() - t0)
     return out
 
 
 def start_dryrun():
-    """Starts :func:`dryrun_phase17` in a spawned CPU process (no card,
+    """Starts :func:`dryrun_phases` in a spawned CPU process (no card,
     no process group: the dry run makes its own fake one)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
         "spawn"), initializer=torch.set_num_threads,
         initargs=(DRYRUN_THREADS,))
-    return pool, pool.submit(dryrun_phase17), time.perf_counter()
+    return pool, pool.submit(dryrun_phases), time.perf_counter()
 
 
 def contracts_on_card(dev, card: str) -> dict:
@@ -5265,6 +5324,7 @@ def run_analysis(dev, card: str, lm_mesh: dict, dry, asy: dict) -> dict:
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     out["dryrun_wait_s"] = time.perf_counter() - t0
+    out["serve_cells"] = dr["serve"]
     rows = {}
     for shape in LM_MESH_SHAPES:
         name = f"{shape[0]}x{shape[1]}"
@@ -5289,6 +5349,8 @@ def run_analysis(dev, card: str, lm_mesh: dict, dry, asy: dict) -> dict:
               f"{pred['state_bytes_per_chip']:,} bytes a rank: phase 17's "
               f"ranks counted {LM_MESH_STEPS}x those, equal", flush=True)
     one = dr["1x1"]
+    dry_s = sum(r["wall_s"] for r in (*dr.values(), *dr["serve"].values())
+                if "wall_s" in r)
     step_ms = min(lm_mesh["none"]["step_ms"])
     bound_s = one["roofline"]["step_time_lower_bound_s"]
     out["dryrun"] = dict(rows, one_process=dict(
@@ -5301,7 +5363,7 @@ def run_analysis(dev, card: str, lm_mesh: dict, dry, asy: dict) -> dict:
           f"{one['roofline']['memory_s'] * 1e3:.2f} ms by unfused bytes), "
           f"the step {step_ms:.1f} ms: {bound_s * 1e3 / step_ms:.3f} of the "
           f"bound's time; the dry runs took "
-          f"{sum(r['wall_s'] for r in dr.values()):.1f} s in their process, "
+          f"{dry_s:.1f} s in their process, "
           f"joined {out['dryrun_wait_s']:.1f} s after it started", flush=True)
     # (c)
     out["contracts"] = contracts_on_card(dev, card)
@@ -5311,6 +5373,438 @@ def run_analysis(dev, card: str, lm_mesh: dict, dry, asy: dict) -> dict:
     print(f"  contracts: phase 8's threaded async run "
           f"({len(asy['threaded']['losses'])} updates) passed under "
           f"debug_contracts=True on {card}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: serving gemma2-2b on a (data, model) process mesh
+# ---------------------------------------------------------------------------
+
+SERVE_MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+SERVE_MESH_MAX_SEQ = 2048
+SERVE_MESH_STEPS = 8
+# the served-logits gate (section 2 of PERF.md): every logit of a mesh
+# run within rtol = atol = 5e-2 of the run without a group, and each cache
+# shard within 5e-2 of its matching slice's largest value; stated before
+# the first card run
+SERVE_MESH_TOL = 5e-2
+SERVE_MESH_TIMEOUT_S = 420
+SERVE_MESH_RANK_THREADS = 1
+# a mesh run's launches: one encode of the plans (init_cache), 7
+# fused_bmm a layer and forward (prefill, fill, SERVE_MESH_STEPS steps),
+# one flash_fwd a layer in the prefill
+SERVE_MESH_LAUNCHES = {
+    "plan_assign": 2 * SERVE_PROJECTIONS * 2,
+    "fused_bmm": SERVE_PROJECTIONS * CKPT_LAYERS * (2 + SERVE_MESH_STEPS),
+    "flash_fwd": CKPT_LAYERS}
+
+
+def _serve_mesh_cfg():
+    return registry.get_config("gemma2_2b", n_layers=CKPT_LAYERS,
+                               **SERVE_FLGW)
+
+
+@_timed
+def check_split_fused(plans, params, rows_list, m: int) -> list[dict]:
+    """fused_bmm against its plain version at each FLGW projection of
+    block 0's first slot on one model rank's capN/m columns of every tile
+    (the slice of ``wc`` that ``grouped_matmul_fused`` hands the kernel
+    on a model axis of ``m`` ranks; the whole tile where m does not
+    divide capN), for each of ``rows_list`` (a mesh rank's rows), in
+    bf16: timed against its plain version and ``torch.bmm``, with its
+    bound (the same count as ``check_fused_kernel``'s) and route."""
+    blk = transformer._index(plans.plans["blocks"], 0)["slot0"]
+    blkp = transformer._index(params["blocks"], 0)["slot0"]
+    projs = [("mixer", n) for n in "qkvo"] + [("ffn", n)
+                                              for n in ("up", "gate", "down")]
+    gen = torch.Generator(device=params["embed"]["embedding"].device)
+    gen.manual_seed(SEED + 19)
+    rows = []
+    for n_rows in rows_list:
+        for part, name in projs:
+            plan = blk[part][name]
+            mm, n = blkp[part][name]["w"].shape
+            cap_n = plan.wc.shape[-1]
+            split = cap_n % m == 0
+            wc = plan.wc[..., :cap_n // m if split else cap_n].contiguous()
+            x = torch.randn((n_rows, mm), generator=gen,
+                            device=wc.device).to(torch.bfloat16)
+            xp, ids = fm_ops.fused_operands(x, plan.row_ids, plan.row_valid)
+            y = fm_ops.fused_bmm(xp, wc, ids)
+            y_ref = fm_ref.ref_fused_bmm(xp, wc, ids)
+            err = float((y.float() - y_ref.float()).abs().max())
+            check(torch.allclose(y.float(), y_ref.float(), **FUSED_BF16_TOL),
+                  f"fused_bmm == plain at {name}'s columns over {m} ranks, "
+                  f"{n_rows} rows (max abs err {err})")
+            g, k, nc = wc.shape
+            xg = fm_ops.gather_x(x, plan.row_ids, plan.row_valid)
+            nbytes = 2 * (n_rows * (mm + 1) + g * k * nc + g * n_rows * nc) \
+                + 4 * g * k
+            ops = 2 * g * n_rows * k * nc
+            bnd, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+            row = dict(proj=name, rows=n_rows, m=mm, n=n, g=g, cap_m=k,
+                       cap_n=cap_n, cols=nc, ranks=m, split=split,
+                       max_abs_err=err, route=fused_route(n_rows, nc),
+                       ms=time_ms(lambda: fm_ops.fused_bmm(xp, wc, ids),
+                                  20, 3),
+                       plain_ms=time_ms(lambda: fm_ref.ref_fused_bmm(
+                           xp, wc, ids), 20, 3),
+                       library_ms=time_ms(lambda: torch.bmm(xg, wc), 20, 3),
+                       bound_ms=bnd, bound_by=by)
+            row["bound_share"] = bnd / row["ms"]
+            rows.append(row)
+    return rows
+
+
+def _serve_mesh_inputs(cfg):
+    """The prompt tokens (B, PREFILL_SEQ) and the positions of the prompt
+    and the decode steps, from the seed."""
+    gen = torch.Generator().manual_seed(SEED + 19)
+    toks = torch.randint(0, cfg.vocab, (SERVE_BATCH, PREFILL_SEQ),
+                         generator=gen)
+    pos = torch.arange(PREFILL_SEQ + SERVE_MESH_STEPS).expand(
+        SERVE_BATCH, -1).contiguous()
+    return toks, pos
+
+
+def _clone_cache(cache):
+    """A copy of a mesh cache's KV shards and position (its plans
+    shared)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding import partition
+
+    def one(x):
+        return DTensor.from_local(x.to_local().clone(), x.device_mesh,
+                                  list(x.placements), run_check=False,
+                                  shape=x.shape, stride=x.stride())
+    return dict(partition.map_tree(one, {"blocks": cache["blocks"],
+                                         "pos": cache["pos"]}),
+                plans=cache["plans"])
+
+
+def serve_mesh_drive(dev, mesh=None, teacher=None) -> dict:
+    """Phase 19's serving run on ``dev``, without a mesh or on ``mesh``
+    (this rank's rows and shards): every launch count and collective
+    counter at 0, the cache (``init_cache(params=, mesh=)``: the one
+    encode), the B x PREFILL_SEQ prefill under ``trust`` (the plans are
+    the cache's own, just encoded), the prompt written into the cache by
+    one lockstep decode step (the fill), then SERVE_MESH_STEPS decode
+    steps, each fed ``teacher``'s token (the run without a group's) or
+    without one its own greedy token. Returns the last logits of each
+    call (float32, host), the greedy tokens, the cache's shards (host),
+    launches, each call's collectives and ms, peak GB and bytes; on a
+    mesh whose model axis splits the KV sequence also ``clone``, a copy
+    of the cache after the fill."""
+    from repro_torch.serving import steps as serving_steps
+    from repro_torch.sharding import collectives, partition
+    from repro_torch.train import state as state_lib
+    cfg = _serve_mesh_cfg()
+    kernels = port_kernels()
+    b, p = SERVE_BATCH, PREFILL_SEQ
+    params = serve_params(cfg, dev)
+    lo, hi, kw = 0, b, {}
+    if mesh is not None:
+        params = partition.distribute(params, partition.constrained_shardings(
+            state_lib.param_specs(cfg), params, mesh), mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lo, hi, _ = partition.batch_rows(mesh, b, spread=False)
+        kw = dict(mesh=mesh, global_batch=b)
+    toks, pos = (t[lo:hi].to(dev) for t in _serve_mesh_inputs(cfg))
+    _zero(kernels)
+    collectives.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    calls, ms = {}, {}
+
+    def call(what, fn):
+        collectives.clear()
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = fn()
+        _sync(dev)
+        ms.setdefault(what, []).append((time.perf_counter() - t0) * 1e3)
+        calls[what] = {"/".join(map(str, k)): (n, collectives.BYTES[k])
+                       for k, n in collectives.CALLS.items()}
+        return r
+
+    cache = call("init_cache", lambda: transformer.init_cache(
+        cfg, b, SERVE_MESH_MAX_SEQ, params=params, mesh=mesh))
+    prefill = serving_steps.make_prefill_step(cfg, plan_policy="trust", **kw)
+    decode = serving_steps.make_decode_step(cfg, return_logits=True, **kw)
+    logits = [call("prefill", lambda: prefill(
+        params, {"tokens": toks, "positions": pos[:, :p]},
+        cache["plans"]))[:, 0].float().cpu()]
+    tok, cache, lg = call("fill", lambda: decode(params, cache, toks,
+                                                 pos[:, :p]))
+    out = {}
+    if any(collectives.size(partition.split_group(x, 2)) > 1
+           for c in cache["blocks"].values() for x in c.values()):
+        out["clone"] = _clone_cache(cache)
+    logits.append(lg[:, 0].float().cpu())
+    tokens = [tok[:, 0].cpu()]
+    for i in range(SERVE_MESH_STEPS):
+        feed = tok if teacher is None else teacher[i][lo:hi, None].to(dev)
+        tok, cache, lg = call("step", lambda: decode(
+            params, cache, feed, pos[:, p + i:p + i + 1]))
+        logits.append(lg[:, 0].float().cpu())
+        tokens.append(tok[:, 0].cpu())
+    out.update(
+        launches={k.symbol: k.launches for k in kernels}, calls=calls, ms=ms,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        logits=torch.stack(logits), tokens=torch.stack(tokens), rows=(lo, hi),
+        bytes=[sum(partition.state_bytes(x)[i] for x in (params, cache))
+               for i in (0, 1)],
+        cache_bytes=list(partition.state_bytes(cache)),
+        cache={f"{slot}/{leaf}": x for slot, c in cache["blocks"].items()
+               for leaf, x in c.items()})
+    out["params"], out["decode"], out["pos"] = params, decode, pos
+    return out
+
+
+def _slice_at(whole, placement, mesh, coords):
+    """The slice of ``whole`` that the rank at ``coords`` holds under
+    ``placement`` (``partition.shard_of`` at any coordinates)."""
+    from torch.distributed.tensor import Shard
+    for n, c, p in zip(tuple(mesh.shape), coords, placement):
+        if isinstance(p, Shard):
+            whole = whole.chunk(n, p.dim)[c]
+    return whole
+
+
+def _kv_err(got, want) -> float:
+    """A cache shard's error against a slice: the max abs difference over
+    the larger of the two's largest values (a slice of slots never
+    written holds zeros)."""
+    got, want = got.float(), want.float()
+    scale = max(float(want.abs().max()), float(got.abs().max()))
+    return float((got - want).abs().max()) / scale if scale else 0.0
+
+
+def serve_mesh_rank(shape: tuple, device: str, d: str) -> dict:
+    """One rank of a ``shape`` mesh (gloo; (1, 1) a world-1 NCCL group):
+    :func:`serve_mesh_drive` teacher-forced with the run without a
+    group's tokens (``{d}/ref.pt``), then against that run: each call's
+    logits of this rank's rows (max abs error, within SERVE_MESH_TOL,
+    bitwise), the tokens, each KV shard against the matching slice (and
+    a neighbour's slice, a control); where the model axis splits the
+    KV sequence, one decode step from the cache after the fill with the
+    ranks' combine skipped (a control: each rank's own slots only)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.sharding import partition
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = resolve_device(device)
+    mesh = mesh_lib.make_mesh_from_devices(model=shape[1],
+                                           device_type=dev.type)
+    ref = torch.load(f"{d}/ref.pt", mmap=True)
+    run = serve_mesh_drive(dev, mesh, teacher=ref["tokens"][:-1])
+    lo, hi = run["rows"]
+    want = ref["logits"][:, lo:hi]
+    out = {k: run[k] for k in ("launches", "calls", "ms", "peak_gb", "rows",
+                               "bytes", "cache_bytes")}
+    out.update(
+        rank=dist.get_rank(), backend=dist.get_backend(),
+        logits_err=float((run["logits"] - want).abs().max()),
+        logits_close=bool(torch.allclose(run["logits"], want,
+                                         rtol=SERVE_MESH_TOL,
+                                         atol=SERVE_MESH_TOL)),
+        tokens_equal=bool(torch.equal(run["tokens"],
+                                      ref["tokens"][:, lo:hi])),
+        bitwise=bool(torch.equal(run["logits"], want)))
+    kv, neighbour, same = 0.0, [], True
+    coords = partition.mesh_coords(mesh)
+    for path, x in run["cache"].items():
+        whole, pl = ref["cache"][path], x.placements
+        local = x.to_local().cpu()
+        mine = _slice_at(whole, pl, mesh, coords)
+        kv = max(kv, _kv_err(local, mine))
+        same &= torch.equal(local, mine)
+        # the next rank's slice along the innermost mesh dimension that
+        # splits the leaf (the KV sequence's, where model splits it)
+        split = [i for i, (n, q) in enumerate(zip(tuple(mesh.shape), pl))
+                 if isinstance(q, Shard) and n > 1]
+        if split:
+            c = list(coords)
+            c[split[-1]] = (c[split[-1]] + 1) % tuple(mesh.shape)[split[-1]]
+            neighbour.append(_kv_err(local, _slice_at(whole, pl, mesh, c)))
+    out.update(kv_err=kv, kv_bitwise=same, kv_neighbour_err=neighbour)
+    if "clone" in run:
+        real = attn_mod._lse_combine
+        attn_mod._lse_combine = lambda o, mx, total, group: o / total
+        try:
+            _, _, lg = run["decode"](run["params"], run["clone"],
+                                     ref["tokens"][0][lo:hi, None].to(dev),
+                                     run["pos"][:, PREFILL_SEQ:
+                                                PREFILL_SEQ + 1])
+        finally:
+            attn_mod._lse_combine = real
+        got, w1 = lg[:, 0].float().cpu(), ref["logits"][2, lo:hi]
+        out["no_combine_err"] = float((got - w1).abs().max())
+        out["no_combine_close"] = bool(torch.allclose(
+            got, w1, rtol=SERVE_MESH_TOL, atol=SERVE_MESH_TOL))
+    return out
+
+
+def serve_mesh_launches(sm, sym: str) -> dict:
+    """One kernel's launches on phase 19's paths: the run without a
+    group (this process), the world-1 NCCL rank and every rank of each
+    shape."""
+    return {"gemma2_serve_mesh_none": sm["none"]["launches"][sym],
+            **{f"gemma2_serve_mesh_{a}x{b}": sum(
+                r["launches"][sym] for r in sm[f"{a}x{b}"]["ranks"])
+               for a, b in ((1, 1), *SERVE_MESH_SHAPES)}}
+
+
+def run_serve_mesh(device, card: str, cells: dict) -> dict:
+    """Phase 19: gemma2-2b's serve config (CKPT_LAYERS layers) served on
+    ``(data, model)`` meshes through the mesh prefill and decode steps:
+    ``fused_bmm`` at the ranks' column-split shapes against its plain
+    version; the run without a group in this process (the reference);
+    then in one wave a world-1 NCCL rank (bitwise the reference in
+    logits, tokens and cache) and (2, 1), (1, 2), (2, 2) as spawned gloo
+    ranks sharing the card, each teacher-forced with the reference's
+    tokens: every logit within SERVE_MESH_TOL, the tokens equal, each KV
+    shard within SERVE_MESH_TOL of its slice's largest value, where a
+    neighbour's slice and a run with the combine skipped must fail;
+    launches exact; each call's collectives and the state-plus-cache
+    bytes the dry run's ``cells`` (phase 18's process)."""
+    from repro_torch.launch import mesh as mesh_lib
+    cfg = _serve_mesh_cfg()
+    out = dict(cut=f"n_layers {CKPT_LAYERS} of 26 (one local, one global "
+                   f"slot)", params=param_count(cfg), batch=SERVE_BATCH,
+               prompt=PREFILL_SEQ, max_seq=SERVE_MESH_MAX_SEQ,
+               steps=SERVE_MESH_STEPS, tol=SERVE_MESH_TOL)
+    with tempfile.TemporaryDirectory(prefix="repro-serve-mesh-") as d:
+        ref = serve_mesh_drive(device)
+        check(ref["launches"] == {k.symbol: SERVE_MESH_LAUNCHES.get(
+            k.symbol, 0) for k in port_kernels()},
+            f"serve mesh, no group: launches {ref['launches']} == "
+            f"{SERVE_MESH_LAUNCHES}")
+        torch.save(dict(logits=ref["logits"], tokens=ref["tokens"],
+                        cache={k: v.cpu() for k, v in ref["cache"].items()}),
+                   f"{d}/ref.pt")
+        with torch.inference_mode():
+            plans = transformer.serve_plans(ref["params"], cfg)
+        out["split_rows"] = check_split_fused(
+            plans, ref["params"], (SERVE_BATCH * PREFILL_SEQ,
+                                   SERVE_BATCH * PREFILL_SEQ // 2,
+                                   SERVE_BATCH, SERVE_BATCH // 2), 2)
+        out["none"] = {k: ref[k] for k in ("launches", "ms", "peak_gb",
+                                           "bytes")}
+        del ref, plans
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  serve mesh: no group, {out['params']:,} params "
+              f"({out['cut']}), B={SERVE_BATCH}, prompt {PREFILL_SEQ}, cache "
+              f"{SERVE_MESH_MAX_SEQ}: prefill "
+              f"{out['none']['ms']['prefill'][0]:.1f} ms, fill "
+              f"{out['none']['ms']['fill'][0]:.1f} ms, a step "
+              f"{statistics.median(out['none']['ms']['step']):.1f} ms, peak "
+              f"{out['none']['peak_gb']:.2f} GB, launches "
+              f"{out['none']['launches']} on {card}", flush=True)
+        for r in out["split_rows"]:
+            print(f"  fused_bmm on a model rank's columns ({r['ranks']} "
+                  f"ranks): {r['proj']:>4} {r['rows']:>5} rows, capN "
+                  f"{r['cap_n']} -> {r['cols']} ({r['route']}): "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, torch.bmm "
+                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                  f"({r['bound_by']}, {r['bound_share']:.3f}) on {card}",
+                  flush=True)
+
+        backend = "nccl" if device.type == "cuda" else "gloo"
+
+        def run(shape):
+            t = time.perf_counter()
+            ranks = mesh_lib.spawn(
+                serve_mesh_rank, shape[0] * shape[1], shape, str(device), d,
+                backend=backend if shape == (1, 1) else "gloo",
+                init_file=f"{d}/rdv_{shape[0]}x{shape[1]}",
+                timeout_s=SERVE_MESH_TIMEOUT_S,
+                torch_threads=SERVE_MESH_RANK_THREADS)
+            return ranks, time.perf_counter() - t
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1 + len(SERVE_MESH_SHAPES)) as pool:
+            futures = {s: pool.submit(run, s)
+                       for s in ((1, 1), *SERVE_MESH_SHAPES)}
+            spawned = {s: f.result() for s, f in futures.items()}
+        out["wave_s"] = time.perf_counter() - t0
+    (one,), wall = spawned.pop((1, 1))
+    out["1x1"] = dict(ranks=[one], wall_s=wall)
+    check(one["bitwise"] and one["kv_bitwise"] and one["tokens_equal"],
+          "serve mesh (1, 1) on a world-1 NCCL group: logits, tokens and "
+          "cache bitwise the run without a group")
+    check(one["launches"] == out["none"]["launches"],
+          f"serve mesh (1, 1): launches {one['launches']} == the run "
+          f"without a group's")
+    check(all(k.endswith(f"/{backend}") for c in one["calls"].values()
+              for k in c) and one["calls"]["step"],
+          f"serve mesh (1, 1): its collectives on {backend} "
+          f"({one['calls']['step']})")
+    print(f"  serve mesh (1, 1), world-1 NCCL group: bitwise the run "
+          f"without a group; prefill {one['ms']['prefill'][0]:.1f} ms, a "
+          f"step {statistics.median(one['ms']['step']):.1f} ms, peak "
+          f"{one['peak_gb']:.2f} GB on {card}", flush=True)
+    for shape in SERVE_MESH_SHAPES:
+        ranks, wall = spawned[shape]
+        name = f"{shape[0]}x{shape[1]}"
+        cell = cells[name]
+        for r in ranks:
+            what = f"serve mesh {shape} rank {r['rank']}"
+            check(r["logits_close"],
+                  f"{what}: the prefill's, the fill's and {SERVE_MESH_STEPS} "
+                  f"steps' logits within {SERVE_MESH_TOL} of the run without "
+                  f"a group (max abs err {r['logits_err']:.4g})")
+            check(r["tokens_equal"], f"{what}: its greedy tokens equal")
+            check(r["kv_err"] <= SERVE_MESH_TOL,
+                  f"{what}: its KV shards within {SERVE_MESH_TOL} of the "
+                  f"matching slices' largest value ({r['kv_err']:.4g})")
+            check(r["kv_neighbour_err"] and all(
+                e > SERVE_MESH_TOL for e in r["kv_neighbour_err"]),
+                  f"{what}: its shards against a neighbour's slices fail "
+                  f"that limit ({r['kv_neighbour_err']})")
+            if shape[1] > 1:
+                check(not r["no_combine_close"],
+                      f"{what}: a step with the ranks' combine skipped fails "
+                      f"the logits limit (max abs err "
+                      f"{r['no_combine_err']:.4g})")
+            check(r["launches"] == out["none"]["launches"],
+                  f"{what}: launches {r['launches']} == the run without a "
+                  f"group's")
+            for call in ("prefill", "fill", "step"):
+                got = {k.split("/")[0]: tuple(v)
+                       for k, v in r["calls"][call].items()}
+                want = {op: (c["calls"], c["bytes"]) for op, c in
+                        cell[call]["collectives"].items()}
+                check(got == want,
+                      f"dry run {name}: {what}'s {call} collectives {got} == "
+                      f"the prediction {want}")
+            check(r["bytes"][0] == cell["step"]["state_bytes_per_chip"],
+                  f"dry run {name}: {what}'s state + cache bytes "
+                  f"{r['bytes'][0]:,} == the prediction "
+                  f"{cell['step']['state_bytes_per_chip']:,}")
+        r0 = ranks[0]
+        out[name] = dict(ranks=ranks, wall_s=wall)
+        print(f"  serve mesh {shape}, {len(ranks)} gloo ranks on {card}: "
+              f"prefill ms by rank "
+              f"{[round(r['ms']['prefill'][0], 1) for r in ranks]}, a step "
+              f"{[round(statistics.median(r['ms']['step']), 1) for r in ranks]}"
+              f", peak GB {[round(r['peak_gb'], 2) for r in ranks]}, state + "
+              f"cache {r0['bytes'][0]:,} of {r0['bytes'][1]:,} bytes (cache "
+              f"{r0['cache_bytes'][0]:,} of {r0['cache_bytes'][1]:,}); "
+              f"logits max abs err "
+              f"{max(r['logits_err'] for r in ranks):.4g}, KV "
+              f"{max(r['kv_err'] for r in ranks):.4g} (controls: a "
+              f"neighbour's slices "
+              f"{[round(min(r['kv_neighbour_err']), 3) for r in ranks]}, the "
+              f"combine skipped "
+              f"{[r.get('no_combine_err') for r in ranks]}"
+              f"); collectives a rank: prefill {r0['calls']['prefill']}, a "
+              f"step {r0['calls']['step']}", flush=True)
+    print(f"  serve mesh: the wave of 9 ranks took {out['wave_s']:.1f} s on "
+          f"{card}", flush=True)
     return out
 
 
@@ -5645,12 +6139,8 @@ def main() -> int:
           f"own process", flush=True)
     phase_done(8, "async pipeline, joined after phase 9")
 
-    fig9 = learning_check(fig9_runs)
-    print(f"Fig. 9 runs (beside phases 8 and 9) joined "
-          f"{fig9['wall_s']:.1f} s after they started", flush=True)
-    phase_done("7-9", "the Fig. 9 runs joined")
-
     # -- path 7: the rest of the dense family, served ----------------------
+    # (the Fig. 9 runs go on beside phases 10 and 11)
     fam, (g3_cfg, g3_params) = run_dense_family(all_kernels, dev, card)
     phase_done(10, "dense family")
     # -- path 8: paligemma-3b's prefix-LM prefill, gemma3-12b banded -------
@@ -5660,6 +6150,10 @@ def main() -> int:
     plan_cache.clear()
     torch.cuda.empty_cache()
     phase_done(11, "prefix-LM and banded prefills")
+    fig9 = learning_check(fig9_runs)
+    print(f"Fig. 9 runs (beside phases 8-11) joined "
+          f"{fig9['wall_s']:.1f} s after they started", flush=True)
+    phase_done("7-11", "the Fig. 9 runs joined")
     # -- path 9: the sync IC3Net launcher ------------------------------------
     sync = run_sync_launcher(all_kernels, dev, card)
     # phase 18 (b)'s dry run goes on on the CPU beside phases 13-17
@@ -5685,6 +6179,10 @@ def main() -> int:
     # -- phase 18: the analysis layer against the card ---------------------
     analysis = run_analysis(dev, card, lm_mesh, dry, asy)
     phase_done(18, "analysis: launch audit, dry run, contracts")
+    # -- path 15: gemma2-2b served on a (data, model) process mesh ---------
+    torch.cuda.empty_cache()
+    serve_mesh = run_serve_mesh(dev, card, analysis.pop("serve_cells"))
+    phase_done(19, "gemma2-2b served on a (data, model) process mesh")
     replay_wait_s = join_replays()
     print(f"the CPU replays' second halves joined, {replay_wait_s:.1f} s "
           f"after phase 18", flush=True)
@@ -5709,7 +6207,8 @@ def main() -> int:
                 **family_launches(fam, pre, band, sync, sym),
                 **moe_launches(moe, sym), **ssm_launches(ssm_fam, sym),
                 **whisper_launches(wh, sym), **mesh_launches(mesh_out, sym),
-                **lm_mesh_launches(lm_mesh, sym)}
+                **lm_mesh_launches(lm_mesh, sym),
+                **serve_mesh_launches(serve_mesh, sym)}
 
     def launches(sym):
         return sum(path_launches(sym).values())
@@ -5941,6 +6440,7 @@ def main() -> int:
              ssm_family=mamba["kernel_rows"] + jamba["kernel_rows"],
              whisper=[{k: v for k, v in r.items() if k != "grouped_bmm_bf16"}
                       for r in wh["kernel_rows"]],
+             serve_mesh_columns=serve_mesh["split_rows"],
              timed_over="one prefill layer: its 7 projections at 4096 rows, "
                         "bf16; bound at 989 TFLOP/s (bf16 tensor cores); "
                         "library = torch.bmm on pre-gathered operands, "
@@ -6057,7 +6557,7 @@ def main() -> int:
         async_pipeline=asy, checkpoint=ck, dense_family=fam,
         prefix_lm=pre, banded=band, sync_launcher=sync, moe_family=moe,
         ssm_family=ssm_fam, whisper=wh, mesh=mesh_out, lm_mesh=lm_mesh,
-        analysis=analysis,
+        analysis=analysis, serve_mesh=serve_mesh,
         phase_s=phase_s,
         wall_by_function=wall_by_function,
         script_s=time.perf_counter() - t_script,

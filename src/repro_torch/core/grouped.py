@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flgw_matmul import ops as kops
 from repro_torch.kernels.plan_encode import ops as pe_ops
+from repro_torch.sharding import partition
 
 
 class GroupPlan(NamedTuple):
@@ -124,11 +125,12 @@ def attach_compact(plans: RawPlans, params: dict) -> RawPlans:
     """Attach the compact weights ``W_c`` to every plan: one batched
     gather per projection (stacked layers included), after which
     :func:`grouped_apply` takes the fused kernel path. Re-attach whenever
-    the params change."""
+    the params change. A ``w`` held as a DTensor (a mesh's shard) is
+    gathered whole for its own layer's gather only."""
     def one(plan: GroupPlan, p: dict) -> GroupPlan:
         return plan._replace(wc=kops.compact_weights(
-            p["w"], plan.row_ids, plan.col_ids, plan.row_valid,
-            plan.col_valid))
+            partition.whole(p["w"]), plan.row_ids, plan.col_ids,
+            plan.row_valid, plan.col_valid))
     return _map_plans(plans, params, one)
 
 
@@ -152,11 +154,15 @@ def _core_matmul(x: torch.Tensor, w: torch.Tensor,
     """One compact product: the fused path on attached compact weights,
     else the gather path. x (B, M) and w (M, N), or with a leading
     expert axis x (E, B, M), w (E, M, N) and the plan's leaves (E, G,
-    cap): one kernel launch either way."""
+    cap): one kernel launch either way. Under a serving step's
+    ``partition.use_constraints(mesh)`` the fused path splits each
+    tile's capN columns over the ``model`` ranks where they divide it
+    (the ``"flgw_cap"`` rule), else every rank computes whole tiles."""
     if plan.wc is not None:
-        return kops.grouped_matmul_fused(x, plan.wc, plan.row_ids,
-                                         plan.row_valid, plan.col_ids,
-                                         plan.col_valid, n=w.shape[-1])
+        return kops.grouped_matmul_fused(
+            x, plan.wc, plan.row_ids, plan.row_valid, plan.col_ids,
+            plan.col_valid, n=w.shape[-1],
+            group=partition.constraint_group("flgw_cap", plan.wc.shape[-1]))
     return kops.grouped_matmul(x, w, plan.row_ids, plan.col_ids,
                                plan.row_valid, plan.col_valid)
 

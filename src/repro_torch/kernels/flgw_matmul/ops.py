@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels import KernelEntry, check_operand, on_cpu
 from repro_torch.kernels.flgw_matmul import ref as _ref
+from repro_torch.sharding import collectives
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 BMM = KernelEntry("flgw_matmul", "grouped_bmm_f32",
@@ -267,7 +268,7 @@ def fused_operands(x: torch.Tensor, row_ids: torch.Tensor,
 def grouped_matmul_fused(x: torch.Tensor, wc: torch.Tensor,
                          row_ids: torch.Tensor, row_valid: torch.Tensor,
                          col_ids: torch.Tensor, col_valid: torch.Tensor, *,
-                         n: int) -> torch.Tensor:
+                         n: int, group=None) -> torch.Tensor:
     """Compact FLGW matmul on attached compact weights. x (B, M),
     wc (G, capM, capN) -> y (B, n); columns no group holds stay zero.
 
@@ -279,7 +280,17 @@ def grouped_matmul_fused(x: torch.Tensor, wc: torch.Tensor,
     With a leading expert axis, x (E, B, M), wc (E, G, capM, capN) and
     plan leaves (E, G, cap) give y (E, B, n) from one ``fused_bmm``
     launch over the E·G tiles (:func:`fused_operands`).
+
+    ``group``: a process group of m ranks that split every tile's capN
+    output columns (the reference's ``"flgw_cap"`` rule, the paper's
+    multi-core split; m must divide capN): each rank computes its capN/m
+    columns of every tile in the one launch, from a copy of its slice of
+    the replicated ``wc``, and the compact outputs are all-gathered over
+    the group before the scatter. Every rank then holds the whole y.
     """
     xt, ids = fused_operands(x, row_ids, row_valid)
-    yc = fused_bmm(xt, wc.flatten(0, -3), ids)
+    if collectives.size(group) > 1:
+        wc = collectives.shard(wc, group, -1).contiguous()
+    yc = collectives.unshard(fused_bmm(xt, wc.flatten(0, -3), ids), group,
+                             -1)
     return scatter_cols(yc, col_ids, col_valid, n)

@@ -33,14 +33,22 @@ flops, bytes and collectives from XLA's cost analysis and HLO. Here:
   accounts it with ``roofline.flash_attention_cost`` in place of its
   plain version's counted cost, as the reference's ``attn_identity``
   variant does.
-* **Prefill and decode cells** run on one rank with the whole model
-  (``"mesh": "1"``): the port has no sharded serving step.
+* **Prefill and decode cells** run on rank 0 of the same fake mesh
+  through the sharded serving steps (``serving.steps.make_prefill_step``
+  and ``make_decode_step`` with ``mesh=``): the params laid out by
+  ``param_specs``, a decode cache by ``transformer.cache_specs``
+  (``init_cache(mesh=)``: KV sequence over ``model``), the rows split
+  over ``data`` only, and on the grouped path the replicated plans with
+  their compact weights (``transformer.serve_plans``), whose products
+  split their capN columns over ``model``. ``measure_serve`` without a
+  mesh keeps the whole model on one rank.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2_2b \\
         --shape train_4k [--flgw-groups 4 --flgw-path grouped] [--flash]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --widths 16
 
 Results go to ``build/dryrun/`` (gitignored). Runs on the CPU, no card.
 """
@@ -196,7 +204,8 @@ def measure_train(cfg, mesh, *, seq: int, batch: int,
                                     mesh=mesh, global_batch=batch,
                                     **(step_kw or {}))
     return _run_counted(cfg, lambda: step(state, _rows(inputs, lo, hi)),
-                        state_bytes=local, whole_state_bytes=whole)
+                        state_bytes=local, whole_state_bytes=whole,
+                        rows=hi - lo)
 
 
 def _input_specs(cfg, seq: int, batch: int, kind: str) -> dict:
@@ -236,26 +245,83 @@ def _run_counted(cfg, fn, **extra) -> dict:
 
 
 def measure_serve(cfg, *, seq: int, batch: int, kind: str,
-                  banded: bool = False) -> dict:
-    """One prefill or one decode step of ``cfg`` with the whole model on
-    one rank, on ``meta`` (the port has no sharded serving step)."""
+                  banded: bool = False, mesh=None, new_tokens: int = 1,
+                  rules=None) -> dict:
+    """One prefill or one decode step of ``cfg`` on ``meta``: with the
+    whole model on one rank, or on a ``(data, model)`` ``mesh`` (a fake
+    process group over it) with rank 0's shards and rows. A decode step
+    takes ``new_tokens`` tokens a row against a cache of ``seq`` slots.
+    The state bytes are the params', with a decode cache's (or on a mesh
+    a prefill's plans) beside them."""
     from repro_torch.models import transformer
     from repro_torch.serving import steps as serving_steps
     from repro_torch.train import state as state_lib
-    params = state_lib.abstract_state(cfg).params
-    pbytes = _nbytes(params)
-    inputs = _input_specs(cfg, seq, batch, kind)
+    params = _abstract_params(cfg)
+    lo, hi, kw = 0, batch, {}
+    if mesh is not None:
+        params = partition.distribute(params, partition.constrained_shardings(
+            state_lib.param_specs(cfg), params, mesh, rules), mesh)
+        lo, hi, _ = partition.batch_rows(mesh, batch, rules, spread=False)
+        kw = dict(mesh=mesh, global_batch=batch)
+    local, whole = partition.state_bytes(params)
     if kind == "prefill":
-        step = serving_steps.make_prefill_step(cfg, banded=banded)
-        return _run_counted(cfg, lambda: step(params, inputs),
-                            state_bytes=pbytes, whole_state_bytes=pbytes)
-    cache = transformer.init_cache(cfg, batch, seq, params=params)
-    cbytes = _nbytes(cache)
-    step = serving_steps.make_decode_step(cfg, banded=banded)
-    return _run_counted(
-        cfg, lambda: step(params, cache, inputs["tokens"],
-                          inputs["positions"]),
-        state_bytes=pbytes + cbytes, whole_state_bytes=pbytes + cbytes)
+        inputs = _rows(_input_specs(cfg, seq, batch, kind), lo, hi)
+        plans = None
+        if mesh is not None:
+            plans = transformer.serve_plans(params, cfg) or None
+            local, whole = (a + b for a, b in zip(
+                (local, whole), partition.state_bytes(plans or {})))
+        # trust: the plans are this cell's own (a certification branches
+        # on the signature's value, which meta tensors do not hold)
+        step = serving_steps.make_prefill_step(cfg, banded=banded,
+                                               plan_policy="trust", **kw)
+        return _run_counted(cfg, lambda: step(params, inputs, plans),
+                            state_bytes=local, whole_state_bytes=whole,
+                            rows=hi - lo)
+    cache = transformer.init_cache(cfg, batch, seq, params=params, mesh=mesh,
+                                   device="meta")
+    local, whole = (a + b for a, b in zip((local, whole),
+                                          partition.state_bytes(cache)))
+    tokens = torch.empty((hi - lo, new_tokens), dtype=torch.int32,
+                         device="meta")
+    step = serving_steps.make_decode_step(cfg, banded=banded, **kw)
+    return _run_counted(cfg, lambda: step(params, cache, tokens, tokens),
+                        state_bytes=local, whole_state_bytes=whole,
+                        rows=hi - lo)
+
+
+def _abstract_params(cfg) -> dict:
+    """``transformer.lm_init``'s params as ``meta`` tensors (the init
+    runs under a ``FakeTensorMode``: nothing allocated, nothing drawn)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models import transformer
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = transformer.lm_init(torch.Generator(), cfg)
+    return partition.map_tree(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), fake)
+
+
+def compact_widths(cfg, model: int) -> list[dict]:
+    """Each FLGW projection's compact tile on ``cfg``'s grouped path: its
+    capN (output) columns and a model rank's share of them on a model
+    axis ``model`` wide (capN / model where it divides, the reference's
+    ``"flgw_cap"`` rule; else the whole tile on every rank), and whether
+    that width is a multiple of 8: a bf16 ``fused_bmm`` call takes its
+    wgmma or streaming kernel only then, else the wmma kernel."""
+    from repro_torch.core import grouped
+    from repro_torch.core.flgw import FLGWConfig
+    from repro_torch.kernels.tiling import compute_cap
+    slack = FLGWConfig(groups=cfg.flgw_groups,
+                       path=cfg.flgw_path).capacity_slack
+    out = []
+    for path, p in grouped.iter_flgw_layers(_abstract_params(cfg)):
+        m, n = p["w"].shape[-2:]
+        cap = compute_cap(n, cfg.flgw_groups, slack)
+        cols = cap // model if cap % model == 0 else cap
+        out.append(dict(path="/".join(path), m=m, n=n, cap_n=cap,
+                        split=cap % model == 0, cols=cols,
+                        wgmma_or_streaming=cols % 8 == 0))
+    return out
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
@@ -265,48 +331,49 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              optimizer: str = "adamw", mesh_shape: Optional[tuple] = None,
              cfg=None, seq: Optional[int] = None,
              batch: Optional[int] = None,
-             step_kw: Optional[dict] = None) -> dict:
-    """Dry-run one cell: a train cell on rank 0 of the production mesh
-    (a fake group of 256 ranks, 512 with ``multi_pod``) or of a
-    ``(data, model)`` mesh of ``mesh_shape``, a prefill or decode cell on
-    one rank. ``cfg``, ``seq`` and ``batch`` override the registry's
-    (a cut config), ``step_kw`` goes to ``make_train_step``. Returns (and
-    with ``save`` writes under ``build/dryrun/``) its counts and roofline
-    terms."""
+             step_kw: Optional[dict] = None, new_tokens: int = 1) -> dict:
+    """Dry-run one cell on rank 0 of the production mesh (a fake group of
+    256 ranks, 512 with ``multi_pod``) or of a ``(data, model)`` mesh of
+    ``mesh_shape``: a train step, a prefill, or a decode step of
+    ``new_tokens`` tokens a row. ``cfg``, ``seq`` and ``batch`` override
+    the registry's (a cut config), ``step_kw`` goes to
+    ``make_train_step``. Returns (and with ``save`` writes under
+    ``build/dryrun/``) its counts and roofline terms."""
     cell_seq, cell_batch, kind = registry.SHAPES[shape_name]
     seq, batch = seq or cell_seq, batch or cell_batch
     if cfg is None:
         cfg = make_cfg(arch, flgw_groups=flgw_groups, flgw_path=flgw_path,
                        flash=flash, extra=extra)
     t0 = time.time()
-    if kind == "train":
-        if mesh_shape is not None:
-            world = mesh_shape[0] * mesh_shape[1]
-            mesh_name = f"{mesh_shape[0]}x{mesh_shape[1]}"
-        else:
-            world = 512 if multi_pod else 256
-            mesh_name = "2x16x16" if multi_pod else "16x16"
-        with fake_world(world):
-            mesh = (mesh_lib.make_mesh_from_devices(model=mesh_shape[1])
-                    if mesh_shape is not None
-                    else mesh_lib.make_production_mesh(multi_pod=multi_pod))
+    if mesh_shape is not None:
+        world = mesh_shape[0] * mesh_shape[1]
+        mesh_name = f"{mesh_shape[0]}x{mesh_shape[1]}"
+    else:
+        world = 512 if multi_pod else 256
+        mesh_name = "2x16x16" if multi_pod else "16x16"
+    with fake_world(world):
+        mesh = (mesh_lib.make_mesh_from_devices(model=mesh_shape[1])
+                if mesh_shape is not None
+                else mesh_lib.make_production_mesh(multi_pod=multi_pod))
+        if kind == "train":
             cost = measure_train(cfg, mesh, seq=seq, batch=batch,
                                  optimizer=optimizer, banded=banded,
                                  rules=rules, step_kw=step_kw)
-        chips = world
-    else:
-        cost = measure_serve(cfg, seq=seq, batch=batch, kind=kind,
-                             banded=banded)
-        chips, mesh_name = 1, "1"
+        else:
+            cost = measure_serve(cfg, seq=seq, batch=batch, kind=kind,
+                                 banded=banded, mesh=mesh,
+                                 new_tokens=new_tokens, rules=rules)
+    chips = world
     if flash and kind in ("train", "prefill"):
-        # the fused cores of the whole batch, spread over the chips that
-        # split its rows
+        # the fused cores of the whole batch, spread over the row blocks
+        # the ranks hold (a serving step's model ranks share their rows)
         fc = roofline.flash_attention_cost(cfg, batch=batch, seq=seq,
                                            kind=kind)
-        cost["flops"] += fc["flops"] / chips
-        cost["bytes"] += fc["bytes"] / chips
+        blocks = batch // cost["rows"]
+        cost["flops"] += fc["flops"] / blocks
+        cost["bytes"] += fc["bytes"] / blocks
         cost["flash_analytic"] = fc
-    n_tokens = batch * seq if kind != "decode" else batch
+    n_tokens = batch * seq if kind != "decode" else batch * new_tokens
     mf = roofline.model_flops(cfg, n_tokens,
                               kind="train" if kind == "train" else "serve")
     if flgw_groups > 1 and flgw_path == "grouped":
@@ -320,7 +387,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "chips": chips, "flgw_groups": flgw_groups,
         "flgw_path": flgw_path if flgw_groups > 1 else "dense",
         "banded": banded, "flash": flash, "seq": seq, "batch": batch,
-        "tokens": n_tokens, "wall_s": round(time.time() - t0, 2),
+        "tokens": n_tokens, "rows_per_chip": cost["rows"],
+        "wall_s": round(time.time() - t0, 2),
         "state_bytes_per_chip": cost["state_bytes"],
         "state_bytes_whole": cost["whole_state_bytes"],
         "cost": {"flops_per_chip": cost["flops"],
@@ -370,7 +438,23 @@ def main(argv=None) -> int:
     ap.add_argument("--optimizer", default="adamw",
                     choices=("adamw", "rmsprop"))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--widths", type=int, default=0, metavar="MODEL",
+                    help="print each FLGW projection's compact columns a "
+                         "rank on a model axis MODEL wide (G=4 grouped on "
+                         "every target; --arch or every arch) and exit")
     args = ap.parse_args(argv)
+    if args.widths:
+        for arch in [args.arch] if args.arch else registry.ARCH_IDS:
+            cfg = make_cfg(arch, flgw_groups=4, flgw_path="grouped",
+                           extra=dict(flgw_targets=("mlp", "attn", "moe",
+                                                    "ssm")))
+            for w in compact_widths(cfg, args.widths):
+                route = "wgmma/streaming" if w["wgmma_or_streaming"] \
+                    else "wmma"
+                print(f"{arch:<18} {w['path']:<28} {w['m']:>6} x {w['n']:>6}"
+                      f" capN {w['cap_n']:>6} -> {w['cols']:>6} a rank "
+                      f"({'split' if w['split'] else 'whole'}; {route})")
+        return 0
     if not args.all and args.arch is None:
         ap.error("give --arch (and --shape) or --all")
 
@@ -409,9 +493,8 @@ def main(argv=None) -> int:
     if failures:
         print(f"\n{len(failures)} failures")
         return 1
-    print(f"\nall {len(cells)} cells passed (train on the "
-          f"{'2x16x16' if args.multi_pod else '16x16'} mesh of fake ranks, "
-          f"serve on 1)")
+    print(f"\nall {len(cells)} cells passed (on rank 0 of the "
+          f"{'2x16x16' if args.multi_pod else '16x16'} mesh of fake ranks)")
     return 0
 
 

@@ -280,19 +280,26 @@ def make_mesh_from_devices(ranks=None, *, model: int = 0,
     return _mesh((n // model, model), ("data", "model"), ranks, device_type)
 
 
-def describe_lm_mesh(mesh, *, batch: int, state=None) -> str:
+def describe_lm_mesh(mesh, *, batch: int, state=None, cache=None) -> str:
     """The LM mesh's line: its shape and axes, this rank's rows of the
     global batch and, given a sharded ``state``, its bytes on this rank
-    against the whole state's."""
+    against the whole state's. Given a decode ``cache``
+    (``transformer.init_cache(mesh=)``), the rows are a serving step's
+    (split over ``data`` only, ``partition.batch_rows(spread=False)``)
+    and the line adds the cache's bytes on this rank against the whole
+    cache's."""
     sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
     d, m = sizes["data"], sizes["model"]
-    lo, hi, split = partition.batch_rows(mesh, batch)
+    lo, hi, split = partition.batch_rows(mesh, batch, spread=cache is None)
     line = (f"lm mesh ({d}x{m}): axes (data, model) over {d * m} "
             f"device(s); rows {lo}:{hi} of {batch} (split over "
             f"{', '.join(split) or 'none'})")
     if state is not None:
         local, whole = partition.state_bytes(state)
         line += f"; state {local} of {whole} bytes on this rank"
+    if cache is not None:
+        local, whole = partition.state_bytes(cache)
+        line += f"; cache {local} of {whole} bytes on this rank"
     return line
 
 

@@ -16,7 +16,11 @@ in the JAX package:
 * decode: one token per step written into a ring buffer of length
   ``min(max_seq, window)`` and attended with the plain core (plain
   ``einsum`` in JAX too). The KV buffers are updated in place: the
-  returned cache shares them with the one passed in.
+  returned cache shares them with the one passed in. On a serving mesh
+  the ring may be split by slots over the ``model`` ranks
+  (``cache["seq_group"]``): each rank writes the tokens whose slots it
+  holds and scores its slots, and the partials combine by log-sum-exp
+  over the group (flash-decoding's split, :func:`_attend_split`).
 
 Cross-attention (``kv_x``, whisper's decoder): q from ``x``, k and v
 projected from ``kv_x`` (the encoder's output), neither rotated, no
@@ -33,6 +37,7 @@ from repro_torch.core.flgw import FLGWConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import (dense_init, dense_specs, plan_of, proj,
                                        rope, softcap)
+from repro_torch.sharding import collectives
 
 NEG_INF = -2.3819763e38
 
@@ -93,20 +98,55 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bgqst,btgd->bsgqd", probs, v)
 
 
+def _write_slots(buf: torch.Tensor, loc: torch.Tensor,
+                 vals: torch.Tensor) -> None:
+    """Write token j of ``vals`` (B, s, ...) into slot ``loc[j]`` of this
+    rank's ring shard ``buf`` (B, Tl, ...) where ``0 <= loc[j] < Tl``,
+    in place; the other tokens' slots are on other ranks. ``loc`` is a
+    run of consecutive slots, so within each run of at most Tl tokens
+    the slots taken mod Tl are distinct: a token held elsewhere rewrites
+    its own slot's value, and no index repeats (no host sync, no race)."""
+    tl = buf.shape[1]
+    for c0 in range(0, loc.shape[0], tl):
+        at = loc[c0:c0 + tl]
+        own = (at >= 0) & (at < tl)
+        at = torch.remainder(at, tl)
+        own = own.view(1, -1, *(1,) * (buf.dim() - 2))
+        buf.index_copy_(1, at, torch.where(
+            own, vals[:, c0:c0 + tl].to(buf.dtype), buf.index_select(1, at)))
+
+
 def _decode(k, v, cache, positions, b, s, window, causal, prefix_len):
     """Write this step's k/v into the ring buffers (in place) and return
-    (k buffer, v buffer, mask, new pos)."""
+    (k buffer, v buffer, mask, new pos).
+
+    ``cache["seq_group"]`` (a serving step on a mesh): the ring's T slots
+    are split over that group's m ranks, rank r holding slots ``[r·T/m,
+    (r+1)·T/m)`` (``transformer.cache_specs``' ``"seq_kv"``); each token
+    is written by the rank that owns its slot, and the mask covers this
+    rank's slots only."""
     pos = cache["pos"]
     ck, cv = cache["k"], cache["v"]
-    t = ck.shape[1]
-    idx = torch.arange(t, device=ck.device)
+    group = cache.get("seq_group")
+    n = collectives.size(group)
+    tl = ck.shape[1]
+    t = tl * n
+    if n == 1:
+        idx = torch.arange(t, device=ck.device)
+    else:
+        r0 = collectives.rank(group) * tl
+        idx = r0 + torch.arange(tl, device=ck.device)
     if pos.dim() == 0:
         # lockstep cache: every batch row shares one stream offset; the
         # write start clamps so the s tokens fit, as dynamic_update_slice
         start = torch.clamp(pos % t, max=t - s)
         at = start + torch.arange(s, device=ck.device)
-        ck.index_copy_(1, at, k.to(ck.dtype))
-        cv.index_copy_(1, at, v.to(cv.dtype))
+        if n == 1:
+            ck.index_copy_(1, at, k.to(ck.dtype))
+            cv.index_copy_(1, at, v.to(cv.dtype))
+        else:      # the run may span two ranks' shards
+            _write_slots(ck, at - r0, k)
+            _write_slots(cv, at - r0, v)
         # absolute position held by each ring slot after the write: the
         # largest p <= pos with p == idx (mod t); negative: never written
         k_pos = (pos - torch.remainder(pos - idx, t))[None]
@@ -119,12 +159,58 @@ def _decode(k, v, cache, positions, b, s, window, causal, prefix_len):
                 "cache-free path one token at a time")
         rows = torch.arange(b, device=ck.device)
         write = pos % t
-        ck[rows, write] = k[:, 0].to(ck.dtype)
-        cv[rows, write] = v[:, 0].to(cv.dtype)
+        if n == 1:
+            ck[rows, write] = k[:, 0].to(ck.dtype)
+            cv[rows, write] = v[:, 0].to(cv.dtype)
+        else:      # each row's slot on its owner; the others keep theirs
+            loc = write - r0
+            own = ((loc >= 0) & (loc < tl))[:, None, None]
+            loc = loc.clamp(0, tl - 1)
+            ck[rows, loc] = torch.where(own, k[:, 0].to(ck.dtype),
+                                        ck[rows, loc])
+            cv[rows, loc] = torch.where(own, v[:, 0].to(cv.dtype),
+                                        cv[rows, loc])
         k_pos = pos[:, None] - torch.remainder(pos[:, None] - idx[None], t)
     mask = _mask(positions, k_pos, causal=causal, window=window,
                  prefix_len=prefix_len, k_valid=k_pos >= 0)
     return ck, cv, mask, pos + s
+
+
+def _lse_combine(o: torch.Tensor, mx: torch.Tensor, total: torch.Tensor,
+                 group) -> torch.Tensor:
+    """Flash-decoding's combine: every rank's partial attention over its
+    KV slots, ``o`` (..., D) = sum_j exp(l_j - mx) v_j, its max logit
+    ``mx`` (..., 1) and ``total`` (..., 1) = sum_j exp(l_j - mx), are
+    all-gathered over ``group`` in one collective and rescaled to the
+    largest max: the softmax-weighted V over every rank's slots, the same
+    on every rank."""
+    d = o.shape[-1]
+    parts = collectives.all_gather(torch.cat([o, mx, total], -1)[None],
+                                   group, 0)
+    top = parts[..., d:d + 1].amax(0)
+    scale = torch.exp(parts[..., d:d + 1] - top)
+    return (parts[..., :d] * scale).sum(0) / (parts[..., d + 1:] * scale
+                                              ).sum(0)
+
+
+def _attend_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor, cfg, group) -> torch.Tensor:
+    """:func:`_attend` over a KV ring split over ``group``: this rank's
+    slots give a partial (max logit, sum, weighted V) in float32, which
+    :func:`_lse_combine` combines over the ranks. Returns (B, Sq, G, Q,
+    D) in q's dtype on every rank."""
+    scale = cfg.head_dim ** -0.5
+    logits = torch.einsum("bsgqd,btgd->bgqst", q.float(), k.float()) * scale
+    if cfg.attn_softcap > 0:
+        logits = softcap(logits, cfg.attn_softcap)
+    if mask.dim() == 2:
+        mask = mask[None]
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    mx = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - mx)
+    o = torch.einsum("bgqst,btgd->bgqsd", p, v.float())
+    out = _lse_combine(o, mx, p.sum(-1, keepdim=True), group)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
 def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
@@ -174,7 +260,9 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     if cache is not None:
         ck, cv, mask, new_pos = _decode(k, v, cache, positions, b, s, window,
                                         causal, prefix_len)
-        out = _attend(q, ck, cv, mask, cfg)
+        group = cache.get("seq_group")
+        out = (_attend(q, ck, cv, mask, cfg) if collectives.size(group) == 1
+               else _attend_split(q, ck, cv, mask, cfg, group))
         return out_proj(out), {"k": ck, "v": cv, "pos": new_pos}
 
     if flash and prefix_len == 0 and causal and kv_x is None:

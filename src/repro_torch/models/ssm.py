@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.core.flgw import FLGWConfig
 from repro_torch.models.layers import (dense_init, dense_specs, plan_of, proj,
                                        rmsnorm)
+from repro_torch.sharding import collectives
 
 
 def ssm_init(generator: torch.Generator, cfg, *,
@@ -137,7 +138,12 @@ def ssm(p: dict, x: torch.Tensor, cfg, *, cache: Optional[dict] = None,
 
     ``cache``: ``{"state": (B, H, P, N) float32, "conv": (B, W-1,
     d_inner + 2N)}``, one decode step (S = 1) written into both in place;
-    None runs the chunked prefill over ``min(chunk, S)``-token chunks.
+    None runs the chunked prefill over ``min(chunk, S)``-token chunks. On
+    a serving mesh (``transformer.cache_specs``) ``state`` may hold this
+    rank's heads of ``cache["heads_group"]``'s split and ``conv`` its
+    channels of ``cache["conv_group"]``'s: each rank updates its own,
+    and the conv's output channels and the heads' y are all-gathered
+    (``collectives.unshard``).
     ``plans``: this layer's entry of a cached PlanState, GroupPlans for
     the ``in``/``out`` projections (None: the grouped path encodes per
     call)."""
@@ -159,15 +165,24 @@ def ssm(p: dict, x: torch.Tensor, cfg, *, cache: Optional[dict] = None,
             raise ValueError(f"an SSM decode step takes one token (got {s}); "
                              "a prompt goes through the cache-free prefill "
                              "or one token a step")
-        # the conv ring and an O(1) state update
-        window = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)], 1)
+        # the conv ring and an O(1) state update; on a serving mesh the
+        # ring holds this rank's channels and the state its heads
+        cg, hg = cache.get("conv_group"), cache.get("heads_group")
+        window = torch.cat([cache["conv"], collectives.shard(
+            xbc, cg, -1).to(cache["conv"].dtype)], 1)
         xbc_t = F.silu(torch.einsum(
-            "bwc,wc->bc", window.float(), p["conv_w"].float()
+            "bwc,wc->bc", window.float(),
+            collectives.shard(p["conv_w"], cg, -1).float()
         ).to(xbc.dtype))
+        # B and C serve every head: the channels whole on every rank
+        xbc_t = collectives.unshard(xbc_t, cg, -1)
         xh, bm, cm = torch.split(xbc_t, [di, n, n], dim=-1)
         xh = xh.reshape(b, h, hd)
-        hstate, y = ssm_step(cache["state"], xh, bm.float(), cm.float(),
-                             dt[:, 0], a_neg)
+        hstate, y = ssm_step(cache["state"], collectives.shard(xh, hg, 1),
+                             bm.float(), cm.float(),
+                             collectives.shard(dt[:, 0], hg, 1),
+                             collectives.shard(a_neg, hg, 0))
+        y = collectives.unshard(y, hg, 1)
         cache["state"].copy_(hstate)
         cache["conv"].copy_(window[:, 1:])
         y, xh = y[:, None], xh[:, None]                       # (B, 1, H, P)

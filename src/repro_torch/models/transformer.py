@@ -41,6 +41,7 @@ from repro_torch.models.layers import (embed, embed_init, embed_specs, mlp,
                                        mlp_init, mlp_specs, plan_of, rmsnorm,
                                        rmsnorm_init, rmsnorm_specs, softcap,
                                        unembed)
+from repro_torch.sharding import partition
 
 _UNPORTED = "is not ported to repro_torch yet (ROADMAP, Queue 1)"
 
@@ -272,23 +273,30 @@ def _unstack(tree, n: int) -> list:
 
 def _slot_apply(p, x, positions, cfg: ModelConfig, slot: SlotSpec, *,
                 cache=None, pos=None, encoder_out=None, prefix_len=0,
-                q_chunk=512, banded=False, moe_dropless=False, plans=None):
+                q_chunk=512, banded=False, moe_dropless=False, plans=None,
+                cache_split=None):
     """One layer -> (x, aux), aux the MoE's load-balancing loss (None
     for an MLP slot or none); a decode step writes ``cache``'s KV buffers
     or SSM state and conv ring in place. A MoE slot is dropless whenever
     a cache is given. A cross slot attends ``encoder_out`` between its
-    mixer and its FFN."""
+    mixer and its FFN. ``cache_split``: the slot's entry of
+    :func:`cache_groups` (a mesh's cache shards), else None."""
+    split = cache_split or {}
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if slot.mixer == "attn":
         c = None if cache is None else {"k": cache["k"], "v": cache["v"],
-                                        "pos": pos}
+                                        "pos": pos,
+                                        "seq_group": split.get("k")}
         h, _ = attn_mod.attention(
             p["mixer"], h, positions, cfg, window=slot.window,
             causal=slot.causal, prefix_len=prefix_len, cache=c,
             q_chunk=q_chunk, banded=banded, flash=cfg.use_flash,
             flgw=_flgw_cfg(cfg, "attn"), plans=plan_of(plans, "mixer"))
     else:
-        h = ssm_mod.ssm(p["mixer"], h, cfg, cache=cache,
+        c = None if cache is None else dict(
+            cache, heads_group=split.get("state"),
+            conv_group=split.get("conv"))
+        h = ssm_mod.ssm(p["mixer"], h, cfg, cache=c,
                         chunk=cfg.ssm_chunk, flgw=_flgw_cfg(cfg, "ssm"),
                         plans=plan_of(plans, "mixer"))
     x = x + h
@@ -325,11 +333,11 @@ def _gathered_slot_apply(p, x, positions, cfg: ModelConfig, slot: SlotSpec,
 
 def _apply_blocks(blocks, cfg: ModelConfig, pattern, n_blocks: int, x,
                   positions, *, block_plans=None, caches=None, remat=False,
-                  gather=None, path=("blocks",), **kw):
+                  gather=None, path=("blocks",), cache_split=None, **kw):
     """The stack of ``n_blocks`` blocks of ``pattern``'s slots over x ->
     (x, aux summed over the MoE slots). ``caches``: the decode caches'
-    ``blocks``; ``gather``, ``path``: see ``lm_apply``; ``kw`` goes to
-    every ``_slot_apply``."""
+    ``blocks``; ``gather``, ``path``, ``cache_split``: see ``lm_apply``;
+    ``kw`` goes to every ``_slot_apply``."""
     aux = torch.zeros((), device=x.device)
     per_block = _unstack(blocks, n_blocks)
     for i in range(n_blocks):
@@ -338,6 +346,8 @@ def _apply_blocks(blocks, cfg: ModelConfig, pattern, n_blocks: int, x,
             name = f"slot{j}"
             c = None if caches is None else _index(caches[name], i)
             kw_j = dict(kw, cache=c, plans=plan_of(block_pl, name))
+            if cache_split is not None:
+                kw_j["cache_split"] = cache_split.get(name)
             if gather is not None:
                 kw_j.update(gather=gather, path=(*path, name))
             if remat:
@@ -360,7 +370,7 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
              return_hidden: bool = False, unroll_blocks: bool = False,
              attn_identity: bool = False, plans=None,
              patch_embeds=None, frames=None, moe_dropless: bool = False,
-             ssd_unroll: bool = False, gather=None):
+             ssd_unroll: bool = False, gather=None, cache_split=None):
     """Forward pass. Returns (logits, aux_loss, new_cache).
 
     tokens, positions: (B, S) integer. ``patch_embeds``: (B, P, d) VLM
@@ -383,11 +393,15 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
     load-balancing losses summed over the stack (0 without MoE).
     ``moe_dropless``: every expert takes t·k rows, so no token is dropped
     (the serving prefill); a decode step (a cache) is dropless always.
-    ``gather(tree, path, lead)``: a mesh step's (``repro_torch.train.step``),
+    ``gather(tree, path, lead)``: a mesh step's (``partition.gatherer``),
     called on each layer slot's params, one block's slice of the stacked
     shards at ``path`` (``lead=1``: the block axis is gone), just before
     the slot computes and inside its remat; it returns them whole. The
-    top-level leaves (``embed``, the norms) the caller passes whole.
+    top-level leaves (``embed``, the norms) the caller passes whole. A
+    serving step on a mesh passes ``cache`` as this rank's local shards
+    with ``cache_split`` (:func:`cache_groups` of the sharded cache): the
+    groups that split each slot's KV sequence, SSM heads and conv
+    channels.
     """
     _check_supported(cfg)
     if unroll_blocks or attn_identity or ssd_unroll:
@@ -432,7 +446,7 @@ def lm_apply(params, cfg: ModelConfig, tokens, positions, *, cache=None,
         block_plans=plans.get("blocks"),
         caches=None if cache is None else cache["blocks"],
         remat=remat and cache is None, gather=gather, pos=pos,
-        encoder_out=encoder_out,
+        cache_split=cache_split, encoder_out=encoder_out,
         prefix_len=prefix_len, q_chunk=q_chunk, banded=banded,
         moe_dropless=moe_dropless)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -462,8 +476,51 @@ def _cache_len(slot: SlotSpec, max_seq: int) -> int:
     return max_seq
 
 
+def serve_plans(params, cfg: ModelConfig) -> planenc.PlanState:
+    """The serving PlanState of ``params``: one encode with the compact
+    weights attached (:func:`encode_plans`, ``attach_compact``). On a
+    mesh (DTensor params) every rank encodes the same plans from the
+    gathered grouping matrices and gathers each FLGW layer's weight
+    whole for its own ``wc`` only, so the plans come out whole and equal
+    on every rank. The empty state off the grouped path."""
+    if partition.mesh_of(params) is None:
+        state = encode_plans(params, cfg)
+        return planenc.attach_compact(state, params) if state.plans \
+            else state
+    if cfg.flgw_groups <= 1 or cfg.flgw_path != "grouped":
+        return planenc.empty_state(partition.local(
+            params["embed"]["embedding"]).device)
+    view = partition.gather_grouping(params, weights=True)
+    return planenc.attach_compact(encode_plans(view, cfg), view)
+
+
+def cache_shardings(cfg: ModelConfig, cache: dict, mesh, *,
+                    per_slot: bool = False) -> dict:
+    """The placements of ``cache``'s leaves on ``mesh`` (a tree of its
+    structure): :func:`cache_specs` resolved by
+    ``partition.constrained_shardings`` on the leaves' shapes, so a mesh
+    axis that does not divide a dim is dropped, that dim replicated (a
+    KV ring whose ``model`` width does not divide it, ``long_500k``'s
+    batch of 1 on ``data``). ``cache`` may hold ``meta`` tensors."""
+    specs = cache_specs(cfg, per_slot=per_slot)
+    if not cache.get("plans"):
+        specs["plans"] = ()
+    return partition.constrained_shardings(specs, cache, mesh)
+
+
+def cache_groups(cache: dict) -> dict:
+    """``{slot: {leaf: group}}`` of a mesh cache's ``blocks`` (DTensors):
+    the process group that splits each KV buffer's sequence dim, each
+    SSM state's heads and each conv ring's channels, None where that dim
+    is whole; what ``lm_apply(cache_split=)`` takes."""
+    dims = {"k": 2, "v": 2, "state": 2, "conv": 3}
+    return {name: {leaf: partition.split_group(x, dims[leaf])
+                   for leaf, x in c.items()}
+            for name, c in cache["blocks"].items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, params=None,
-               per_slot: bool = False, device=None) -> dict:
+               per_slot: bool = False, device=None, mesh=None) -> dict:
     """Decode caches, stacked (n_blocks, ...) per slot: an attention
     slot's KV ring buffers ``k``/``v`` in ``cfg.dtype``, an SSM slot's
     recurrent ``state`` (float32) and ``conv`` ring (``cfg.dtype``); an
@@ -478,11 +535,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, params=None,
     ``cache["pos"]`` is a (batch,) vector, one stream offset per row (the
     continuous-batching layout), else a scalar. ``device`` defaults to
     the params' device, else the card.
+
+    ``mesh``: a ``(data, model)`` DeviceMesh (a serving mesh; ``params``
+    then DTensors, as ``partition.distribute`` places them): every leaf
+    a DTensor placed by :func:`cache_shardings`, each rank allocating
+    only its shard: KV buffers' batch over ``data`` and sequence over
+    ``model``, SSM states' heads and conv rings' channels over
+    ``model``, ``encoder_out`` and a per-slot ``pos`` over ``data``, the
+    scalar ``pos`` and the plans (:func:`serve_plans`, whole on every
+    rank) replicated.
     """
     _check_supported(cfg)
     if device is None:
-        device = (params["embed"]["embedding"].device if params is not None
-                  else resolve_device())
+        device = (partition.local(params["embed"]["embedding"]).device
+                  if params is not None else resolve_device())
+    if mesh is not None:
+        shapes = init_cache(cfg, batch, max_seq, per_slot=per_slot,
+                            device="meta")
+        cache = partition.map_tree(
+            lambda x, pl: partition.zeros(x.shape, x.dtype, pl, mesh,
+                                          device),
+            shapes, cache_shardings(cfg, shapes, mesh, per_slot=per_slot))
+        plans = () if params is None else serve_plans(params, cfg)
+        cache["plans"] = partition.replicate(plans, mesh) if plans else ()
+        return cache
     dtype = cfg.dtype
     nb = cfg.n_blocks
     blocks = {}

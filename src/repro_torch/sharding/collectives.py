@@ -19,6 +19,13 @@ all_gather, broadcast, reduce, reduce_scatter_tensor and
 all_to_all_single on an H100's tensors (``chip_smoke.py`` phase 16), so
 nothing is staged through host memory by the port.
 
+Serving on that mesh (``repro_torch.serving.steps``) gathers the weights
+the same way, without a backward, and splits work over ``model`` with
+:func:`shard` and :func:`all_gather`: the compact products' output
+columns, a decode cache's sequence slots (each rank's partial
+attention all-gathered and combined by log-sum-exp), an SSM state's
+heads and conv channels; :func:`unshard` puts the parts back together.
+
 The LM on a ``(data, model)`` mesh (``repro_torch.train.step``) keeps
 each weight as its shards and computes with it whole: :func:`gather_shards`
 all-gathers a leaf in the forward and reduce-scatters its float32
@@ -66,6 +73,26 @@ def active(group) -> bool:
 def size(group) -> int:
     """The ranks of ``group`` (1 when it is not active)."""
     return dist.get_world_size(group) if active(group) else 1
+
+
+def rank(group) -> int:
+    """This rank's index within ``group`` (0 when it is not active)."""
+    return dist.get_rank(group) if active(group) else 0
+
+
+def shard(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's chunk of ``x`` along ``dim`` among ``group``'s equal
+    chunks, in rank order (a view; ``x`` itself when ``group`` is not
+    active). :func:`all_gather` along ``dim`` is its inverse."""
+    n = size(group)
+    return x if n == 1 else x.chunk(n, dim)[rank(group)]
+
+
+def unshard(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The inverse of :func:`shard`: every rank's chunk concatenated
+    along ``dim`` (:func:`all_gather`); ``x`` itself on a group of one
+    rank or none, with no collective."""
+    return x if size(group) == 1 else all_gather(x, group, dim)
 
 
 def all_reduce(tensor: torch.Tensor, group) -> torch.Tensor:

@@ -341,21 +341,78 @@ def gather_to_first(x: DTensor):
     return part.cpu()
 
 
-def gather_grouping(params) -> dict:
+def gather_grouping(params, weights: bool = False) -> dict:
     """The FLGW grouping matrices of a (sharded) param tree, whole: a tree
     of the params' nesting holding only each FLGW layer's ``ig`` and
-    ``og``, which is what a plan encode reads."""
+    ``og``, which is what a plan encode reads. ``weights=True`` also
+    keeps each layer's ``w`` as it is (a shard: the compact-weight
+    attach gathers one layer's at a time, ``core.grouped.attach_compact``)."""
     out = {}
     for name, p in params.items():
         if not isinstance(p, dict):
             continue
         if "ig" in p:
             out[name] = gather({"ig": p["ig"], "og": p["og"]})
+            if weights:
+                out[name]["w"] = p["w"]
         else:
-            sub = gather_grouping(p)
+            sub = gather_grouping(p, weights)
             if sub:
                 out[name] = sub
     return out
+
+
+def whole(x):
+    """``x`` whole on every rank: a DTensor gathered (:func:`gather`),
+    anything else as it is."""
+    return gather(x) if isinstance(x, DTensor) else x
+
+
+def gatherer(params, scale: float = 1.0):
+    """The ``gather(tree, path, lead=0)`` hook of ``transformer.lm_apply``
+    for a tree of DTensors: the subtree of ``params`` at ``path``, given
+    as this rank's local shards (``lead`` leading dims sliced off), built
+    whole by each leaf's placements through
+    ``collectives.gather_shards``, whose backward reduce-scatters each
+    gradient onto the shards times ``scale`` (a training step's 1 / the
+    mesh's ranks; a serving step records no gradient)."""
+    def gather_hook(tree, path, lead=0):
+        node = params
+        for k in path:
+            node = node[k]
+        return map_tree(lambda x, d: collectives.gather_shards(
+            x, layout(d, lead), scale), tree, node)
+    return gather_hook
+
+
+def split_group(x: DTensor, dim: int):
+    """The process group of the one mesh dimension that shards tensor
+    dimension ``dim`` of ``x`` (None when none does, or ``x`` is not a
+    DTensor). Two mesh dimensions on one tensor dimension raise: the
+    decode paths that read it split a dimension over one group."""
+    if not isinstance(x, DTensor):
+        return None
+    groups = [g for g, d in layout(x) if d == dim]
+    if len(groups) > 1:
+        raise ValueError(f"dim {dim} of a {tuple(x.shape)} leaf is split "
+                         f"over {len(groups)} mesh dimensions; one expected")
+    return groups[0] if groups else None
+
+
+def zeros(shape, dtype, placement, mesh, device) -> DTensor:
+    """A DTensor of zeros of the global ``shape`` on ``mesh``, each rank
+    allocating only its shard under ``placement`` (even shards)."""
+    local = list(shape)
+    for n, p in zip(tuple(mesh.shape), placement):
+        if isinstance(p, Shard):
+            if local[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
+                                 f"divide over {n} ranks")
+            local[p.dim] //= n
+    return DTensor.from_local(
+        torch.zeros(local, dtype=dtype, device=device), mesh,
+        list(placement), run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def state_bytes(tree) -> tuple[int, int]:
@@ -370,8 +427,8 @@ def state_bytes(tree) -> tuple[int, int]:
     return local, whole
 
 
-def batch_rows(mesh, batch: int, rules: Optional[Mapping[str, Any]] = None
-               ) -> tuple[int, int, tuple]:
+def batch_rows(mesh, batch: int, rules: Optional[Mapping[str, Any]] = None,
+               *, spread: bool = True) -> tuple[int, int, tuple]:
     """This rank's rows ``[lo, hi)`` of a global batch of ``batch`` rows,
     and the names of the mesh dimensions whose ranks hold distinct rows.
 
@@ -379,16 +436,25 @@ def batch_rows(mesh, batch: int, rules: Optional[Mapping[str, Any]] = None
     reference's ``batch_sharding``; they must divide the batch), then
     again over each other mesh dimension that divides what is left, so
     that no rank repeats another's rows; a dimension that does not
-    divide leaves its ranks the same rows."""
+    divide leaves its ranks the same rows.
+
+    ``spread=False`` (a serving step's rows) splits over the batch's own
+    axes only, as :func:`constrained_pspec` lays out a ``"batch"``
+    dimension: an axis that does not divide what is left is dropped,
+    its ranks holding the same rows (``long_500k``'s batch of 1), and
+    the ranks of every other axis hold the same rows (a decode cache
+    splits its sequence over ``model``, whose ranks then score the same
+    rows' slices)."""
     sizes = axis_sizes(mesh)
     coords = dict(zip(sizes, mesh_coords(mesh)))
     data = batch_pspec(mesh, 1, rules)
     data_axes = [a for e in data for a in (e if isinstance(e, tuple)
                                              else (e,)) if a is not None]
+    others = [a for a in sizes if a not in data_axes] if spread else []
     lo, rows, split = 0, batch, []
-    for a in data_axes + [a for a in sizes if a not in data_axes]:
+    for a in data_axes + others:
         if rows % sizes[a]:
-            if a in data_axes:
+            if a in data_axes and spread:
                 raise ValueError(f"global batch {batch} does not divide "
                                  f"over the {a!r} axis ({sizes[a]})")
             continue
@@ -455,5 +521,29 @@ def constrain(x, spec: Sequence[Optional[str]],
     activation is laid out; in eager PyTorch each rank's tensors already
     are its shards (``marl.train`` picks them with
     :func:`constrained_pspec`), so there is nothing to constrain.
-    ``spec`` and ``rules`` are kept for the reference's call sites."""
+    ``spec`` and ``rules`` are kept for the reference's call sites.
+    Where a constraint splits work, the port splits it explicitly: the
+    compact product's ``"flgw_cap"`` columns (:func:`constraint_group`)."""
     return x
+
+
+def constraint_group(name: str, size: int,
+                     rules: Optional[Mapping[str, Any]] = None):
+    """The process group that splits a dimension of ``size`` named
+    ``name`` on the constraint mesh (:func:`use_constraints`): that of the
+    mesh axis the rules map ``name`` to, when the mesh has it wider than
+    1 and it divides ``size``. None otherwise: outside
+    :func:`use_constraints`, without a process group, or where the axis
+    does not divide, which :func:`constrained_pspec` would drop (the
+    dimension stays whole on every rank). The compact product splits
+    its ``"flgw_cap"`` (capN) columns over it
+    (``core.grouped._core_matmul``)."""
+    if not _CONSTRAINT_MESH or not dist.is_initialized():
+        return None
+    mesh = _CONSTRAINT_MESH[-1]
+    axis = (LOGICAL_RULES if rules is None else rules).get(name)
+    sizes = axis_sizes(mesh)
+    if not isinstance(axis, str) or sizes.get(axis, 1) == 1 \
+            or size % sizes[axis]:
+        return None
+    return mesh.get_group(axis)

@@ -107,22 +107,6 @@ def loss_and_grads(params, batch, cfg: ModelConfig, *, q_chunk: int,
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def _mesh_gather(params, mesh):
-    """The ``gather`` of :func:`loss_and_grads` for a tree of DTensors:
-    each leaf through ``collectives.gather_shards`` by its placements,
-    its gradient weighed by 1 / the mesh's ranks."""
-    scale = 1.0 / mesh.size()
-
-    def gather(tree, path, lead=0):
-        node = params
-        for k in path:
-            node = node[k]
-        return partition.map_tree(
-            lambda x, d: collectives.gather_shards(
-                x, partition.layout(d, lead), scale), tree, node)
-    return gather
-
-
 def _owned(tree, mesh):
     """True at each leaf this rank counts in a global sum: the rank at
     coordinate 0 of every mesh dimension that replicates the leaf."""
@@ -194,7 +178,8 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adamw",
         sharded = state
         if mesh is not None:
             state = partition.local(state)
-            gather = _mesh_gather(sharded.params, mesh)
+            # each gradient weighed by 1 / the mesh's ranks
+            gather = partition.gatherer(sharded.params, 1.0 / mesh.size())
             grouping = partition.gather_grouping(sharded.params) \
                 if uses_plans else state.params
         else:
