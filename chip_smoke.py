@@ -292,16 +292,23 @@ The script
       through ``train_lm`` on ``(data, model)`` meshes: without a group
       in this process (the reference), on a world-1 NCCL group in a
       spawned process (bitwise the reference: losses, grad norms, final
-      params; launches equal), then (2, 1), (1, 2) and (2, 2) as spawned
-      gloo ranks sharing the card, in two waves ((a) beside (2, 2),
-      then (2, 1) beside (1, 2)): each rank's losses and grad norms
-      within 1e-2 of the reference and its step-2 loss change within
-      5e-2; the params (each rank's shards against the reference's
-      matching slices) within 5e-2, and what the 2 steps changed in them
-      within relative L2 0.3 of the reference's change, a limit that a
-      no-update and a neighbour's-slices control must fail; its state
-      bytes the whole state's over its ranks (1 %), its launches the
-      world-1 rank's; (2, 2) saves its final
+      params; launches equal), then (2, 1) and (1, 2) at B=4 and (2, 2)
+      at B=2 (one row a data rank, shared by its model ranks, so every
+      compact product splits its capN columns over them; against its own
+      run without a group at B=2) as spawned gloo ranks sharing the
+      card, in two waves ((a) beside (2, 2), then (2, 1) beside (1, 2)):
+      each rank's losses and grad norms within 1e-2 of the reference and
+      its step-2 loss change within 5e-2; the params (each rank's shards
+      against the reference's matching slices) within 5e-2, and what the
+      2 steps changed in them within relative L2 0.3 of the reference's
+      change, a limit that a no-update and a neighbour's-slices control
+      must fail; its state bytes the whole state's over its ranks (1 %),
+      its launches the reference's; each (2, 2) rank's
+      ``grouped_bmm_bf16`` calls capN/2 columns wide (up/gate 1,440,
+      down 360) on the TMA route at 1,024 rows, a check the whole tiles'
+      widths must fail, and the other shapes' whole; before the ranks,
+      ``grouped_bmm_bf16`` held against its plain version at those
+      widths and timed against ``torch.bmm``; (2, 2) saves its final
       state once and (2, 1) restores it with ``shardings=``, each
       rank's shards the saved arrays' slices bitwise; prints ms a step,
       each rank's peak GB and the collectives by operation and backend;
@@ -314,7 +321,8 @@ The script
       launches without a record, and fails on any mismatch or on an
       entry launched inside a profile with no match; (b) the dry run
       (``repro_torch.launch.dryrun``) of phase 17's config on ``meta``
-      over fake groups of (2, 1), (1, 2) and (2, 2), in a CPU process
+      over fake groups of (2, 1), (1, 2) and (2, 2) at their batches, in
+      a CPU process
       started after phase 12 (which also dry-runs phase 19's calls):
       each phase 17 rank's all-gathers, reduce-scatters and all-reduces
       and their bytes equal the
@@ -1420,21 +1428,22 @@ BMM16_ROUTES = {fm_ops.TMA: "tma + wgmma", fm_ops.WMMA: "wmma"}
 
 
 @_timed
-def check_bmm_bf16_kernel(cfg, device) -> list[dict]:
+def check_bmm_bf16_kernel(cfg, device, cases=None) -> list[dict]:
     """grouped_bmm_bf16 against its plain version at the training MLP's
     compact products (4096 rows; up and gate share a shape), on the TMA
     route; a ragged case on the TMA route (K and N off the 64-deep k-tile
     and the 256-wide column tile, rows off the 128-row tile) and one on
-    wmma (70 rows, 37 x 45). Each timed against its plain version and
-    ``torch.bmm`` (ms by CUDA events, device us a call by the profiler);
-    at the MLP's shapes the wmma kernel too, called on its route."""
+    wmma (70 rows, 37 x 45); or at ``cases`` ((name, rows, K, N, route)
+    each). Each timed against its plain version and ``torch.bmm`` (ms by
+    CUDA events, device us a call by the profiler); at the MLP's shapes
+    the wmma kernel too, called on its route."""
     g = cfg.flgw_groups
     cap_d, cap_ff = compute_cap(cfg.d_model, g, 1.25), \
         compute_cap(cfg.d_ff, g, 1.25)
     rows_n = TRAIN_BATCH * TRAIN_SEQ
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     rows = []
-    for name, b, k, n, want in (
+    for name, b, k, n, want in cases or (
             ("up", rows_n, cap_d, cap_ff, fm_ops.TMA),
             ("gate", rows_n, cap_d, cap_ff, fm_ops.TMA),
             ("down", rows_n, cap_ff, cap_d, fm_ops.TMA),
@@ -4714,6 +4723,11 @@ def run_mesh(kernels, device, card: str) -> dict:
 
 LM_MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
 LM_MESH_STEPS = 2
+# (2, 2)'s global batch: one row a data rank, which its model ranks share,
+# so every compact product splits its capN columns over them (the
+# reference's layout); the other shapes' rows spread over every mesh
+# dimension at TRAIN_BATCH (whole tiles)
+LM_MESH_SPLIT_BATCH = 2
 # (b) against (a): the same bf16 steps with the gradients summed over the
 # ranks in other orders (float32) and each rank's rows in their own
 # products; stated before the first card run
@@ -4737,23 +4751,47 @@ def _lm_mesh_cfg():
         n_layers=CKPT_LAYERS)
 
 
-def _lm_mesh_train(dev, model: int = 0):
+def lm_mesh_batch(shape) -> int:
+    """The global batch of phase 17's run on a ``shape`` mesh."""
+    return LM_MESH_SPLIT_BATCH if tuple(shape) == (2, 2) else TRAIN_BATCH
+
+
+def _lm_mesh_train(dev, model: int = 0, batch: int = TRAIN_BATCH):
     """phase 17's run: ``train_lm`` at the training config, its depth cut
-    to CKPT_LAYERS, LM_MESH_STEPS steps; every launch count at 0 first.
-    Returns (state, history, launches, collectives, peak GB)."""
+    to CKPT_LAYERS, LM_MESH_STEPS steps of ``batch`` rows; every launch
+    count at 0 first. Returns (state, history, launches, collectives,
+    peak GB, the ``grouped_bmm_bf16`` calls as [g, b, k, n, route,
+    count])."""
+    from repro_torch.kernels import KernelEntry
     from repro_torch.sharding import collectives
     kernels = port_kernels()
     _zero(kernels)
     collectives.clear()
     torch.cuda.reset_peak_memory_stats(dev)
-    state, hist = train_lm("gemma2_2b", smoke=False, steps=LM_MESH_STEPS,
-                           batch=TRAIN_BATCH, seq=TRAIN_SEQ, n_layers=CKPT_LAYERS,
-                           log_every=0, device=dev, model=model,
-                           **TRAIN_FLGW)
-    _sync(dev)
+    prev, KernelEntry.RECORD = KernelEntry.RECORD, []
+    try:
+        state, hist = train_lm("gemma2_2b", smoke=False, steps=LM_MESH_STEPS,
+                               batch=batch, seq=TRAIN_SEQ,
+                               n_layers=CKPT_LAYERS, log_every=0, device=dev,
+                               model=model, **TRAIN_FLGW)
+        _sync(dev)
+        bmm = collections.Counter(tuple(args[3:8]) for sym, args in
+                                  KernelEntry.RECORD
+                                  if sym == "grouped_bmm_bf16")
+    finally:
+        KernelEntry.RECORD = prev
     return (state, hist, {k.symbol: k.launches for k in kernels},
             {"/".join(map(str, k)): v for k, v in collectives.CALLS.items()},
-            torch.cuda.max_memory_allocated(dev) / 1e9)
+            torch.cuda.max_memory_allocated(dev) / 1e9,
+            sorted([*c, n] for c, n in bmm.items()))
+
+
+def _bmm_widths_are(calls, cols, rows: int) -> bool:
+    """True when there are recorded ``grouped_bmm_bf16`` calls and every
+    one took ``rows`` rows and one of ``cols`` columns, on the TMA
+    route."""
+    return bool(calls) and all(b == rows and n in cols and route == fm_ops.TMA
+                               for _, b, _, n, route, _ in calls)
 
 
 def _metrics(hist) -> dict:
@@ -4765,11 +4803,11 @@ def _metrics(hist) -> dict:
 def lm_mesh_one(device: str, d: str) -> dict:
     """(a): one rank of a world-1 group (NCCL on the card), ``train_lm``
     on its (1, 1) mesh; its losses, grad norms and final params against
-    the run without a group (``{d}/ref.pt``), bitwise."""
+    the run without a group at TRAIN_BATCH (``{d}/ref_4.pt``), bitwise."""
     from repro_torch.sharding import partition
     dev = resolve_device(device)
-    state, hist, launches, calls, peak = _lm_mesh_train(dev)
-    ref = torch.load(f"{d}/ref.pt")
+    state, hist, launches, calls, peak, _ = _lm_mesh_train(dev)
+    ref = torch.load(f"{d}/ref_{TRAIN_BATCH}.pt")
     out = dict(_metrics(hist), launches=launches, calls=calls, peak_gb=peak,
                mesh=tuple(partition.mesh_of(state).shape))
     out["bitwise"] = (out["losses"] == ref["losses"]
@@ -4816,10 +4854,10 @@ def _saved_slices_equal(state, d: Path) -> tuple[int, bool]:
     return n, same
 
 
-def _neighbour_of(final, init, placement, mesh):
+def _neighbour_of(final, init, placement, mesh, dev):
     """(a)'s change (final - init) at the slice of the next rank along
     the first mesh dimension that splits the leaf (this rank's slice
-    elsewhere), in float32; None for a replicated leaf."""
+    elsewhere), in float32 on ``dev``; None for a replicated leaf."""
     from torch.distributed.tensor import Shard
     from repro_torch.sharding import partition
     first = True
@@ -4829,40 +4867,47 @@ def _neighbour_of(final, init, placement, mesh):
             c = (c + 1) % n if first else c
             first = False
             final, init = final.chunk(n, p.dim)[c], init.chunk(n, p.dim)[c]
-    return None if first else final.float() - init.float()
+    return None if first else final.to(dev).float() - init.to(dev).float()
 
 
 def lm_mesh_rank(shape: tuple, device: str, d: str, role: str) -> dict:
     """(b), one rank of a ``shape`` mesh on gloo: ``train_lm`` on the
-    mesh; its launches, collectives, peak memory and state bytes; its
-    params, shard by shard, against the run without a group's;
-    then (c): the (2, 2) shape saves its final state, the (2, 1) shape
-    restores it onto its own mesh with ``shardings=``."""
+    mesh at its global batch (:func:`lm_mesh_batch`); its launches, its
+    ``grouped_bmm_bf16`` calls, collectives, peak memory and state
+    bytes; its params, shard by shard, against the run without a group's
+    at the same batch; then (c): the (2, 2) shape saves its final state,
+    the (2, 1) shape restores it onto its own mesh with ``shardings=``."""
     import torch.distributed as dist
     from repro_torch.sharding import partition
     from repro_torch.sharding import collectives
     dev = resolve_device(device)
-    state, hist, launches, calls, peak = _lm_mesh_train(dev, model=shape[1])
+    batch = lm_mesh_batch(shape)
+    state, hist, launches, calls, peak, bmm = _lm_mesh_train(
+        dev, model=shape[1], batch=batch)
     coll_bytes = {"/".join(map(str, k)): v
                   for k, v in collectives.BYTES.items()}
     rank = dist.get_rank()
     local, whole = partition.state_bytes(state)
     out = dict(_metrics(hist), rank=rank, launches=launches, calls=calls,
                coll_bytes=coll_bytes, peak_gb=peak, local_bytes=local,
-               whole_bytes=whole)
+               whole_bytes=whole, batch=batch, bmm=bmm)
     # the params against (a)'s, slice by slice: each rank's shards against
-    # the matching slices (no gather), on the host; and what the steps
-    # changed, against (a)'s change, beside the two controls
+    # the matching slices (no gather), on the card (one thread a rank on
+    # the host took tens of seconds); and what the steps changed, against
+    # (a)'s change, beside the two controls
     torch.cuda.empty_cache()
-    ref = torch.load(f"{d}/ref.pt", mmap=True)
+    t0 = time.perf_counter()
+    ref = torch.load(f"{d}/ref_{batch}.pt", mmap=True)
+    ref["init"] = torch.load(f"{d}/init.pt", mmap=True)
     err, close = 0.0, True
     sq = dict.fromkeys(("err", "ref", "none", "neighbour", "neighbour_ref"),
                        0.0)
     for path, leaf in store.tree_paths(state.params):
         mesh, pl = leaf.device_mesh, leaf.placements
-        got = leaf.to_local().cpu().float()
-        init = partition.shard_of(ref["init"][path], pl, mesh).float()
-        want = partition.shard_of(ref["params"][path], pl, mesh).float()
+        got = leaf.to_local().float()
+        init = partition.shard_of(ref["init"][path], pl, mesh).to(dev).float()
+        want = partition.shard_of(ref["params"][path], pl,
+                                  mesh).to(dev).float()
         err = max(err, float((got - want).abs().max()))
         close &= torch.allclose(got, want, **REPLAY_TRAIN_TOL)
         change = want - init
@@ -4870,7 +4915,7 @@ def lm_mesh_rank(shape: tuple, device: str, d: str, role: str) -> dict:
         sq["ref"] += float(change.square().sum())
         sq["none"] += float(change.square().sum())   # got == init
         other = _neighbour_of(ref["params"][path], ref["init"][path], pl,
-                              mesh)
+                              mesh, dev)
         if other is not None:
             sq["neighbour"] += float((other - change).square().sum())
             sq["neighbour_ref"] += float(change.square().sum())
@@ -4878,8 +4923,10 @@ def lm_mesh_rank(shape: tuple, device: str, d: str, role: str) -> dict:
                change_err=(sq["err"] / sq["ref"]) ** 0.5,
                no_update_err=(sq["none"] / sq["ref"]) ** 0.5,
                neighbour_err=(sq["neighbour"] / sq["neighbour_ref"]) ** 0.5
-               if sq["neighbour_ref"] else None)
-    del ref
+               if sq["neighbour_ref"] else None,
+               compare_s=time.perf_counter() - t0)
+    del ref, got, init, want, change, other
+    torch.cuda.empty_cache()
     ckpt = Path(d) / "ckpt"
     if role == "save":
         torch.cuda.empty_cache()
@@ -4907,6 +4954,7 @@ def lm_mesh_launches(lm, sym: str) -> dict:
     """One kernel's launches on phase 17's paths: the run without a group
     (this process), the world-1 NCCL rank and every rank of each shape."""
     return {"gemma2_mesh_none": lm["none"]["launches"][sym],
+            "gemma2_mesh_none_b2": lm["none_b2"]["launches"][sym],
             "gemma2_mesh_1x1": lm["1x1"]["launches"][sym],
             **{f"gemma2_mesh_{a}x{b}": sum(
                 r["launches"][sym] for r in lm[f"{a}x{b}"]["ranks"])
@@ -4915,49 +4963,81 @@ def lm_mesh_launches(lm, sym: str) -> dict:
 
 def run_lm_mesh(device, card: str) -> dict:
     """Phase 17: gemma2-2b's training config on a ``(data, model)`` mesh
-    through ``train_lm``: the run without a group in this process (the
-    reference), (a) a world-1 NCCL group in a spawned process, bitwise
-    it; (b) (2, 1), (1, 2) and (2, 2) as spawned gloo ranks sharing the
-    card, in two waves ((a) beside (2, 2), then (2, 1) beside (1, 2)),
-    within LM_MESH_RTOL (losses, grad norms), LM_MESH_LOSS_DELTA_RTOL (the
-    step-2 loss change), REPLAY_TRAIN_TOL (the params, shard by shard) and
-    LM_MESH_DELTA_TOL (what the steps changed in each rank's shards, which
-    a no-update and a neighbour's-slices control must fail) of it, each
-    rank's state bytes whole / ranks and its launches (a)'s; (c) (2, 2)'s
-    final state saved once and restored onto the (2, 1) mesh with
-    ``shardings=``, each rank's shards the saved arrays' slices
-    bitwise."""
+    through ``train_lm``: the runs without a group in this process at
+    TRAIN_BATCH and at LM_MESH_SPLIT_BATCH (the references), then
+    ``grouped_bmm_bf16`` against its plain version at a model rank's
+    capN/2 columns; (a) a world-1 NCCL group in a spawned process,
+    bitwise the first reference; (b) (2, 1) and (1, 2) at TRAIN_BATCH
+    and (2, 2) at LM_MESH_SPLIT_BATCH (one row a data rank, shared by its
+    model ranks, so its compact products split their columns over them)
+    as spawned gloo ranks sharing the card, in two waves ((a) beside (2,
+    2), then (2, 1) beside (1, 2)), within LM_MESH_RTOL (losses, grad
+    norms), LM_MESH_LOSS_DELTA_RTOL (the step-2 loss change),
+    REPLAY_TRAIN_TOL (the params, shard by shard) and LM_MESH_DELTA_TOL
+    (what the steps changed in each rank's shards, which a no-update and
+    a neighbour's-slices control must fail) of the reference at their
+    batch, each rank's state bytes whole / ranks, its launches the
+    reference's and its ``grouped_bmm_bf16`` calls capN/2 columns wide
+    on (2, 2) (the whole tile's width must fail that check) and whole on
+    the others; (c) (2, 2)'s final state saved once and restored onto
+    the (2, 1) mesh with ``shardings=``, each rank's shards the saved
+    arrays' slices bitwise."""
+    from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.sharding import partition
     cfg = _lm_mesh_cfg()
     out = dict(cut=f"n_layers {CKPT_LAYERS} of 26 (one local, one global "
                    f"slot)", params=param_count(cfg), steps=LM_MESH_STEPS,
-               batch=TRAIN_BATCH, seq=TRAIN_SEQ, rtol=LM_MESH_RTOL)
+               batch=TRAIN_BATCH, split_batch=LM_MESH_SPLIT_BATCH,
+               seq=TRAIN_SEQ, rtol=LM_MESH_RTOL)
+    widths = dryrun.compact_widths(cfg, 2)
+    whole_cols = {w["cap_n"] for w in widths}
+    split_cols = {w["cols"] for w in widths}
+    out["compact_widths"] = widths
     with tempfile.TemporaryDirectory(prefix="repro-lm-mesh-") as d:
         # the initial params every run starts from: train_lm's, no step
         state, _ = train_lm("gemma2_2b", smoke=False, steps=0,
                             batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                             n_layers=CKPT_LAYERS, log_every=0, device=device,
                             **TRAIN_FLGW)
-        init = {p: t.cpu() for p, t in store.tree_paths(state.params)}
+        torch.save({p: t.cpu() for p, t in store.tree_paths(state.params)},
+                   f"{d}/init.pt")
         del state
         torch.cuda.empty_cache()
-        state, hist, launches, calls, peak = _lm_mesh_train(device)
-        out["none"] = dict(_metrics(hist), launches=launches, peak_gb=peak)
-        torch.save(dict(losses=out["none"]["losses"],
-                        grad_norms=out["none"]["grad_norms"], init=init,
-                        params={p: t.cpu() for p, t in
-                                store.tree_paths(state.params)}),
-                   f"{d}/ref.pt")
-        del init
-        del state, hist
-        gc.collect()
-        torch.cuda.empty_cache()
-        print(f"  lm mesh: no group, {out['params']:,} params ("
-              f"{out['cut']}), {TRAIN_BATCH} x {TRAIN_SEQ}: step ms "
-              f"{[round(x, 1) for x in out['none']['step_ms']]}, losses "
-              f"{out['none']['losses']}, launches {launches} on {card}",
-              flush=True)
+        for batch, key in ((TRAIN_BATCH, "none"),
+                           (LM_MESH_SPLIT_BATCH, "none_b2")):
+            state, hist, launches, calls, peak, bmm = _lm_mesh_train(
+                device, batch=batch)
+            out[key] = dict(_metrics(hist), launches=launches, peak_gb=peak,
+                            bmm=bmm, batch=batch)
+            torch.save(dict(losses=out[key]["losses"],
+                            grad_norms=out[key]["grad_norms"],
+                            params={p: t.cpu() for p, t in
+                                    store.tree_paths(state.params)}),
+                       f"{d}/ref_{batch}.pt")
+            del state, hist
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"  lm mesh: no group, {out['params']:,} params ("
+                  f"{out['cut']}), {batch} x {TRAIN_SEQ}: step ms "
+                  f"{[round(x, 1) for x in out[key]['step_ms']]}, losses "
+                  f"{out[key]['losses']}, peak {peak:.2f} GB, launches "
+                  f"{launches} on {card}", flush=True)
+        launches = out["none"]["launches"]
+        # the kernel at a (2, 2) rank's products: its row, capN/2 columns
+        rows_n = LM_MESH_SPLIT_BATCH // 2 * TRAIN_SEQ
+        out["split_bmm"] = check_bmm_bf16_kernel(cfg, device, tuple(
+            (f"{w['path']} capN {w['cap_n']}", rows_n,
+             compute_cap(w["m"], cfg.flgw_groups, 1.25), w["cols"],
+             fm_ops.TMA)
+            for w in widths if w["path"].startswith("blocks/slot0")))
+        for r in out["split_bmm"]:
+            print(f"  grouped_bmm_bf16 on a model rank's columns (2 ranks): "
+                  f"{r['proj']} -> {r['n']}, {r['b']} rows, K {r['k']} "
+                  f"({r['route']}): {r['ms']:.4f} ms ({r['device_us']:.1f} "
+                  f"device us), plain {r['plain_ms']:.4f}, torch.bmm "
+                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                  f"({r['bound_by']}, {r['bound_share']:.3f}), max abs err "
+                  f"{r['max_abs_err']:.3g} on {card}", flush=True)
 
         backend = "nccl" if device.type == "cuda" else "gloo"
 
@@ -5017,11 +5097,29 @@ def run_lm_mesh(device, card: str) -> dict:
         spawned = [spawned[shape] for shape in LM_MESH_SHAPES]
         out["wave_s"] = [max(wall[s] for s, _ in w) for w in waves]
         out["spawned_wall_s"] = time.perf_counter() - t0
-    ref = out["none"]
     for shape, ranks in zip(LM_MESH_SHAPES, spawned):
         world = shape[0] * shape[1]
         name = f"{shape[0]}x{shape[1]}"
+        split = lm_mesh_batch(shape) == LM_MESH_SPLIT_BATCH
+        ref = out["none_b2" if split else "none"]
+        want_launches = ref["launches"] if split else one["launches"]
+        rows_n = lm_mesh_batch(shape) * TRAIN_SEQ // world * (
+            shape[1] if split else 1)
         for r in ranks:
+            if split:
+                check(_bmm_widths_are(r["bmm"], split_cols, rows_n)
+                      and not _bmm_widths_are(r["bmm"], whole_cols, rows_n),
+                      f"lm mesh {shape} rank {r['rank']}: every "
+                      f"grouped_bmm_bf16 call took {rows_n} rows and a "
+                      f"model rank's columns {sorted(split_cols)} on TMA, "
+                      f"and the whole tiles' {sorted(whole_cols)} fail that "
+                      f"check ({r['bmm']})")
+            else:
+                check(_bmm_widths_are(r["bmm"], whole_cols, rows_n),
+                      f"lm mesh {shape} rank {r['rank']}: every "
+                      f"grouped_bmm_bf16 call took {rows_n} rows and the "
+                      f"whole tiles' columns {sorted(whole_cols)} on TMA "
+                      f"({r['bmm']})")
             for key in ("losses", "grad_norms"):
                 rel = max(abs(a - b) / abs(b) for a, b in zip(r[key],
                                                               ref[key]))
@@ -5033,9 +5131,10 @@ def run_lm_mesh(device, card: str) -> dict:
                   f"lm mesh {shape} rank {r['rank']}: state bytes "
                   f"{r['local_bytes']:,} within {LM_MESH_BYTES_RTOL} of "
                   f"the whole {r['whole_bytes']:,} / {world}")
-            check(r["launches"] == one["launches"],
+            check(r["launches"] == want_launches,
                   f"lm mesh {shape} rank {r['rank']}: launches "
-                  f"{r['launches']} == (a)'s {one['launches']}")
+                  f"{r['launches']} == the one-process run's at its batch "
+                  f"{want_launches}")
             check(r["losses"] == ranks[0]["losses"],
                   f"lm mesh {shape}: every rank's losses equal")
             step = [x[1] - x[0] for x in (r["losses"], ref["losses"])]
@@ -5064,7 +5163,11 @@ def run_lm_mesh(device, card: str) -> dict:
               f"(max abs err {err:.3g})")
         out[name] = dict(ranks=ranks)
         print(f"  lm mesh {shape}, {world} gloo ranks on {card} (in two "
-              f"waves, (a) beside (2, 2), (2, 1) beside (1, 2)): step ms by rank "
+              f"waves, (a) beside (2, 2), (2, 1) beside (1, 2)), global "
+              f"batch {lm_mesh_batch(shape)} (compact columns "
+              f"{'split over model' if split else 'whole'}; grouped_bmm_bf16 "
+              f"calls a rank [g, rows, K, N, route, count] {r0['bmm']}): "
+              f"step ms by rank "
               f"{[[round(x, 1) for x in r['step_ms']] for r in ranks]}, peak "
               f"GB by rank {[round(r['peak_gb'], 2) for r in ranks]}, state "
               f"bytes a rank {r0['local_bytes']:,} of {r0['whole_bytes']:,}, "
@@ -5075,7 +5178,9 @@ def run_lm_mesh(device, card: str) -> dict:
               f"{[round(r['no_update_err'], 4) for r in ranks]}, a "
               f"neighbour's slices "
               f"{[r['neighbour_err'] and round(r['neighbour_err'], 4) for r in ranks]}), "
-              f"collectives a rank {r0['calls']}", flush=True)
+              f"collectives a rank {r0['calls']}; the params compared on "
+              f"the card in {[round(r['compare_s'], 1) for r in ranks]} s",
+              flush=True)
     saver = out["2x2"]["ranks"]
     loader = out["2x1"]["ranks"]
     for r in loader:
@@ -5184,9 +5289,10 @@ def _audit_profile(recorded: list, prof) -> None:
 
 def dryrun_phases() -> dict:
     """Phase 18 (b), in a CPU process of its own: the dry run of phase
-    17's config (gemma2-2b at full width, CKPT_LAYERS layers, B=4 x
-    S=1024) on ``meta`` over fake groups of each of phase 17's mesh
-    shapes and of one rank (the one-process step's roofline); and under
+    17's config (gemma2-2b at full width, CKPT_LAYERS layers, S=1024) on
+    ``meta`` over fake groups of each of phase 17's mesh shapes at its
+    batch (:func:`lm_mesh_batch`) and of one rank at TRAIN_BATCH (the
+    one-process step's roofline); and under
     ``"serve"`` phase 19's calls (its prefill, the fill and a decode
     step) over fake groups of each of its mesh shapes."""
     from repro_torch.launch import dryrun
@@ -5195,7 +5301,7 @@ def dryrun_phases() -> dict:
     for shape in ((1, 1), *LM_MESH_SHAPES):
         t0 = time.perf_counter()
         r = dryrun.run_cell("gemma2_2b", "train_4k", cfg=cfg,
-                            seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                            seq=TRAIN_SEQ, batch=lm_mesh_batch(shape),
                             mesh_shape=shape, save=False, **TRAIN_FLGW)
         r["wall_s"] = time.perf_counter() - t0
         out[f"{shape[0]}x{shape[1]}"] = r
@@ -5343,11 +5449,16 @@ def run_analysis(dev, card: str, lm_mesh: dict, dry, asy: dict) -> dict:
                   f"{pred['state_bytes_per_chip']:,}")
         rows[name] = dict(collectives=pred["collectives"],
                           state_bytes=pred["state_bytes_per_chip"],
+                          batch=pred["batch"],
+                          flops=pred["cost"]["flops_per_chip"],
                           roofline=pred["roofline"], wall_s=pred["wall_s"])
-        print(f"  dry run {name} (a fake group on the CPU, beside the card "
-              f"phases): a step's collectives {pred['collectives']}, state "
+        print(f"  dry run {name} at global batch {pred['batch']} (a fake "
+              f"group on the CPU, beside the card phases): a step's "
+              f"collectives {pred['collectives']}, "
+              f"{pred['cost']['flops_per_chip']:.4g} flops and state "
               f"{pred['state_bytes_per_chip']:,} bytes a rank: phase 17's "
-              f"ranks counted {LM_MESH_STEPS}x those, equal", flush=True)
+              f"ranks counted {LM_MESH_STEPS}x those collectives, equal",
+              flush=True)
     one = dr["1x1"]
     dry_s = sum(r["wall_s"] for r in (*dr.values(), *dr["serve"].values())
                 if "wall_s" in r)

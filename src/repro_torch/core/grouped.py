@@ -16,7 +16,10 @@ products, and dIG/dOG through the sparse-restricted straight-through
 estimator, with the plan an input that the backward reuses. Stacked
 experts (a leading expert axis on W, IG, OG, x and the plan) run every
 expert's tiles in one launch, and their backward as one batch of E·G
-tiles.
+tiles. On a ``(data, model)`` mesh whose ``model`` ranks hold the same
+rows (a serving step, or a train step whose rows do not spread over
+them), each product splits every tile's capN columns over those ranks
+in the forward and the backward (:class:`_GroupedCore`).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flgw_matmul import ops as kops
 from repro_torch.kernels.plan_encode import ops as pe_ops
-from repro_torch.sharding import partition
+from repro_torch.sharding import collectives, partition
 
 
 class GroupPlan(NamedTuple):
@@ -149,22 +152,21 @@ def has_compact(plans) -> bool:
                                            for v in plans.values())
 
 
-def _core_matmul(x: torch.Tensor, w: torch.Tensor,
-                 plan: GroupPlan) -> torch.Tensor:
+def _core_matmul(x: torch.Tensor, w: torch.Tensor, plan: GroupPlan,
+                 group=None) -> torch.Tensor:
     """One compact product: the fused path on attached compact weights,
     else the gather path. x (B, M) and w (M, N), or with a leading
     expert axis x (E, B, M), w (E, M, N) and the plan's leaves (E, G,
-    cap): one kernel launch either way. Under a serving step's
-    ``partition.use_constraints(mesh)`` the fused path splits each
-    tile's capN columns over the ``model`` ranks where they divide it
-    (the ``"flgw_cap"`` rule), else every rank computes whole tiles."""
+    cap): one kernel launch either way. ``group`` (a process group of m
+    ranks, or None) splits each tile's capN columns over its ranks on
+    either path, each rank computing its capN/m columns; the outputs
+    are all-gathered, so every rank holds the whole y."""
     if plan.wc is not None:
         return kops.grouped_matmul_fused(
             x, plan.wc, plan.row_ids, plan.row_valid, plan.col_ids,
-            plan.col_valid, n=w.shape[-1],
-            group=partition.constraint_group("flgw_cap", plan.wc.shape[-1]))
+            plan.col_valid, n=w.shape[-1], group=group)
     return kops.grouped_matmul(x, w, plan.row_ids, plan.col_ids,
-                               plan.row_valid, plan.col_valid)
+                               plan.row_valid, plan.col_valid, group=group)
 
 
 def _scatter_weight(dwc: torch.Tensor, plan: GroupPlan, m: int,
@@ -213,7 +215,7 @@ def _scatter_rows(sc: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
 
 def _grouped_bwd(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,
                  og: torch.Tensor, plan: GroupPlan, temperature: float,
-                 gy: torch.Tensor):
+                 gy: torch.Tensor, group=None):
     """(dx, dW, dIG, dOG) of one compact product, as the JAX package's
     ``_grouped_bwd``: x (B, M), w (M, N), ig (M, G), og (G, N), plan
     leaves (G, cap) and gy (B, N); or, with a leading expert axis, x (E,
@@ -222,30 +224,57 @@ def _grouped_bwd(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,
     backward over the experts). Its two products are XLA einsums there,
     outside any Pallas kernel, so here they are ``torch.bmm`` over the
     E·G tiles in the operands' dtype (f32 accumulation); the scatters
-    send padding slots to a sink row or column that is sliced off."""
+    send padding slots to a sink row or column that is sliced off.
+
+    ``group``: the m ranks that split the forward's capN columns
+    (:class:`_GroupedCore`), as the reference's constraints split its
+    einsums (``wc`` over ``"flgw_cap"``, the gathered ``gc`` too). ``gy``
+    is the same on every one of them (the rest of the step is
+    replicated over them), so each takes its own columns of ``gc`` and
+    ``wc``: dX is a partial sum over them, as are the per-row STE sums,
+    both all-reduced over the group in one float32 collective and then
+    cast; dW and dOG are the rank's columns only, zero elsewhere. The
+    mesh's gradient reduction sums every rank's gradient and scales it
+    by 1 / the mesh's ranks (``collectives.gather_shards``), right for a
+    gradient each of the m ranks holds whole; so that dW and dOG, which
+    the m ranks hold in parts, also count once there, each rank's parts
+    are scaled by m (exact for m a power of 2)."""
     m, g = ig.shape[-2:]
     n = og.shape[-1]
-    xg = kops.gather_x(x, plan.row_ids, plan.row_valid)      # (E·G, B, capM)
-    gc = kops.gather_x(gy, plan.col_ids, plan.col_valid)     # (E·G, B, capN)
-    wc = (plan.wc if plan.wc is not None else kops.compact_weights(
-        w, plan.row_ids, plan.col_ids, plan.row_valid, plan.col_valid)
-    ).flatten(0, -3)                                        # (E·G, capM, capN)
+    ranks = collectives.size(group)
+    cols = plan._replace(col_ids=kops.col_share(plan.col_ids, group),
+                         col_valid=kops.col_share(plan.col_valid, group))
+    # the tiles (E·G, ·): xg (B, capM), gc (B, capN/m), wc (capM, capN/m)
+    xg = kops.gather_x(x, plan.row_ids, plan.row_valid)
+    gc = kops.gather_x(gy, cols.col_ids, cols.col_valid)
+    wc = (kops.col_share(plan.wc, group) if plan.wc is not None
+          else kops.compact_weights(w, plan.row_ids, cols.col_ids,
+                                    plan.row_valid, cols.col_valid)
+          ).flatten(0, -3)
 
     # dX: the transposed compact product (Mask^T has the same structure
     # with IG/OG swapped, so the compact tiles are reused).
-    dxc = torch.bmm(gc, wc.transpose(1, 2))                  # (E·G, B, capM)
-    dx = kops.scatter_cols(dxc, plan.row_ids, plan.row_valid, m)
+    if ranks == 1:
+        dxc = torch.bmm(gc, wc.transpose(1, 2))              # (E·G, B, capM)
+    else:                       # a partial sum, reduced below in f32
+        dxc = torch.bmm(gc.float(), wc.float().transpose(1, 2))
 
     # dW: compact outer products scattered to the dense weight.
-    dwc = torch.bmm(xg.transpose(1, 2), gc)                  # (E·G, capM, capN)
-    dw = _scatter_weight(dwc, plan, m, n)
+    dwc = torch.bmm(xg.transpose(1, 2), gc)             # (E·G, capM, capN/m)
 
     # dIG/dOG: the mask gradient on surviving entries is dW * W, reduced
     # to per-row / per-column scalars and pushed through the softmax
     # Jacobian at the assigned group, expert by expert over G.
     dmask = dwc * wc
-    s_row = _scatter_rows(dmask.sum(2), plan.row_ids, plan.row_valid, m)
-    s_col = _scatter_rows(dmask.sum(1), plan.col_ids, plan.col_valid, n)
+    rows_c = dmask.sum(2)                                    # (E·G, capM)
+    if ranks > 1:
+        dxc, rows_c = collectives.all_reduce_flat(
+            [dxc, rows_c.float()], group)
+        dxc = dxc.to(x.dtype)
+    dx = kops.scatter_cols(dxc, plan.row_ids, plan.row_valid, m)
+    dw = _scatter_weight(dwc if ranks == 1 else dwc * ranks, cols, m, n)
+    s_row = _scatter_rows(rows_c, plan.row_ids, plan.row_valid, m)
+    s_col = _scatter_rows(dmask.sum(1), cols.col_ids, cols.col_valid, n)
 
     tau = temperature
     soft_ig = torch.softmax(ig / tau, dim=-1)                # (E, M, G)
@@ -258,7 +287,7 @@ def _grouped_bwd(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,
     soft_og = torch.softmax(og.mT / tau, dim=-1).mT          # (E, G, N)
     pg_col = F.one_hot(plan.col_group, g).mT.to(soft_og.dtype)
     sel_c = (soft_og * pg_col).sum(-2, keepdim=True)
-    dog = (s_col[..., None, :] / tau) * sel_c * (pg_col - soft_og)
+    dog = (s_col[..., None, :] * ranks / tau) * sel_c * (pg_col - soft_og)
     return dx, dw, dig.to(ig.dtype), dog.to(og.dtype)
 
 
@@ -266,19 +295,28 @@ class _GroupedCore(torch.autograd.Function):
     """The compact product against a precomputed plan. The plan is an
     input, not rebuilt in the backward: one encode serves the forward,
     any recomputation and the backward of a step. It and ``wc`` get no
-    gradient (the weight's flows through dW)."""
+    gradient (the weight's flows through dW).
+
+    The forward takes the group that splits the plan's capN columns
+    (``partition.constraint_group`` of ``"flgw_cap"``: under
+    ``partition.use_constraints(mesh)`` the ``model`` ranks where they
+    divide capN and hold the same rows, in a serving step or a mesh
+    train step; None otherwise, every rank computing whole tiles) and
+    keeps it for the backward, which then needs no context."""
 
     @staticmethod
     def forward(ctx, x, w, ig, og, plan, temperature):
-        ctx.plan, ctx.temperature = plan, temperature
+        group = partition.constraint_group("flgw_cap",
+                                           plan.col_ids.shape[-1])
+        ctx.plan, ctx.temperature, ctx.group = plan, temperature, group
         ctx.save_for_backward(x, w, ig, og)
-        return _core_matmul(x, w, plan)
+        return _core_matmul(x, w, plan, group)
 
     @staticmethod
     def backward(ctx, gy):
         x, w, ig, og = ctx.saved_tensors
-        return (*_grouped_bwd(x, w, ig, og, ctx.plan, ctx.temperature, gy),
-                None, None)
+        return (*_grouped_bwd(x, w, ig, og, ctx.plan, ctx.temperature, gy,
+                              ctx.group), None, None)
 
 
 def grouped_apply(x: torch.Tensor, w: torch.Tensor, ig: torch.Tensor,

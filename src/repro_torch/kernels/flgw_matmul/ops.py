@@ -119,17 +119,44 @@ def gather_x(x: torch.Tensor, row_ids: torch.Tensor,
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, row_ids: torch.Tensor,
                    col_ids: torch.Tensor, row_valid: torch.Tensor,
-                   col_valid: torch.Tensor) -> torch.Tensor:
+                   col_valid: torch.Tensor, *, group=None) -> torch.Tensor:
     """Compact FLGW matmul. x (B, M), w (M, N), row_ids (G, capM),
     col_ids (G, capN) -> y (B, N); columns no group holds stay zero.
 
     With a leading expert axis, x (E, B, M), w (E, M, N) and plan
     leaves (E, G, cap) give y (E, B, N): the gathers and the scatter are
     batched and the E·G compact tiles go through one ``grouped_bmm``
-    launch (the counterpart of JAX's vmap over the Pallas call)."""
-    wc = compact_weights(w, row_ids, col_ids, row_valid, col_valid)
+    launch (the counterpart of JAX's vmap over the Pallas call).
+
+    ``group``: as :func:`grouped_matmul_fused`'s. Each rank compacts
+    only its capN/m columns of every tile from ``w`` (:func:`col_share`
+    of the column ids) and computes them in the one launch."""
+    wc = compact_weights(w, row_ids, col_share(col_ids, group), row_valid,
+                         col_share(col_valid, group))
     yc = grouped_bmm(gather_x(x, row_ids, row_valid), wc.flatten(0, -3))
-    return scatter_cols(yc, col_ids, col_valid, w.shape[-1])
+    return gather_cols(yc, col_ids, col_valid, w.shape[-1], group)
+
+
+def col_share(t: torch.Tensor, group) -> torch.Tensor:
+    """This rank's share of a compact tile's capN columns, the last axis
+    of ``t`` (column ids or validity (..., G, capN), compact weights
+    (..., G, capM, capN)): the rank's chunk among the ``group``'s m
+    equal chunks, in rank order (a view; ``t`` itself without a group).
+    m must divide capN."""
+    m = collectives.size(group)
+    if t.shape[-1] % m:
+        raise ValueError(f"capN {t.shape[-1]} does not split over {m} "
+                         "ranks")
+    return collectives.shard(t, group, -1)
+
+
+def gather_cols(yc: torch.Tensor, col_ids: torch.Tensor,
+                col_valid: torch.Tensor, n: int, group) -> torch.Tensor:
+    """Every rank's :func:`col_share` of the compact outputs (..., B,
+    capN/m), all-gathered over ``group`` in rank order, then scattered to
+    the dense y (:func:`scatter_cols`) with the whole tiles' ids."""
+    return scatter_cols(collectives.unshard(yc, group, -1), col_ids,
+                        col_valid, n)
 
 
 def scatter_cols(yc: torch.Tensor, col_ids: torch.Tensor,
@@ -285,12 +312,11 @@ def grouped_matmul_fused(x: torch.Tensor, wc: torch.Tensor,
     output columns (the reference's ``"flgw_cap"`` rule, the paper's
     multi-core split; m must divide capN): each rank computes its capN/m
     columns of every tile in the one launch, from a copy of its slice of
-    the replicated ``wc``, and the compact outputs are all-gathered over
-    the group before the scatter. Every rank then holds the whole y.
+    the replicated ``wc`` (:func:`col_share`), and the compact outputs
+    are all-gathered over the group before the scatter
+    (:func:`gather_cols`). Every rank then holds the whole y.
     """
     xt, ids = fused_operands(x, row_ids, row_valid)
-    if collectives.size(group) > 1:
-        wc = collectives.shard(wc, group, -1).contiguous()
-    yc = collectives.unshard(fused_bmm(xt, wc.flatten(0, -3), ids), group,
-                             -1)
-    return scatter_cols(yc, col_ids, col_valid, n)
+    wc = col_share(wc, group).contiguous()
+    return gather_cols(fused_bmm(xt, wc.flatten(0, -3), ids), col_ids,
+                       col_valid, n, group)

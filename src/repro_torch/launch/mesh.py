@@ -282,8 +282,12 @@ def make_mesh_from_devices(ranks=None, *, model: int = 0,
 
 def describe_lm_mesh(mesh, *, batch: int, state=None, cache=None) -> str:
     """The LM mesh's line: its shape and axes, this rank's rows of the
-    global batch and, given a sharded ``state``, its bytes on this rank
-    against the whole state's. Given a decode ``cache``
+    global batch, on a model axis wider than 1 whether the compact
+    products split their capN columns over it (its ranks share their
+    rows, ``partition.constraint_group``; each product splits where m
+    divides its capN) or compute whole tiles (the rows spread over it)
+    and, given a sharded ``state``, its bytes on this rank against the
+    whole state's. Given a decode ``cache``
     (``transformer.init_cache(mesh=)``), the rows are a serving step's
     (split over ``data`` only, ``partition.batch_rows(spread=False)``)
     and the line adds the cache's bytes on this rank against the whole
@@ -294,6 +298,10 @@ def describe_lm_mesh(mesh, *, batch: int, state=None, cache=None) -> str:
     line = (f"lm mesh ({d}x{m}): axes (data, model) over {d * m} "
             f"device(s); rows {lo}:{hi} of {batch} (split over "
             f"{', '.join(split) or 'none'})")
+    if m > 1:
+        line += ("; compact columns whole (rows spread over model)"
+                 if "model" in split else
+                 "; compact columns split over model (rows shared)")
     if state is not None:
         local, whole = partition.state_bytes(state)
         line += f"; state {local} of {whole} bytes on this rank"

@@ -14,12 +14,15 @@ With one (``init_distributed`` joins torchrun's: ``torchrun
 the same initial state and keeps its shards of it, by the placements of
 ``partition.constrained_shardings(state_specs, abstract_state)``, takes
 its rows of each global batch and runs the mesh step
-(``train.step.make_train_step(mesh=)``); several ranks on one card run
-on gloo (NCCL takes one rank a card). With ``--ckpt-dir`` the loop runs under
-``repro_torch.runtime.StepRunner``: it resumes from the directory's
-latest checkpoint (plans re-encoded by ``restore_state``), saves every
-``--save-every`` steps, and on SIGTERM or SIGINT saves at the next step
-boundary and exits 0; run the same command again to resume.
+(``train.step.make_train_step(mesh=)``); its mesh line says whether the
+compact products split their columns over ``model`` (its ranks share
+their rows) or not (the rows spread over it). Several ranks on one card
+run on gloo (NCCL takes one rank a card). With ``--ckpt-dir`` the loop
+runs under ``repro_torch.runtime.StepRunner``: it resumes from the
+directory's latest checkpoint (plans re-encoded by ``restore_state``),
+saves every ``--save-every`` steps, and on SIGTERM or SIGINT saves at
+the next step boundary and exits 0; run the same command again to
+resume.
 """
 from __future__ import annotations
 

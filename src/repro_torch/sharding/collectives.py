@@ -31,6 +31,9 @@ each weight as its shards and computes with it whole: :func:`gather_shards`
 all-gathers a leaf in the forward and reduce-scatters its float32
 gradient back onto the leaf's placements in the backward (the FSDP pair),
 and :func:`batch_mean` takes a mean over the batch rows of every rank.
+Where its ``model`` ranks share their rows, each compact product splits
+its output columns over them as serving does, and its backward sums the
+partial input gradient over them with one float32 :func:`all_reduce_flat`.
 """
 from __future__ import annotations
 
@@ -256,6 +259,13 @@ def rows_over(groups: Sequence):
         yield
     finally:
         _ROW_GROUPS.pop()
+
+
+def holds_distinct_rows(group) -> bool:
+    """True when ``group`` is one of :func:`rows_over`'s groups: its ranks
+    hold distinct rows of the running step's batch."""
+    return any(g is group for g in (_ROW_GROUPS[-1] if _ROW_GROUPS
+                                    else ()))
 
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:

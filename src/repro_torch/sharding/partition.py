@@ -532,12 +532,17 @@ def constraint_group(name: str, size: int,
     """The process group that splits a dimension of ``size`` named
     ``name`` on the constraint mesh (:func:`use_constraints`): that of the
     mesh axis the rules map ``name`` to, when the mesh has it wider than
-    1 and it divides ``size``. None otherwise: outside
-    :func:`use_constraints`, without a process group, or where the axis
-    does not divide, which :func:`constrained_pspec` would drop (the
-    dimension stays whole on every rank). The compact product splits
-    its ``"flgw_cap"`` (capN) columns over it
-    (``core.grouped._core_matmul``)."""
+    1, it divides ``size`` and its ranks hold the same rows. None
+    otherwise: outside :func:`use_constraints`, without a process group,
+    where the axis does not divide, which :func:`constrained_pspec` would
+    drop (the dimension stays whole on every rank), and where the
+    running mesh train step spreads its rows over the axis
+    (``collectives.rows_over``): splitting columns among ranks of
+    distinct rows and all-gathering them would mix the rows. The compact
+    product splits its ``"flgw_cap"`` (capN) columns over it in a
+    serving step, whose rows never spread over ``model``, and in a mesh
+    train step whose model ranks share their rows
+    (``core.grouped._core_matmul``, forward and backward)."""
     if not _CONSTRAINT_MESH or not dist.is_initialized():
         return None
     mesh = _CONSTRAINT_MESH[-1]
@@ -546,4 +551,5 @@ def constraint_group(name: str, size: int,
     if not isinstance(axis, str) or sizes.get(axis, 1) == 1 \
             or size % sizes[axis]:
         return None
-    return mesh.get_group(axis)
+    group = mesh.get_group(axis)
+    return None if collectives.holds_distinct_rows(group) else group

@@ -21,7 +21,14 @@ inside its remat (the backward gathers again), and the gradient of each
 weight is reduce-scattered back onto its shards in float32
 (``collectives.gather_shards``), summed over every rank and divided by
 their number (each rank's loss is a mean over its rows, so ranks that
-hold the same rows count once); the clip's norm is one scalar
+hold the same rows count once). Where the ``model`` ranks hold the same
+rows (the rows do not divide over them: the reference's layout, its
+batch over the data axes only), every compact product splits its capN
+output columns over them in the forward, the remat recomputation and
+the backward (``partition.use_constraints(mesh)`` around the three;
+``core.grouped._grouped_bwd`` says how its split gradients count once);
+where the rows spread over ``model`` each rank computes whole tiles
+of its own rows. The clip's norm is one scalar
 all-reduce, each replicated leaf counted once; the optimizer updates
 each rank's shards. The loss, the metrics, the clip and the update are
 the one-process step's up to the order of the sums, and on a one-rank
@@ -36,6 +43,8 @@ failed attempt may have written.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Optional
 
 import torch
@@ -163,6 +172,10 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adamw",
         raise ValueError(optimizer)
 
     row_groups = ()     # the groups whose ranks hold distinct rows
+    # the forward, its remat recomputation and the backward split the
+    # compact products' capN columns over the model ranks that share rows
+    constraints = (contextlib.nullcontext if mesh is None else
+                   functools.partial(partition.use_constraints, mesh))
     if mesh is not None:
         if global_batch is None:
             raise ValueError("a mesh step needs global_batch")
@@ -196,7 +209,7 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adamw",
                              f"{batch['tokens'].shape[0]}")
 
         if microbatches == 1:
-            with collectives.rows_over(row_groups):
+            with collectives.rows_over(row_groups), constraints():
                 loss, metrics, grads = loss_and_grads(state.params, batch,
                                                       cfg, **kw)
         else:
@@ -206,7 +219,7 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adamw",
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             for b_i in zip(*(v.chunk(microbatches) for v in batch.values())):
-                with collectives.rows_over(row_groups):
+                with collectives.rows_over(row_groups), constraints():
                     l_i, _, g_i = loss_and_grads(
                         state.params, dict(zip(batch, b_i)), cfg, **kw)
                 grads = tree_map(torch.add, grads, g_i)

@@ -7,7 +7,9 @@ JAX and, sharded, to every rank by ``interop.train_state_from_numpy``),
 (2, 1), (1, 2) and (2, 2) meshes train gemma2-2b's grouped f32 smoke
 config as JAX's ``make_train_step`` does on the whole batch, within
 ``test_torch_train.py``'s tolerances (the reference's STE fault entries
-excluded, ROADMAP Queue 3); each rank holds only its shards; a MoE config
+excluded, ROADMAP Queue 3); (2, 2) at this batch holds one row a data
+rank, shared by its model ranks, so its compact products split their
+columns over ``model``; each rank holds only its shards; a MoE config
 on (2, 1) gives JAX's loss, its capacity and load-balancing aux from the
 global batch, and in two microbatches JAX's microbatched step (each rank
 holds its rows of every global microbatch); a (2, 2) checkpoint restores onto (2, 1) bitwise, its
@@ -15,6 +17,7 @@ manifest that of a one-process save; ``remesh_state`` moves a sharded
 state between shapes bitwise; ``train_lm`` runs on (2, 1). In one
 process, a one-rank group's mesh step is bitwise the step without one.
 """
+import collections
 import contextlib
 import functools
 import io
@@ -42,6 +45,7 @@ from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import grouped  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
+from repro_torch.kernels.flgw_matmul import ops as kops  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
 from repro_torch.runtime import remesh_state  # noqa: E402
@@ -139,17 +143,54 @@ def _train_on_mesh(mesh, cfg, init, steps, batch=BATCH, microbatches=1):
             _train_on_mesh.first = {
                 op: (n, collectives.BYTES[(op, be)])
                 for (op, be), n in collectives.CALLS.items()}
+            _train_on_mesh.split = dict(
+                tally=dict(_SPLIT), widths=[list(w) for w in _SPLIT_WIDTHS])
+        _SPLIT.clear()
+        _SPLIT_WIDTHS[:] = [[], []]
     return state, metrics
+
+
+# what the compact products ran in the current step of a spawned rank
+# (``_count_split``): their calls and the collectives each ran, by
+# "fwd"/"bwd"; each forward's (capN, columns computed)
+_SPLIT = collections.Counter()
+_SPLIT_WIDTHS = [[], []]
+
+
+def _count_split():
+    """Wrap the compact product's forward, its backward and
+    ``grouped_bmm`` in this rank so that :data:`_SPLIT` tallies them and
+    the collectives they run, and :data:`_SPLIT_WIDTHS` each forward's
+    capN beside the columns its launch took."""
+    def tallied(fn, kind):
+        def run(*args, **kw):
+            if kind == "fwd":
+                _SPLIT_WIDTHS[0].append(args[2].col_ids.shape[-1])
+            before = collections.Counter(collectives.CALLS)
+            out = fn(*args, **kw)
+            _SPLIT[kind] += 1
+            for (op, _), n in (collectives.CALLS - before).items():
+                _SPLIT[f"{kind} {op}"] += n
+            return out
+        return run
+
+    def bmm(xg, wc, real=kops.grouped_bmm):
+        _SPLIT_WIDTHS[1].append(wc.shape[-1])
+        return real(xg, wc)
+    grouped._core_matmul = tallied(grouped._core_matmul, "fwd")
+    grouped._grouped_bwd = tallied(grouped._grouped_bwd, "bwd")
+    kops.grouped_bmm = bmm
 
 
 def _rank(shape, init, moe_init, moe_mb_init, ckpt, role):
     """Everything one spawned rank of a ``shape`` mesh runs."""
     mesh = mesh_lib.make_mesh_from_devices(model=shape[1])
     _, cfg = _gemma()
+    _count_split()
     collectives.CALLS.clear()
     state, metrics = _train_on_mesh(mesh, cfg, init, STEPS)
     out = {"metrics": metrics, "calls": dict(collectives.CALLS),
-           "step1": _train_on_mesh.first,
+           "step1": _train_on_mesh.first, "split": _train_on_mesh.split,
            "params": interop.tree_to_numpy(partition.gather(state.params)),
            "bytes": partition.state_bytes(state),
            "local_shapes": [tuple(x.to_local().shape) for x in
@@ -331,6 +372,32 @@ def test_dry_run_predicts_each_rank_collectives_and_state_bytes(runs, shape):
         assert r["step1"] == got
         assert r["bytes"][0] == res["state_bytes_per_chip"]
         assert r["bytes"][1] == res["state_bytes_whole"]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_model_ranks_sharing_rows_split_the_compact_products(runs, shape):
+    """(2, 2) at a global batch of 2 holds one row a data rank, which its
+    model ranks share: every compact product of a step computes capN/2
+    columns, its forward all-gathers the outputs over the model group and
+    its backward all-reduces once, and those are among the collectives
+    the dry run predicts (``test_dry_run_predicts_...``). (1, 2) spreads
+    its rows over ``model`` and (2, 1) has no model ranks: whole tiles,
+    no collective inside a product."""
+    _, out = runs
+    split = shape == (2, 2)
+    for r in out[shape]:
+        s = r["split"]
+        caps, cols = s["widths"]
+        t = s["tally"]
+        assert t["fwd"] == len(caps) == len(cols) > 0 and t["bwd"] > 0
+        assert list(cols) == [c // 2 if split else c for c in caps]
+        want = {"fwd all_gather": t["fwd"],
+                "bwd all_reduce": t["bwd"]} if split else {}
+        assert {k: v for k, v in t.items() if " " in k} == want
+        if split:
+            step1 = r["step1"]
+            assert step1["all_gather"][0] >= t["fwd"]
+            assert step1["all_reduce"][0] >= t["bwd"]
 
 
 def test_moe_on_a_mesh_matches_jax_loss_with_a_global_aux(runs):

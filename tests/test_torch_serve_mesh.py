@@ -215,8 +215,9 @@ def _compact_products(split: bool):
         plan = plan._replace(wc=kops.compact_weights(
             w, plan.row_ids, plan.col_ids, plan.row_valid, plan.col_valid))
         cap = plan.wc.shape[-1]
-        out.append((grouped._core_matmul(x, w, plan).numpy(),
-                    partition.constraint_group("flgw_cap", cap) is not None))
+        group = partition.constraint_group("flgw_cap", cap)
+        out.append((grouped._core_matmul(x, w, plan, group).numpy(),
+                    group is not None))
     return out
 
 
